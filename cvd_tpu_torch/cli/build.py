@@ -1,0 +1,66 @@
+"""Pipeline assembly for the CLIs (port of ``cvd_tpu/cli/build.py``, the
+random-weights branch). Checkpoint import is not ported yet: it waits for
+the SD1.5 / AnimateDiff / CameraCtrl / CVD files to be in the repository.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from cvd_tpu_torch.io.tokenizer import HashTokenizer
+from cvd_tpu_torch.models.clip_text import CLIPTextConfig
+from cvd_tpu_torch.models.unet import UNetConfig
+from cvd_tpu_torch.models.vae import VAEConfig
+from cvd_tpu_torch.pipelines.common import PipelineModules
+
+SMOKE_UNET = UNetConfig(
+    block_out_channels=(32, 64, 64, 64),
+    attention_heads=4,
+    cross_attention_dim=24,
+    norm_num_groups=8,
+)
+SMOKE_VAE = VAEConfig(block_out_channels=(32, 32, 64, 64), norm_num_groups=8)
+SMOKE_CLIP = CLIPTextConfig(hidden_size=24, num_layers=2, num_heads=4, intermediate_size=48)
+
+
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--random-weights", action="store_true", dest="random_weights",
+                   help="tiny random-weight smoke mode (no checkpoints needed)")
+    p.add_argument("--random-weights-full", action="store_true",
+                   dest="random_weights_full",
+                   help="FULL-SIZE random weights (SD1.5 widths, drawn on the "
+                        "device from a fixed seed): real deployment shapes "
+                        "without checkpoints, garbage pixels")
+    p.add_argument("--pose_adaptor_scale", type=float, default=1.0)
+    p.add_argument("--bf16", action="store_true", help="bfloat16 weights and activations")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda when available, else cpu)")
+
+
+def resolve_device(args) -> torch.device:
+    if args.device:
+        return torch.device(args.device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def build_modules(args, device: torch.device) -> Tuple[PipelineModules, HashTokenizer]:
+    """-> (modules, tokenizer) with random weights."""
+    if not (args.random_weights or args.random_weights_full):
+        raise NotImplementedError(
+            "checkpoint import is not ported yet: pass --random-weights or "
+            "--random-weights-full")
+    full = args.random_weights_full
+    generator = torch.Generator(device=device).manual_seed(0)
+    modules = PipelineModules.create(
+        unet_config=dataclasses.replace(UNetConfig() if full else SMOKE_UNET,
+                                        pose_scale=args.pose_adaptor_scale),
+        vae_config=VAEConfig() if full else SMOKE_VAE,
+        clip_config=CLIPTextConfig() if full else SMOKE_CLIP,
+        device=device,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        generator=generator,
+    )
+    return modules, HashTokenizer()

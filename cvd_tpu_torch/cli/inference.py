@@ -1,0 +1,133 @@
+"""2-view inference CLI (port of ``cvd_tpu/cli/inference.py``).
+
+    python -m cvd_tpu_torch.cli.inference --random-weights-full --bf16 \
+        --caption_file assets/example_prompts.json --use_negative_prompt \
+        --pose_file_0 assets/pose_files/example_dolly.txt \
+        --pose_file_1 assets/pose_files/example_arc.txt --out_root results/
+
+Each prompt writes ``<out_root>/<idx>/videos.npy`` (uint8 [2, F, H, W, 3])
+and, where ``imageio`` is installed, per-view mp4 and png frames.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import List
+
+import torch
+
+
+def load_prompts(caption_file: str, use_negative: bool, num_videos=None):
+    if caption_file.endswith(".json"):
+        with open(caption_file) as f:
+            data = json.load(f)
+        captions = data.get("captions", data.get("prompts"))
+        if isinstance(captions[0], dict):
+            captions = [c["caption"] for c in captions]
+        negatives = data.get("negative_prompts") if use_negative else None
+        if negatives is not None and len(negatives) != len(captions):
+            raise SystemExit(f"--use_negative_prompt: negative_prompts has "
+                             f"{len(negatives)} entries but captions has {len(captions)}")
+        seeds = data.get("seeds")
+    else:
+        with open(caption_file) as f:
+            captions = [line.strip() for line in f if line.strip()]
+        negatives, seeds = None, None
+    if num_videos:
+        captions = captions * num_videos
+        negatives = negatives * num_videos if negatives else None
+    return captions, negatives, seeds
+
+
+def main(args) -> List[dict]:
+    """Runs every prompt. Returns one record per prompt: ``videos`` (f32
+    [2, F, H, W, 3] in [0, 1]), ``seconds`` (wall time of the request) and
+    ``unet_step_ms`` (each UNet call of the DDIM loop)."""
+    from cvd_tpu_torch.cli.build import build_modules, resolve_device
+    from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+    from cvd_tpu_torch.utils.video import (
+        have_imageio, save_npy, save_video, save_video_as_images,
+    )
+
+    if args.image_width != args.image_height:
+        raise SystemExit("the epipolar attention assumes a square token grid: "
+                         "use --image_width == --image_height")
+    if args.multidiff_total_steps != 1:
+        raise SystemExit("--multidiff_total_steps > 1 is not ported yet")
+    captions, negatives, seeds = load_prompts(
+        args.caption_file, args.use_negative_prompt, args.num_videos)
+    device = resolve_device(args)
+    t0 = time.perf_counter()
+    modules, tokenizer = build_modules(args, device)
+    print(f"[inference] built modules on {device} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    pipe = SimplePipeline(modules, F_mat_size=args.image_height, rand_slope_ff=True)
+    dataset = ValRealEstate10KPoseFolded(
+        validation_prompts=captions,
+        validation_negative_prompts=negatives,
+        pose_file_0=args.pose_file_0,
+        pose_file_1=args.pose_file_1,
+        sample_n_frames=args.video_length,
+        sample_size=args.image_height,
+        zero_first_frame_scale=args.zero_first_frame_scale,
+    )
+    F, S = args.video_length, args.image_height
+    results = []
+    for idx in range(len(dataset)):
+        sample = dataset[idx]
+        seed = seeds[idx] if (seeds and args.use_specific_seeds) else args.global_seed + idx
+        prompt_ids = torch.from_numpy(tokenizer([sample["validation_prompt"]]))
+        neg_ids = torch.from_numpy(tokenizer([sample.get("validation_negative_prompt", "")]))
+        plucker = torch.from_numpy(sample["plucker_embedding"]).float().reshape(2, F, S, S, 6)
+        F_mats = torch.from_numpy(sample["F_mats"]).float().reshape(2, F, 3, 3)
+        t0 = time.perf_counter()
+        videos = pipe(prompt_ids, neg_ids, plucker, F_mats,
+                      num_inference_steps=args.num_inference_steps,
+                      guidance_scale=args.guidance_scale,
+                      generator=torch.Generator(device=device).manual_seed(seed))
+        videos = videos.cpu().numpy()
+        seconds = time.perf_counter() - t0
+        print(f"[inference] [{idx}] {sample['validation_prompt']!r} seed={seed}: "
+              f"{seconds:.2f} s", flush=True)
+        out = os.path.join(args.out_root, str(idx))
+        save_npy(videos, os.path.join(out, "videos.npy"))
+        if have_imageio():
+            for v in range(2):
+                save_video_as_images(videos[v], os.path.join(out, "imgs", str(v)))
+                save_video(videos[v], os.path.join(out, "vids", f"{v}.mp4"))
+        results.append({"videos": videos, "seconds": seconds,
+                        "unet_step_ms": list(pipe.unet_step_ms)})
+    return results
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from cvd_tpu_torch.cli.build import add_model_args
+
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--out_root", default="results")
+    p.add_argument("--image_height", type=int, default=256)
+    p.add_argument("--image_width", type=int, default=256)
+    p.add_argument("--video_length", type=int, default=16)
+    add_model_args(p)
+    p.add_argument("--num_inference_steps", type=int, default=25)
+    p.add_argument("--multidiff_total_steps", type=int, default=1)
+    p.add_argument("--guidance_scale", type=float, default=8.5)
+    p.add_argument("--caption_file", required=True)
+    p.add_argument("--use_negative_prompt", action="store_true")
+    p.add_argument("--use_specific_seeds", action="store_true")
+    p.add_argument("--zero_first_frame_scale", action="store_true", default=True)
+    p.add_argument("--preserve_first_frame_scale", dest="zero_first_frame_scale",
+                   action="store_false")
+    p.add_argument("--global_seed", type=int, default=1024)
+    p.add_argument("--pose_file_0", required=True)
+    p.add_argument("--pose_file_1", required=True)
+    p.add_argument("--num_videos", type=int, default=None)
+    return p
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

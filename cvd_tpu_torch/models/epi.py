@@ -1,0 +1,187 @@
+"""Epi (cross-video synchronization) module (port of
+``cvd_tpu/models/epi.py``): per-frame spatial attention whose queries come
+from one video and keys/values from its partner video, with the additive
+soft epipolar bias of the fundamental matrix between the paired cameras.
+
+On grids of 16x16 and up (the JAX package's kernel sites) q/k/v are
+projected from the SOURCE rows and the partner's k/v are routed inside
+kernel K1 through ``kv_index``, with the bias evaluated per tile from the
+factored line geometry; on smaller grids the partner rows are gathered and
+the bias materialized (plain attention).
+
+The 2-view route only: the partner of row b is row (b + B/2) mod B (the
+half swap). Left out of this port so far: homography (H_mats) and
+pose-free pseudo lines, explicit / multi-group kv routing (the N-view
+sampler's ``kv_index``), ``fix_firstframe``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from cvd_tpu_torch.geometry.epipolar_mask import (
+    epipolar_attn_bias_from_lines, epipolar_lines, lines_and_band,
+    pixel_grid_coords, pseudo_lines,
+)
+from cvd_tpu_torch.models.layers import (
+    FeedForward, FusedGroupNorm, group_norm_per_frame, merge_heads, split_heads,
+)
+from cvd_tpu_torch.ops.attention import attention_with_bias
+from cvd_tpu_torch.ops.epi_flash import epi_flash_attention
+from cvd_tpu_torch.ops.ln_matmul import layer_norm_matmul
+
+# epi attentions on grids at least this wide take the fused kernel
+EPI_KERNEL_MIN_FEAT = 16
+
+
+@dataclasses.dataclass
+class EpiConditioning:
+    """Per-UNet-call epipolar conditioning carried to every epi attention.
+    Batch-major over (video * cfg, frame), like the hidden states there."""
+
+    F_mats: Optional[torch.Tensor] = None    # [B, 3, 3] f32
+    F_mat_size: int = 256
+    video_length: int = 16
+    rand_slope_ff: bool = True
+    mono_direction: bool = False
+    # draws the first-frame pseudo-line slope of every epi attention
+    generator: Optional[torch.Generator] = None
+
+
+def _uniform_slope(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
+    """Random slope in [0, pi) from the explicit generator (the reference
+    draws torch.rand per call, epi_module.py:316)."""
+    if generator is None:
+        raise ValueError("pseudo-epipolar lines need a random slope: set "
+                         "EpiConditioning.generator (or rand_slope_ff=False)")
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return (u * math.pi).to(device)
+
+
+def _epi_lines(cond: EpiConditioning, feat_size: int, device) -> torch.Tensor:
+    """Per-query epipolar line coefficients [B, Q, 3], every
+    ``video_length``-th row replaced by first-frame pseudo lines with one
+    shared slope (or horizontal lines without rand_slope_ff)."""
+    if cond.F_mats is None:
+        raise NotImplementedError("pose-free / homography epi lines are not ported yet")
+    coords = pixel_grid_coords(feat_size, cond.F_mat_size, device)
+    F_mats = cond.F_mats.to(device=device, dtype=torch.float32)
+    B = F_mats.shape[0]
+    lines = epipolar_lines(F_mats, coords)
+    slope = _uniform_slope(cond.generator, (1,), device) if cond.rand_slope_ff else None
+    ff_lines = pseudo_lines(coords[None], slope=slope)
+    is_ff = (torch.arange(B, device=device) % cond.video_length) == 0
+    return torch.where(is_ff[:, None, None], ff_lines, lines)
+
+
+def gather_partner_tokens(hidden: torch.Tensor) -> torch.Tensor:
+    """Key/value source rows: the 2-view half swap."""
+    half = hidden.shape[0] // 2
+    return torch.cat([hidden[half:], hidden[:half]], dim=0)
+
+
+class EpiSelfAttention(nn.Module):
+    """One cross-video attention with epipolar bias. Input [B, N, C],
+    B = views * cfg * frames, N = H * W."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(dim, dim, bias=False)
+        self.to_v = nn.Linear(dim, dim, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+
+    def forward(self, x: torch.Tensor, cond: EpiConditioning,
+                pre_ln: nn.LayerNorm) -> torch.Tensor:
+        """``x`` is UNNORMALIZED: ``pre_ln`` folds into the projections
+        (LayerNorm is per token, so it commutes with the partner gather)."""
+        B, N, C = x.shape
+        feat_size = int(round(N ** 0.5))
+        if feat_size * feat_size != N:
+            raise ValueError("epi attention requires square grids")
+        if cond.mono_direction:
+            # the reference rejects this path too (attention_processor.py:622)
+            raise NotImplementedError("mono_direction is not supported")
+        lines = _epi_lines(cond, feat_size, x.device)
+        weights = (self.to_q.weight, self.to_k.weight, self.to_v.weight)
+
+        def project(tokens, ws):
+            return layer_norm_matmul(tokens, pre_ln.weight, pre_ln.bias, list(ws),
+                                     [None] * len(ws), eps=pre_ln.eps)
+
+        if feat_size >= EPI_KERNEL_MIN_FEAT:
+            half = B // 2
+            route = torch.cat([torch.arange(half, B), torch.arange(0, half)])
+            route = route.to(device=x.device, dtype=torch.int32)
+            q, k, v = project(x, weights)
+            coords_xy = pixel_grid_coords(feat_size, cond.F_mat_size, x.device)[:, :2].T
+            norm_lines, band, alpha = lines_and_band(lines, feat_size, cond.F_mat_size)
+            out = epi_flash_attention(q, k, v, norm_lines, coords_xy.contiguous(), band,
+                                      alpha, heads=self.heads, kv_index=route)
+        else:
+            (q,) = project(x, weights[:1])
+            k, v = project(gather_partner_tokens(x), weights[1:])
+            coords = pixel_grid_coords(feat_size, cond.F_mat_size, x.device)
+            bias = epipolar_attn_bias_from_lines(lines, coords, feat_size, cond.F_mat_size)
+            out = merge_heads(attention_with_bias(
+                split_heads(q, self.heads), split_heads(k, self.heads),
+                split_heads(v, self.heads), bias))
+        return self.to_out[0](out)
+
+
+class EpiTransformerBlock(nn.Module):
+    """num_attention_blocks x (LN -> EpiSelfAttention -> +res), then FF."""
+
+    def __init__(self, dim: int, heads: int, num_attention_blocks: int = 2):
+        super().__init__()
+        self.attention_blocks = nn.ModuleList([
+            EpiSelfAttention(dim, heads) for _ in range(num_attention_blocks)])
+        self.norms = nn.ModuleList([nn.LayerNorm(dim, eps=1e-5)
+                                    for _ in range(num_attention_blocks)])
+        self.ff = FeedForward(dim)
+        self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, cond: EpiConditioning) -> torch.Tensor:
+        for norm, attn in zip(self.norms, self.attention_blocks):
+            x = x + attn(x, cond, pre_ln=norm)
+        return self.ff(x, pre_ln=self.ff_norm) + x
+
+
+class EpiTransformer(nn.Module):
+    """The epi module of one UNet layer: [B, F, H, W, C] in and out, with
+    the outer residual."""
+
+    def __init__(self, in_channels: int, heads: int = 8, num_transformer_blocks: int = 1,
+                 num_attention_blocks: int = 2, norm_groups: int = 32):
+        super().__init__()
+        C = in_channels
+        self.norm = FusedGroupNorm(C, norm_groups, 1e-6)
+        self.proj_in = nn.Linear(C, C)
+        self.transformer_blocks = nn.ModuleList([
+            EpiTransformerBlock(C, heads, num_attention_blocks)
+            for _ in range(num_transformer_blocks)])
+        self.proj_out = nn.Linear(C, C)
+
+    def forward(self, x: torch.Tensor, cond: EpiConditioning) -> torch.Tensor:
+        B, Fr, H, W, C = x.shape
+        h = self.proj_in(group_norm_per_frame(self.norm, x).reshape(B * Fr, H * W, C))
+        for blk in self.transformer_blocks:
+            h = blk(h, cond)
+        return self.proj_out(h).reshape(B, Fr, H, W, C) + x
+
+
+class EpiModule(nn.Module):
+    """The reference nests the transformer one level down (state-dict key
+    ``epi_modules.{j}.epi_transformer...``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self.epi_transformer = EpiTransformer(*args, **kwargs)
+
+    def forward(self, x: torch.Tensor, cond: EpiConditioning) -> torch.Tensor:
+        return self.epi_transformer(x, cond)

@@ -1,0 +1,175 @@
+"""Motion module: per-pixel temporal self-attention (AnimateDiff V3) with
+CameraCtrl pose conditioning (port of ``cvd_tpu/models/motion.py``).
+
+The first temporal attention of each block mixes the pose-encoder feature
+into its qkv source through a zero-initialized merge layer,
+``h' = qkv_merge(h + pose) * scale + h``. Tokens are pixel-major
+[B, N, F, C] inside the module, so the attention over the frame axis reads
+per-head [pixel, frame, dim] slices in place (kernel K3 on CUDA).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from cvd_tpu_torch.models.layers import (
+    FeedForward, FusedGroupNorm, fused_matmul, group_norm_per_frame,
+    temporal_positional_encoding,
+)
+from cvd_tpu_torch.ops.temporal_attn import temporal_attention_plain, temporal_flash_attention
+
+# temporal attentions over at least this many pixels take the fused kernel
+# on CUDA, as the JAX package does (motion.py:186-231)
+TEMPORAL_KERNEL_MIN_PIXELS = 128
+
+
+def causal_temporal_mask(kind: str, length: int) -> torch.Tensor:
+    """Temporal attention mask variants (causal / 2-seq / 0-prev / 0 /
+    wo-self / circle) as an additive f32 [length, length] mask (0 allowed,
+    -inf blocked)."""
+    i = np.arange(length)
+    if kind == "causal":
+        m = np.tril(np.ones((length, length)))
+    elif kind == "2-seq":
+        m = np.zeros((length, length))
+        m[: length // 2, : length // 2] = 1
+        m[-(length // 2):, -(length // 2):] = 1
+    elif kind == "0-prev":
+        prev = np.maximum(i - 1, 0)
+        m = np.zeros((length, length))
+        m[:, 0] = 1
+        m[i, prev] = 1
+    elif kind == "0":
+        m = np.zeros((length, length))
+        m[:, 0] = 1
+    elif kind == "wo-self":
+        m = np.ones((length, length))
+        m[i, i] = 0
+    elif kind == "circle":
+        prev = np.maximum(i - 1, 0)
+        m = np.eye(length)
+        m[i, prev] = 1
+        m[0, -1] = 1
+    else:
+        raise ValueError(kind)
+    return torch.from_numpy(np.where(m == 0, -np.inf, 0.0).astype(np.float32))
+
+
+class _PoseProcessor(nn.Module):
+    """Holds ``qkv_merge`` where the reference keeps it: on the attention
+    processor (state-dict key ``...attention_blocks.0.processor.qkv_merge``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.qkv_merge = nn.Linear(dim, dim)
+
+
+class TemporalSelfAttention(nn.Module):
+    """One temporal attention over the frame axis: sinusoidal PE + optional
+    pose conditioning. Input [B, N, F, C], already layer-normed."""
+
+    def __init__(self, dim: int, heads: int, pe_max_len: int = 32,
+                 pose_conditioned: bool = False, pose_scale: float = 1.0,
+                 causal_mask_type: str = ""):
+        super().__init__()
+        self.heads = heads
+        self.pe_max_len = pe_max_len
+        self.pose_scale = pose_scale
+        self.causal_mask_type = causal_mask_type
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(dim, dim, bias=False)
+        self.to_v = nn.Linear(dim, dim, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+        self.processor = _PoseProcessor(dim) if pose_conditioned else None
+
+    def forward(self, x: torch.Tensor,
+                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, N, Fr, C = x.shape
+        pe = temporal_positional_encoding(self.pe_max_len, C, x.device)[:, :Fr]
+        x = x + pe.to(x.dtype)
+        if self.processor is not None and pose_feature is not None:
+            x = self.processor.qkv_merge(x + pose_feature.to(x.dtype)) * self.pose_scale + x
+        q, k, v = fused_matmul(x, (self.to_q.weight, self.to_k.weight, self.to_v.weight))
+        mask = (causal_temporal_mask(self.causal_mask_type, Fr).to(x.device)
+                if self.causal_mask_type else None)
+        if N >= TEMPORAL_KERNEL_MIN_PIXELS:
+            out = temporal_flash_attention(q, k, v, mask, heads=self.heads)
+        else:
+            out = temporal_attention_plain(q, k, v, mask, self.heads)
+        return self.to_out[0](out)
+
+
+class TemporalTransformerBlock(nn.Module):
+    """N temporal attentions + feed-forward, pre-LN residual style. Tokens
+    [B, N, F, C]."""
+
+    def __init__(self, dim: int, heads: int, num_attention_blocks: int = 2,
+                 pe_max_len: int = 32, pose_cond_indices: Sequence[int] = (0,),
+                 pose_scale: float = 1.0, causal_mask_type: str = ""):
+        super().__init__()
+        self.attention_blocks = nn.ModuleList([
+            TemporalSelfAttention(dim, heads, pe_max_len,
+                                  pose_conditioned=i in pose_cond_indices,
+                                  pose_scale=pose_scale,
+                                  causal_mask_type=causal_mask_type)
+            for i in range(num_attention_blocks)
+        ])
+        self.norms = nn.ModuleList([nn.LayerNorm(dim, eps=1e-5)
+                                    for _ in range(num_attention_blocks)])
+        self.ff = FeedForward(dim)
+        self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor,
+                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for norm, attn in zip(self.norms, self.attention_blocks):
+            x = attn(norm(x), pose_feature) + x
+        return self.ff(x, pre_ln=self.ff_norm) + x
+
+
+class TemporalTransformer(nn.Module):
+    """The motion module of one UNet layer. Input/output [B, F, H, W, C]
+    with the outer residual connection."""
+
+    def __init__(self, in_channels: int, heads: int = 8, num_transformer_blocks: int = 1,
+                 num_attention_blocks: int = 2, pe_max_len: int = 32,
+                 pose_cond_indices: Sequence[int] = (0,), pose_scale: float = 1.0,
+                 norm_groups: int = 32, causal_mask_type: str = ""):
+        super().__init__()
+        C = in_channels
+        self.norm = FusedGroupNorm(C, norm_groups, 1e-6)
+        self.proj_in = nn.Linear(C, C)
+        self.transformer_blocks = nn.ModuleList([
+            TemporalTransformerBlock(C, heads, num_attention_blocks, pe_max_len,
+                                     pose_cond_indices, pose_scale, causal_mask_type)
+            for _ in range(num_transformer_blocks)
+        ])
+        self.proj_out = nn.Linear(C, C)
+
+    def forward(self, x: torch.Tensor,
+                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, Fr, H, W, C = x.shape
+        # per-frame GroupNorm, then pixel-major for the temporal blocks
+        h = group_norm_per_frame(self.norm, x).reshape(B, Fr, H * W, C)
+        h = self.proj_in(h.transpose(1, 2))
+        if pose_feature is not None:
+            pose_feature = pose_feature.reshape(B, Fr, H * W, -1).transpose(1, 2)
+        for blk in self.transformer_blocks:
+            h = blk(h, pose_feature)
+        h = self.proj_out(h).transpose(1, 2)
+        return h.reshape(B, Fr, H, W, C) + x
+
+
+class MotionModule(nn.Module):
+    """VanillaTemporalModule: the reference nests the transformer one level
+    down (state-dict key ``motion_modules.{j}.temporal_transformer...``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self.temporal_transformer = TemporalTransformer(*args, **kwargs)
+
+    def forward(self, x: torch.Tensor,
+                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.temporal_transformer(x, pose_feature)

@@ -1,0 +1,231 @@
+"""UNet3DConditionModel — SD1.5 UNet inflated to video, with AnimateDiff
+motion modules and CVD epi (cross-video sync) modules (port of
+``cvd_tpu/models/unet.py``). Per UNet layer the op order is
+
+    resnet (per frame) -> spatial transformer (per frame, text cross-attn)
+    -> motion module (temporal attn, pose-conditioned) -> epi module
+
+Layout is channels-last video [B, F, H, W, C]; per-frame 2D ops fold frames
+into the batch. Module names reproduce the reference state-dict keys
+(``down_blocks.{i}.resnets.{j}...``). Not ported yet: the layer scan
+(``scan_identical_layers``) and remat, which are XLA compile and memory
+levers; LoRA, sync-LoRA, first-frame fusion and the auxiliary q/k head.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from cvd_tpu_torch.models.epi import EpiConditioning, EpiModule
+from cvd_tpu_torch.models.layers import (
+    Conv2d, Downsample2D, FusedGroupNorm, ResnetBlock2D, TimestepEmbedding,
+    Transformer2DModel, Upsample2D, sinusoidal_time_embedding,
+)
+from cvd_tpu_torch.models.motion import MotionModule
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    attention_heads: int = 8
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    use_motion_module: bool = True
+    motion_module_resolutions: Tuple[int, ...] = (1, 2, 4, 8)
+    motion_module_mid_block: bool = False
+    motion_num_transformer_blocks: int = 1
+    motion_num_attention_blocks: int = 2
+    motion_pe_max_len: int = 32
+    # the motion/epi GroupNorm group count comes from the module kwargs
+    # (default 32), NOT from norm_num_groups (docs/PARITY.md:105-108)
+    motion_norm_groups: int = 32
+    epi_norm_groups: int = 32
+    pose_cond_attn_indices: Tuple[int, ...] = (0,)
+    pose_scale: float = 1.0
+    use_epi_module: bool = True
+    epi_module_resolutions: Tuple[int, ...] = (1, 2, 4, 8)
+    epi_module_mid_block: bool = False
+    epi_num_transformer_blocks: int = 1
+    epi_num_attention_blocks: int = 2
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
+
+
+def _unfold(x: torch.Tensor, B: int) -> torch.Tensor:
+    return x.reshape((B, -1) + x.shape[1:])
+
+
+def _motion(cfg: UNetConfig, channels: int) -> MotionModule:
+    return MotionModule(channels, cfg.attention_heads, cfg.motion_num_transformer_blocks,
+                        cfg.motion_num_attention_blocks, cfg.motion_pe_max_len,
+                        cfg.pose_cond_attn_indices, cfg.pose_scale, cfg.motion_norm_groups)
+
+
+def _epi(cfg: UNetConfig, channels: int) -> EpiModule:
+    return EpiModule(channels, cfg.attention_heads, cfg.epi_num_transformer_blocks,
+                     cfg.epi_num_attention_blocks, cfg.epi_norm_groups)
+
+
+class _Block(nn.Module):
+    """A down, mid or up block: per layer resnet -> attention? -> motion? ->
+    epi?, then an optional down/upsampler."""
+
+    def __init__(self, cfg: UNetConfig, in_channels: Sequence[int], channels: int,
+                 temb_dim: int, with_attn: bool, use_motion: bool, use_epi: bool):
+        super().__init__()
+        heads = cfg.attention_heads
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(c_in, channels, temb_dim, cfg.norm_num_groups)
+            for c_in in in_channels])
+        n = len(in_channels)
+        self.attentions = nn.ModuleList([
+            Transformer2DModel(channels, heads, channels // heads,
+                               cross_attention_dim=cfg.cross_attention_dim,
+                               groups=cfg.norm_num_groups)
+            for _ in range(n)]) if with_attn else None
+        self.motion_modules = nn.ModuleList(
+            [_motion(cfg, channels) for _ in range(n)]) if use_motion else None
+        self.epi_modules = nn.ModuleList(
+            [_epi(cfg, channels) for _ in range(n)]) if use_epi else None
+
+    def layer(self, j: int, x: torch.Tensor, temb_f: torch.Tensor,
+              context_f: Optional[torch.Tensor], pose_feature: Optional[torch.Tensor],
+              epi_cond: Optional[EpiConditioning]) -> torch.Tensor:
+        B = x.shape[0]
+        h = self.resnets[j](_fold(x), temb_f)
+        if self.attentions is not None:
+            h = self.attentions[j](h, context_f)
+        x = _unfold(h, B)
+        if self.motion_modules is not None:
+            x = self.motion_modules[j](x, pose_feature)
+        if self.epi_modules is not None:
+            x = self.epi_modules[j](x, epi_cond)
+        return x
+
+
+class CrossAttnDownBlock(_Block):
+    def __init__(self, cfg, in_channels, channels, temb_dim, with_attn, use_motion,
+                 use_epi, add_downsample):
+        super().__init__(cfg, [in_channels] + [channels] * (cfg.layers_per_block - 1),
+                         channels, temb_dim, with_attn, use_motion, use_epi)
+        self.downsamplers = (nn.ModuleList([Downsample2D(channels)])
+                             if add_downsample else None)
+
+    def forward(self, x, temb_f, context_f, pose_feature, epi_cond):
+        res_states = []
+        for j in range(len(self.resnets)):
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond)
+            res_states.append(x)
+        if self.downsamplers is not None:
+            x = _unfold(self.downsamplers[0](_fold(x)), x.shape[0])
+            res_states.append(x)
+        return x, res_states
+
+
+class MidBlock(_Block):
+    def __init__(self, cfg, channels, temb_dim, use_motion, use_epi):
+        super().__init__(cfg, [channels], channels, temb_dim, True, use_motion, use_epi)
+        self.resnets.append(ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups))
+
+    def forward(self, x, temb_f, context_f, pose_feature, epi_cond):
+        x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond)
+        return _unfold(self.resnets[1](_fold(x), temb_f), x.shape[0])
+
+
+class CrossAttnUpBlock(_Block):
+    def __init__(self, cfg, in_channels, channels, temb_dim, with_attn, use_motion,
+                 use_epi, add_upsample):
+        super().__init__(cfg, in_channels, channels, temb_dim, with_attn, use_motion,
+                         use_epi)
+        self.upsamplers = nn.ModuleList([Upsample2D(channels)]) if add_upsample else None
+
+    def forward(self, x, res_states, temb_f, context_f, pose_feature, epi_cond):
+        for j in range(len(self.resnets)):
+            x = torch.cat([x, res_states[-1 - j]], dim=-1)
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond)
+        if self.upsamplers is not None:
+            x = _unfold(self.upsamplers[0](_fold(x)), x.shape[0])
+        return x
+
+
+class UNet3DConditionModel(nn.Module):
+    """Pose- and epipolar-conditioned video UNet."""
+
+    def __init__(self, config: UNetConfig = UNetConfig()):
+        super().__init__()
+        cfg = self.config = config
+        ch = cfg.block_out_channels
+        temb_dim = ch[0] * 4
+        self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, 1, 1)
+
+        res_channels: List[int] = [ch[0]]
+        down = []
+        for i, c in enumerate(ch):
+            is_final = i == len(ch) - 1
+            down.append(CrossAttnDownBlock(
+                cfg, ch[max(i - 1, 0)], c, temb_dim, with_attn=not is_final,
+                use_motion=cfg.use_motion_module and 2 ** i in cfg.motion_module_resolutions,
+                use_epi=cfg.use_epi_module and 2 ** i in cfg.epi_module_resolutions,
+                add_downsample=not is_final))
+            res_channels += [c] * (cfg.layers_per_block + (0 if is_final else 1))
+        self.down_blocks = nn.ModuleList(down)
+        self.mid_block = MidBlock(cfg, ch[-1], temb_dim,
+                                  cfg.use_motion_module and cfg.motion_module_mid_block,
+                                  cfg.use_epi_module and cfg.epi_module_mid_block)
+        rev = list(reversed(ch))
+        up, cur = [], rev[0]
+        for i, c in enumerate(rev):
+            n_layers = cfg.layers_per_block + 1
+            skips = res_channels[-n_layers:][::-1]
+            res_channels = res_channels[:-n_layers]
+            in_chs = [(cur if j == 0 else c) + s for j, s in enumerate(skips)]
+            up.append(CrossAttnUpBlock(
+                cfg, in_chs, c, temb_dim, with_attn=i != 0,
+                use_motion=cfg.use_motion_module and 2 ** (3 - i) in cfg.motion_module_resolutions,
+                use_epi=cfg.use_epi_module and 2 ** (3 - i) in cfg.epi_module_resolutions,
+                add_upsample=i != len(ch) - 1))
+            cur = c
+        self.up_blocks = nn.ModuleList(up)
+        self.conv_norm_out = FusedGroupNorm(ch[0], cfg.norm_num_groups, 1e-5, act="silu")
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, 1, 1)
+
+    def forward(
+        self,
+        sample: torch.Tensor,                    # [B, F, H, W, C_in]
+        timesteps,                               # int, [] or [B]
+        encoder_hidden_states: torch.Tensor,     # [B, L, cross_dim]
+        pose_features: Optional[Sequence[torch.Tensor]] = None,  # 4x [B, F, h, w, c]
+        epi_cond: Optional[EpiConditioning] = None,
+    ) -> torch.Tensor:
+        B, Fr = sample.shape[:2]
+        dtype = self.conv_in.weight.dtype
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(B)
+        t_emb = sinusoidal_time_embedding(timesteps, self.config.block_out_channels[0])
+        temb_f = self.time_embedding(t_emb.to(dtype)).repeat_interleave(Fr, dim=0)
+        context_f = encoder_hidden_states.to(dtype).repeat_interleave(Fr, dim=0)
+        if pose_features is None:
+            pose_features = [None] * 4
+
+        x = _unfold(self.conv_in(_fold(sample.to(dtype))), B)
+        res_stack = [x]
+        for i, block in enumerate(self.down_blocks):
+            x, res = block(x, temb_f, context_f, pose_features[i], epi_cond)
+            res_stack += res
+        x = self.mid_block(x, temb_f, context_f, pose_features[-1], epi_cond)
+        for i, block in enumerate(self.up_blocks):
+            n = len(block.resnets)
+            res, res_stack = res_stack[-n:], res_stack[:-n]
+            x = block(x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond)
+        h = self.conv_norm_out(_fold(x))
+        return _unfold(self.conv_out(h), B)

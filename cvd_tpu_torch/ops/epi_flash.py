@@ -1,0 +1,145 @@
+"""Fused (epipolar) flash attention — port of ``cvd_tpu/ops/epi_flash.py``.
+
+``epi_flash_attention`` (kernel K1) is the cross-video attention of the epi
+modules: query row b reads the k/v of row ``kv_index[b]`` and adds the
+epipolar bias ``-relu(|a_q x_k + b_q y_k + c_q| - band_b) * alpha_b``.
+``flash_attention`` (kernel K2) is the same kernel without bias, for the
+big spatial self-attentions. Both take q/k/v in the projections' native
+[B, L, C] layout (C = heads * head_dim).
+
+On CUDA tensors both launch ``csrc/epi_flash_fwd.cu``; on CPU tensors they
+run the plain PyTorch version below (``_plain``), which is also what the
+kernel is checked against on the card. Forward only: the backward kernel
+(TPU ``_bwd_kernel``) comes with training.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from cvd_tpu_torch.ops import _build
+from cvd_tpu_torch.ops.attention import attention_with_bias
+
+_SIGNATURE = {"epi_flash_fwd": [
+    _build.I, _build.I, _build.P, _build.P, _build.P,
+    _build.L, _build.L, _build.L, _build.L, _build.L, _build.L,
+    _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.P, _build.L, _build.L, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
+]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def bias_from_geometry(norm_lines: torch.Tensor, coords: torch.Tensor,
+                       band: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """[B, Lq, Lk] epipolar bias from ab-normalized query lines [B, Lq, 3],
+    key pixel coords [2, Lk] (x row, y row) and per-row band/alpha [B] —
+    the math of the TPU kernel's ``_bias_tile``."""
+    a, b, c = norm_lines.float().unbind(-1)
+    cfc = torch.abs(a[..., None] * coords[0] + b[..., None] * coords[1] + c[..., None])
+    return -torch.clamp(cfc - band[:, None, None], min=0.0) * alpha[:, None, None]
+
+
+def _plain(q, k, v, geom, kv_index, heads):
+    B, Lq, C = q.shape
+    if kv_index is not None:
+        k, v = k[kv_index.long()], v[kv_index.long()]
+    D = C // heads
+
+    def split(x):
+        return x.reshape(x.shape[0], x.shape[1], heads, D).transpose(1, 2)
+
+    bias = None if geom is None else bias_from_geometry(*geom)
+    out = attention_with_bias(split(q), split(k), split(v), bias)
+    return out.transpose(1, 2).reshape(B, Lq, C)
+
+
+def _check_rows(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The kernel reads rows with 16-byte vector loads through strides."""
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or any(
+            (s * x.element_size()) % 16 for s in x.stride()[:-1]):
+        x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: storage is not 16-byte aligned")
+    return x
+
+
+def _launch(q, k, v, geom, kv_index, heads) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"epi flash kernel takes f32 or bf16 q/k/v, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    B, Lq, C = q.shape
+    Lk = k.shape[1]
+    if C % heads or k.shape[2] != C or v.shape[1:] != k.shape[1:]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} heads {heads}")
+    D = C // heads
+    if D % (16 // q.element_size()) or D > 160:
+        raise ValueError(f"head_dim {D}: the kernel takes a multiple of "
+                         f"{16 // q.element_size()} up to 160")
+    q, k, v = (_check_rows(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v")))
+    out = torch.empty((B, Lq, C), device=q.device, dtype=q.dtype)
+    lse = torch.empty((B, heads, Lq), device=q.device, dtype=torch.float32)
+    if kv_index is not None:
+        kv_index = kv_index.to(device=q.device, dtype=torch.int32).contiguous()
+    if geom is not None:
+        norm_lines, coords, band, alpha = (
+            t.to(device=q.device, dtype=torch.float32).contiguous() for t in geom)
+        if (norm_lines.shape != (B, Lq, 3) or coords.shape != (2, Lk)
+                or band.numel() != B or alpha.numel() != B):
+            raise ValueError("bad epipolar geometry shapes")
+        geom_ptrs = [t.data_ptr() for t in (norm_lines, coords, band, alpha)]
+    else:
+        geom_ptrs = [None] * 4
+    lib = _build.library("epi_flash_fwd", _SIGNATURE)
+    err = lib.epi_flash_fwd(
+        _DTYPES[q.dtype], int(geom is not None), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        None if kv_index is None else kv_index.data_ptr(), *geom_ptrs,
+        out.data_ptr(), out.stride(0), out.stride(1), lse.data_ptr(),
+        B, heads, Lq, Lk, D, 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "epi_flash_fwd")
+    return out, lse
+
+
+def epi_flash_attention(
+    q: torch.Tensor,            # [B, N, C]
+    k: torch.Tensor,            # [Bk, Lk, C] SOURCE rows (pre-routing)
+    v: torch.Tensor,            # [Bk, Lk, C]
+    norm_lines: torch.Tensor,   # [B, N, 3] ab-normalized epipolar lines
+    coords: torch.Tensor,       # [2, Lk] key pixel coords (x row, y row)
+    band: torch.Tensor,         # [B]
+    alpha: torch.Tensor,        # [B]
+    heads: int = 8,
+    kv_index: Optional[torch.Tensor] = None,  # [B] partner row per query row
+) -> torch.Tensor:
+    """Epipolar cross-video attention in the native [B, N, C] layout."""
+    geom = (norm_lines, coords, band, alpha)
+    if q.device.type == "cpu":
+        return _plain(q, k, v, geom, kv_index, heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"epi_flash_attention: no kernel for {q.device}")
+    out = _launch(q, k, v, geom, kv_index, heads)[0]
+    epi_flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    heads: int = 8) -> torch.Tensor:
+    """Plain multi-head attention, q/k/v [B, L, C]; no [L, L] tensor in
+    device memory and no head-split transposes."""
+    if q.device.type == "cpu":
+        return _plain(q, k, v, None, None, heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    out = _launch(q, k, v, None, None, heads)[0]
+    flash_attention.launches += 1
+    return out
+
+
+epi_flash_attention.launches = 0
+flash_attention.launches = 0

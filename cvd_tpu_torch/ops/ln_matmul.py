@@ -1,0 +1,108 @@
+"""LayerNorm -> matmul — port of ``cvd_tpu/ops/ln_matmul.py``.
+
+Every transformer block runs LayerNorm straight into one or more
+projections of the same normalized tokens (fused q/k/v, the cross-attention
+q, the GEGLU input). The LayerNorm affine folds into the weights:
+
+    LN(x) @ W^T = x_hat @ (W * gamma)^T + W @ beta      (+ W's bias)
+
+so the kernel only standardizes (mean/var over C, f32 stats) and multiplies
+the folded weight. On CUDA tensors ``layer_norm_matmul`` launches
+``csrc/ln_matmul_fwd.cu`` (kernel K5); on CPU tensors it runs the plain
+LayerNorm-then-matmul version ``_reference``.
+
+Weights are in torch ``nn.Linear`` layout, [K_i, C].
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from cvd_tpu_torch.ops import _build
+
+_SIGNATURE = {"ln_matmul_fwd": [
+    _build.I, _build.P, _build.L, _build.P, _build.P, _build.P, _build.P, _build.L,
+    _build.I, _build.I, _build.I, _build.F, _build.P,
+]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fold_weights(gamma: torch.Tensor, beta: torch.Tensor,
+                 weights: Sequence[torch.Tensor],
+                 biases: Sequence[Optional[torch.Tensor]],
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (W' [K, C] in ``dtype``, b' [K] f32) with W' = W * gamma and
+    b' = W @ beta + b, computed in f32 (ln_matmul.py:183-195)."""
+    w_all = torch.cat([w.float() for w in weights], dim=0)
+    w_folded = w_all * gamma.float()[None, :]
+    b_extra = torch.cat([
+        b.float() if b is not None
+        else torch.zeros(w.shape[0], device=w.device, dtype=torch.float32)
+        for w, b in zip(weights, biases)
+    ])
+    b_folded = w_all @ beta.float() + b_extra
+    return w_folded.to(dtype).contiguous(), b_folded.contiguous()
+
+
+def _reference(x, gamma, beta, weights, biases, eps):
+    """LayerNorm (f32 stats) then one matmul over the concatenated weights."""
+    dtype = x.dtype
+    y = F.layer_norm(x.float(), (x.shape[-1],), gamma.float(), beta.float(), eps).to(dtype)
+    w_all = torch.cat([w.to(dtype) for w in weights], dim=0)
+    b_all = torch.cat([
+        b.to(dtype) if b is not None
+        else torch.zeros(w.shape[0], device=x.device, dtype=dtype)
+        for w, b in zip(weights, biases)
+    ])
+    return F.linear(y, w_all, b_all)
+
+
+def _launch(x2, w_folded, b_folded, eps):
+    if x2.dtype not in _DTYPES or w_folded.dtype != x2.dtype:
+        raise TypeError(f"ln_matmul kernel takes f32 or bf16, got {x2.dtype}")
+    T, C = x2.shape
+    K = w_folded.shape[0]
+    if C % (16 // x2.element_size()):
+        raise ValueError(f"C={C} is not a multiple of 16 bytes")
+    if x2.stride(-1) != 1 or (x2.stride(0) * x2.element_size()) % 16 or x2.data_ptr() % 16:
+        x2 = x2.contiguous()
+    out = torch.empty((T, K), device=x2.device, dtype=x2.dtype)
+    stats = torch.empty((T, 2), device=x2.device, dtype=torch.float32)
+    lib = _build.library("ln_matmul_fwd", _SIGNATURE)
+    err = lib.ln_matmul_fwd(
+        _DTYPES[x2.dtype], x2.data_ptr(), x2.stride(0), w_folded.data_ptr(),
+        b_folded.data_ptr(), stats.data_ptr(), out.data_ptr(), out.stride(0),
+        T, C, K, eps, torch.cuda.current_stream(x2.device).cuda_stream,
+    )
+    _build.check(err, "ln_matmul_fwd")
+    return out
+
+
+def layer_norm_matmul(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[Optional[torch.Tensor]],
+    eps: float = 1e-5,
+) -> Tuple[torch.Tensor, ...]:
+    """(LayerNorm(x) @ W_i^T + b_i for each W_i), x [..., C], W_i [K_i, C];
+    one fused kernel over the concatenated weights on CUDA."""
+    C = x.shape[-1]
+    lead = x.shape[:-1]
+    sizes = [w.shape[0] for w in weights]
+    if x.device.type == "cpu":
+        out = _reference(x, gamma, beta, weights, biases, eps)
+    elif x.device.type == "cuda":
+        w_folded, b_folded = fold_weights(gamma, beta, weights, biases, x.dtype)
+        out = _launch(x.reshape(-1, C), w_folded, b_folded, float(eps))
+        layer_norm_matmul.launches += 1
+        out = out.reshape(*lead, sum(sizes))
+    else:
+        raise ValueError(f"layer_norm_matmul: no kernel for {x.device}")
+    return tuple(torch.split(out, sizes, dim=-1))
+
+
+layer_norm_matmul.launches = 0

@@ -1,0 +1,101 @@
+"""Shared pipeline machinery: the module bundle, text encoding, VAE decode
+(port of ``cvd_tpu/pipelines/common.py``)."""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from cvd_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+from cvd_tpu_torch.models.pose_encoder import CameraPoseEncoder
+from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
+from cvd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from cvd_tpu_torch.schedulers import DDIMScheduler
+
+VAE_SCALE = 0.18215
+
+
+@torch.no_grad()
+def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter with fan-in-scaled uniforms from ``generator``,
+    on the parameters' own device (the JAX package's fast init: scale
+    sqrt(3 / fan_in), so activations stay O(1) at depth). For weights-free
+    runs: timing and memory do not depend on the values."""
+    for mod in module.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, (nn.Linear, nn.Conv2d)) and name == "weight":
+                fan = p.shape[1]
+            elif p.ndim >= 2:
+                fan = p.shape[-2]
+            else:
+                fan = p.shape[-1]
+            scale = math.sqrt(3.0 / max(fan, 1))
+            u = torch.rand(p.shape, generator=generator, device=generator.device,
+                           dtype=torch.float32)
+            p.copy_((u * (2 * scale) - scale).to(p.device, p.dtype))
+    return module
+
+
+@dataclasses.dataclass
+class PipelineModules:
+    """The model bundle of one assembled pipeline."""
+
+    unet: UNet3DConditionModel
+    vae: AutoencoderKL
+    clip: CLIPTextEncoder
+    pose_encoder: CameraPoseEncoder
+    scheduler: DDIMScheduler
+
+    @classmethod
+    def create(
+        cls,
+        unet_config: Optional[UNetConfig] = None,
+        vae_config: Optional[VAEConfig] = None,
+        clip_config: Optional[CLIPTextConfig] = None,
+        device="cpu",
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ) -> "PipelineModules":
+        """Build the bundle on ``device``. With ``generator`` the weights are
+        random, drawn on the generator's device; without it they are left
+        for ``load_state_dict``. Modules are built on the meta device and
+        materialized in place, so a full-size bundle never exists on the
+        host."""
+        unet_config = unet_config or UNetConfig()
+        with torch.device("meta"):
+            mods = [
+                UNet3DConditionModel(unet_config),
+                AutoencoderKL(vae_config or VAEConfig()),
+                CLIPTextEncoder(clip_config or CLIPTextConfig()),
+                CameraPoseEncoder(channels=unet_config.block_out_channels),
+            ]
+        out = []
+        for m in mods:
+            m = m.to_empty(device=device)
+            if generator is not None:
+                random_init_(m, generator)
+            m = m.to(dtype=dtype).eval().requires_grad_(False)
+            if torch.device(device).type == "cuda":
+                m = m.to(memory_format=torch.channels_last)
+            out.append(m)
+        return cls(*out, DDIMScheduler())
+
+
+def encode_prompt(modules: PipelineModules, prompt_ids: torch.Tensor,
+                  negative_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (uncond, cond) embeddings, each [B, 77, hidden]."""
+    return modules.clip(negative_ids), modules.clip(prompt_ids)
+
+
+def decode_latents(modules: PipelineModules, latents: torch.Tensor) -> torch.Tensor:
+    """[B, F, h, w, 4] latents -> [B, F, H, W, 3] images in [0, 1] (f32),
+    the whole video in one decode."""
+    B, Fr, h, w, c = latents.shape
+    dtype = modules.vae.post_quant_conv.weight.dtype
+    z = (latents.reshape(B * Fr, h, w, c) / VAE_SCALE).to(dtype)
+    imgs = modules.vae.decode(z).float()
+    imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
+    return imgs.reshape(B, Fr, *imgs.shape[1:])

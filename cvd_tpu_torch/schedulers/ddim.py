@@ -1,0 +1,57 @@
+"""DDIM scheduler with diffusers' DDIMScheduler semantics as the reference
+configures it (1000 train steps, linear betas 0.00085 -> 0.012,
+steps_offset=1, clip_sample=False, epsilon prediction, set_alpha_to_one,
+eta = 0) — port of ``cvd_tpu/schedulers/ddim.py``. The tables are computed
+on the host in f64 and stored in f32; the per-step scalars are f32, as in
+the JAX package."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMState:
+    alphas_cumprod: np.ndarray      # [num_train_timesteps] f32
+    final_alpha_cumprod: np.float32
+    timesteps: np.ndarray           # [num_inference_steps] int, descending
+    num_train_timesteps: int
+    num_inference_steps: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMScheduler:
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    steps_offset: int = 1
+
+    def set_timesteps(self, num_inference_steps: int) -> DDIMState:
+        """The inference schedule (diffusers 'leading' spacing)."""
+        step_ratio = self.num_train_timesteps // num_inference_steps
+        timesteps = ((np.arange(0, num_inference_steps) * step_ratio).round()[::-1].copy()
+                     ).astype(np.int64) + self.steps_offset
+        betas = np.linspace(self.beta_start, self.beta_end, self.num_train_timesteps,
+                            dtype=np.float64)
+        acp = np.cumprod(1.0 - betas)
+        return DDIMState(acp.astype(np.float32), np.float32(1.0), timesteps,
+                         self.num_train_timesteps, num_inference_steps)
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return 1.0
+
+    def step(self, state: DDIMState, model_output: torch.Tensor, timestep: int,
+             sample: torch.Tensor) -> torch.Tensor:
+        """One DDIM update x_t -> x_{t-1} (diffusers DDIMScheduler.step, eta 0)."""
+        timestep = int(timestep)
+        prev_timestep = timestep - self.num_train_timesteps // state.num_inference_steps
+        a_t = state.alphas_cumprod[timestep]
+        a_prev = (state.alphas_cumprod[prev_timestep] if prev_timestep >= 0
+                  else state.final_alpha_cumprod)
+        one = np.float32(1.0)
+        pred_x0 = (sample - float((one - a_t) ** 0.5) * model_output) / float(a_t ** 0.5)
+        pred_dir = float((one - a_prev) ** 0.5) * model_output
+        return float(a_prev ** 0.5) * pred_x0 + pred_dir

@@ -1,0 +1,29 @@
+"""cvd_tpu_torch imports torch and numpy only: never jax, flax or cvd_tpu."""
+import os
+import subprocess
+import sys
+
+import cvd_tpu_torch
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import cvd_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(cvd_tpu_torch.__path__, "cvd_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cvd_tpu"))
+assert not bad, bad
+assert "triton" not in sys.modules, "triton must be imported only at kernel launch"
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_flax_or_cvd_tpu():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(cvd_tpu_torch.__file__)))
+    # a fresh interpreter, with the repo alone on PYTHONPATH
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _CHECK], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[-1]) >= 30, out.stdout

@@ -1,0 +1,161 @@
+"""The port's ops (their plain PyTorch versions, which CPU tensors take)
+against the JAX entry points of the Pallas kernels they stand beside.
+
+The JAX side runs as its own tests run it on the CPU: the attention kernels
+in Pallas interpret mode, group_norm / layer_norm_matmul with
+``force_kernel=True``. The hand-written CUDA/Triton kernels themselves run
+only on the card; ``chip_smoke.py`` holds them against these plain versions
+there. Tolerance: f32 atol = rtol = 1e-5 (summation order only); 1e-4
+where a 64- or 128-deep matmul sums in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _epi_inputs(feat, heads, dim, seed):
+    from cvd_tpu.geometry.epipolar_mask import epipolar_lines, lines_and_band, pixel_grid_coords
+
+    rng = np.random.default_rng(seed)
+    B, N, C = 4, feat * feat, heads * dim
+    q, k, v = (rng.standard_normal((B, N, C)).astype(np.float32) for _ in range(3))
+    F_mats = (rng.standard_normal((B, 3, 3)) * 1e-3).astype(np.float32)
+    coords = pixel_grid_coords(feat, 256)
+    lines, band, alpha = lines_and_band(epipolar_lines(jnp.asarray(F_mats), coords), feat, 256)
+    coords_xy = np.asarray(coords[:, :2].T)
+    return q, k, v, np.asarray(lines), coords_xy, np.asarray(band), np.asarray(alpha)
+
+
+@pytest.mark.parametrize("feat", [16, 32])
+@pytest.mark.parametrize("routed", [False, True])
+def test_epi_flash_attention_plain_matches_jax(feat, routed):
+    """K1: epipolar bias evaluated per (q, k), kv routed to the partner row."""
+    from cvd_tpu.ops.epi_flash import epi_flash_attention as jax_epi
+    from cvd_tpu_torch.ops.epi_flash import epi_flash_attention
+
+    q, k, v, lines, coords, band, alpha = _epi_inputs(feat, 2, 8, seed=feat)
+    route = np.array([2, 3, 0, 1], np.int32) if routed else None
+    want = jax_epi(*(jnp.asarray(a) for a in (q, k, v, lines, coords, band, alpha)),
+                   heads=2, kv_index=None if route is None else jnp.asarray(route))
+    got = epi_flash_attention(t(q), t(k), t(v), t(lines), t(coords), t(band), t(alpha),
+                              heads=2, kv_index=None if route is None else t(route))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_attention_plain_matches_jax():
+    """K2: the bias-free variant."""
+    from cvd_tpu.ops.epi_flash import flash_attention as jax_flash
+    from cvd_tpu_torch.ops.epi_flash import flash_attention
+
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((2, 256, 16)).astype(np.float32) for _ in range(3))
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=2)
+    got = flash_attention(t(q), t(k), t(v), heads=2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mask_kind", ["", "causal"])
+def test_temporal_attention_plain_matches_jax(mask_kind):
+    """K3: per-pixel attention over frames, with and without a causal mask."""
+    from cvd_tpu.models.motion import causal_temporal_mask as jax_mask
+    from cvd_tpu.ops.temporal_attn import temporal_flash_attention as jax_temporal
+    from cvd_tpu_torch.models.motion import causal_temporal_mask
+    from cvd_tpu_torch.ops.temporal_attn import temporal_flash_attention
+
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((2, 16, 8, 32)).astype(np.float32) for _ in range(3))
+    jmask = jax_mask(mask_kind, 8) if mask_kind else None
+    pmask = causal_temporal_mask(mask_kind, 8) if mask_kind else None
+    if mask_kind:
+        np.testing.assert_array_equal(pmask.numpy(), np.asarray(jmask))
+    want = jax_temporal(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jmask, heads=4)
+    got = temporal_flash_attention(t(q), t(k), t(v), pmask, heads=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_plain_matches_jax(act):
+    """K4: GroupNorm with f32 stats, with and without the fused SiLU."""
+    from cvd_tpu.ops.norms import group_norm as jax_gn
+    from cvd_tpu_torch.ops.norms import group_norm
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((4, 8, 8, 64)) * 3 + 1).astype(np.float32)
+    g = rng.standard_normal(64).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    want = jax_gn(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), 32, eps=1e-6, act=act,
+                  force_kernel=True)
+    got = group_norm(t(x), t(g), t(b), 32, eps=1e-6, act=act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("n_proj", [1, 3])
+def test_layer_norm_matmul_plain_matches_jax(n_proj):
+    """K5: LayerNorm folded into 1 or 3 projections."""
+    from cvd_tpu.ops.ln_matmul import layer_norm_matmul as jax_lnmm
+    from cvd_tpu_torch.ops.ln_matmul import layer_norm_matmul
+
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    g = rng.standard_normal(128).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    ws = [(rng.standard_normal((128, 128)) * 0.1).astype(np.float32) for _ in range(n_proj)]
+    bs = [None] * n_proj
+    if n_proj == 1:
+        bs = [rng.standard_normal(128).astype(np.float32)]
+    want = jax_lnmm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                    [jnp.asarray(w) for w in ws],
+                    [None if c is None else jnp.asarray(c) for c in bs], force_kernel=True)
+    got = layer_norm_matmul(t(x), t(g), t(b), [t(w.T.copy()) for w in ws],
+                            [None if c is None else t(c) for c in bs])
+    assert len(got) == n_proj
+    for gi, wi in zip(got, want):
+        np.testing.assert_allclose(gi.numpy(), np.asarray(wi), rtol=1e-4, atol=1e-4)
+
+
+def test_fold_weights_matches_layer_norm_then_matmul():
+    """The gamma/beta folding the CUDA route feeds kernel K5
+    (ln_matmul.py:183-195): x_hat @ W'^T + b' == LN(x) @ W^T + b."""
+    from cvd_tpu_torch.ops.ln_matmul import _reference, fold_weights
+
+    rng = np.random.default_rng(7)
+    x = t(rng.standard_normal((32, 64)).astype(np.float32))
+    g, b = (t(rng.standard_normal(64).astype(np.float32)) for _ in range(2))
+    ws = [t(rng.standard_normal((n, 64)).astype(np.float32)) for n in (64, 96)]
+    bs = [None, t(rng.standard_normal(96).astype(np.float32))]
+    w_f, b_f = fold_weights(g, b, ws, bs, torch.float32)
+    x_hat = torch.nn.functional.layer_norm(x, (64,), eps=1e-5)
+    got = x_hat @ w_f.T + b_f
+    np.testing.assert_allclose(got.numpy(), _reference(x, g, b, ws, bs, 1e-5).numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_attention_with_bias_matches_jax():
+    from cvd_tpu.ops.attention import attention_with_bias as jax_attn
+    from cvd_tpu_torch.ops.attention import attention_with_bias
+
+    rng = np.random.default_rng(8)
+    q, k, v = (rng.standard_normal((2, 4, 16, 8)).astype(np.float32) for _ in range(3))
+    bias = -np.abs(rng.standard_normal((2, 16, 16))).astype(np.float32)
+    want = jax_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias))
+    got = attention_with_bias(t(q), t(k), t(v), t(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ops_raise_on_a_device_without_a_kernel():
+    """A wrapper runs its plain version only for CPU tensors."""
+    from cvd_tpu_torch.ops.norms import group_norm
+
+    x = torch.zeros(2, 4, 32, device="meta")
+    with pytest.raises(ValueError):
+        group_norm(x, torch.ones(32, device="meta"), torch.zeros(32, device="meta"), 8)
