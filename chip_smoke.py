@@ -3,23 +3,38 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py [--profile]
+
 Phases (any failure raises and exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions. No CUDA device -> exit 1, no result.
 2. build: compiles every hand-written kernel from cvd_tpu_torch/csrc (nvcc,
-   sm_90a) and the Triton GroupNorm, and prints the seconds taken.
-3. kernels: each kernel against its plain PyTorch version at the main-path
+   sm_90a, all sources at once) and the Triton GroupNorm, and prints the
+   seconds taken.
+3. kernels: each forward kernel against its plain PyTorch version at the
+   sampler's shapes, and each backward kernel (K6, K7: autograd through
+   the kernels against autograd of the plain versions) at the training
    shapes, in f32 (TF32 off) and in bf16; max |error| against the stated
    tolerance, and kernel ms beside plain ms (CUDA events, after warm-up).
 4. reference: a narrow UNet (the smoke widths) at 256 px runs the sampler
    on the card, through the kernels, and on the CPU, through the plain
    versions, from the same weights and latents; final latents must agree
-   at >= 60 dB SNR.
+   at >= 60 dB SNR. Then one train step of it, card against CPU, from the
+   same weights, batch, noise, timesteps and slope (remat on): loss to
+   1e-5 relative, trainable gradients at >= 60 dB SNR, and every trainable
+   tensor with a nonzero gradient on the card.
 5. slice: ``cvd_tpu_torch.cli.inference`` at SD1.5 width (random weights,
    bf16, 256 px, 16 frames, 2 views, 3 DDIM steps) answers the two prompts
    of assets/example_prompts.json. Launch counts are reset just before
-   and read just after: every kernel must have run.
+   and read just after: every forward kernel must have run.
+6. train: ``cvd_tpu_torch.cli.train.run`` at SD1.5 width (bf16 frozen
+   weights, f32 masters, 256 px, 16 frames, 1 folded pair, 4 steps, remat
+   on, sanity dump on) on seeded pixels with the camera geometry of
+   assets/pose_files: finite losses, trainable weights moved, frozen ones
+   bit-identical, every kernel K1-K7 launched. Then one step with remat
+   off for its peak memory; with ``--profile``, a torch.profiler table of
+   one step (chiprun_out/train_step_profile.txt).
 
 The second-to-last line is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,7 +53,7 @@ TOL_F32 = 1e-4   # f32 in, f32 products: summation order only
 TOL_BF16 = 2e-2  # bf16 in: rounding points differ (P, outputs), ~2^-7 per rounding
 KERNELS = {
     # name: (route, source, TPU kernel body replaced: _fwd_kernel, _gn_kernel,
-    # _ln_mm_kernel; K1 and K2 are its has_bias=True / False variants)
+    # _ln_mm_kernel, _bwd_kernel; K1/K2 and K6 are has_bias=True / False)
     "epi_flash_attention": ("cuda", "cvd_tpu_torch/csrc/epi_flash_fwd.cu",
                             "cvd_tpu/ops/epi_flash.py:75"),
     "flash_attention": ("cuda", "cvd_tpu_torch/csrc/epi_flash_fwd.cu",
@@ -49,7 +64,15 @@ KERNELS = {
                    "cvd_tpu/ops/norms.py:44"),
     "layer_norm_matmul": ("cuda", "cvd_tpu_torch/csrc/ln_matmul_fwd.cu",
                           "cvd_tpu/ops/ln_matmul.py:48"),
+    "epi_flash_attention_bwd": ("cuda", "cvd_tpu_torch/csrc/epi_flash_bwd.cu",
+                                "cvd_tpu/ops/epi_flash.py:113"),
+    "flash_attention_bwd": ("cuda", "cvd_tpu_torch/csrc/epi_flash_bwd.cu",
+                            "cvd_tpu/ops/epi_flash.py:113"),
+    "temporal_flash_attention_bwd": ("cuda", "cvd_tpu_torch/csrc/temporal_attn_bwd.cu",
+                                     "cvd_tpu/ops/temporal_attn.py:77"),
 }
+FORWARD = ("epi_flash_attention", "flash_attention", "temporal_flash_attention",
+           "group_norm", "layer_norm_matmul")
 
 
 def log(msg: str) -> None:
@@ -73,7 +96,8 @@ def phase_build(torch):
     from cvd_tpu_torch.ops.norms import group_norm
 
     t0 = time.perf_counter()
-    _build.build(["epi_flash_fwd", "temporal_attn_fwd", "ln_matmul_fwd"])
+    _build.build(["epi_flash_fwd", "epi_flash_bwd", "temporal_attn_fwd",
+                  "temporal_attn_bwd", "ln_matmul_fwd"])
     t_nvcc = time.perf_counter() - t0
     # Triton compiles at first launch: one small GroupNorm per dtype/act
     for dtype in (torch.float32, torch.bfloat16):
@@ -157,6 +181,85 @@ def _cases(torch, dtype, g):
                       lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
                       ln_matmul._reference(x, gam, bet, ws, bs, 1e-5), T == 65536 and C == 320
                       and len(Ks) == 1))
+    return cases + _bwd_cases(torch, dtype, g)
+
+
+def _grads(torch, fn, xs, dout):
+    """dq/dk/dv of fn through autograd, flattened into one f32 vector."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in xs]
+        return torch.cat([t.float().flatten()
+                          for t in torch.autograd.grad(fn(*leaves), leaves, dout)])
+
+
+def _backward_only(torch, fn, xs, dout):
+    """-> a function running only the backward of fn's graph, built once."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in xs]
+        out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def _bwd_cases(torch, dtype, g):
+    """K6 / K7 at the training shapes (256 px, 16 frames, 1 folded pair = 32
+    frame rows, no CFG): autograd through the kernels (forward kernel + the
+    backward kernel) against autograd of the plain version. The timed pair
+    is the backward alone: the K6/K7 wrapper from the saved forward, and
+    the plain version's backward from its recorded graph."""
+    from cvd_tpu_torch.geometry.epipolar_mask import (
+        epipolar_lines, lines_and_band, pixel_grid_coords,
+    )
+    from cvd_tpu_torch.ops import epi_flash, temporal_attn
+
+    dev = "cuda"
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def case(name, label, fwd, plain, xs, dout, timed, kernel_timer):
+        return (name, label, lambda: _grads(torch, fwd, xs, dout),
+                lambda: _grads(torch, plain, xs, dout), timed, kernel_timer,
+                lambda: _backward_only(torch, plain, xs, dout))
+
+    def epi_case(name, label, xs, dout, gm, rt, timed):
+        def fwd(a, b, c):
+            if gm is None:
+                return epi_flash.flash_attention(a, b, c, heads=8)
+            return epi_flash.epi_flash_attention(a, b, c, *gm, heads=8, kv_index=rt)
+
+        def kernel_timer():
+            prep = epi_flash._prepare(*xs, gm, rt, 8)
+            out, lse = epi_flash._launch(*prep, 8)
+            return lambda: getattr(epi_flash, name)(*prep, 8, out, lse, dout)
+
+        return case(name, label, fwd, lambda a, b, c: epi_flash._plain(a, b, c, gm, rt, 8),
+                    xs, dout, timed, kernel_timer)
+
+    def temporal_case(label, xs, dout, mask, timed):
+        return case("temporal_flash_attention_bwd", label,
+                    lambda a, b, c: temporal_attn.temporal_flash_attention(a, b, c, mask, 8),
+                    lambda a, b, c: temporal_attn.temporal_attention_plain(a, b, c, mask, 8),
+                    xs, dout, timed,
+                    lambda: lambda: temporal_attn.temporal_flash_attention_bwd(
+                        *xs, mask, 8, dout))
+
+    cases = []
+    for feat, C in ((32, 320), (16, 640)):
+        N, B = feat * feat, 32
+        xs, do = (randn(B, N, C), randn(B, N, C), randn(B, N, C)), randn(B, N, C)
+        F_mats = torch.randn(B, 3, 3, generator=g, device=dev) * 1e-3
+        coords = pixel_grid_coords(feat, 256, dev)
+        lines, band, alpha = lines_and_band(epipolar_lines(F_mats, coords), feat, 256)
+        geom = (lines, coords[:, :2].T.contiguous(), band, alpha)
+        route = torch.cat([torch.arange(16, 32), torch.arange(0, 16)]).to(dev, torch.int32)
+        cases.append(epi_case("epi_flash_attention_bwd", f"B{B} N{N} C{C} h8 routed",
+                              xs, do, geom, route, feat == 32))
+        cases.append(epi_case("flash_attention_bwd", f"B{B} N{N} C{C} h8",
+                              xs, do, None, None, feat == 32))
+        xt, dot = tuple(randn(2, N, 16, C) for _ in range(3)), randn(2, N, 16, C)
+        causal = torch.triu(torch.full((16, 16), -math.inf, device=dev), 1)
+        cases.append(temporal_case(f"B2 N{N} F16 C{C} h8", xt, dot, None, feat == 32))
+        cases.append(temporal_case(f"B2 N{N} F16 C{C} h8 causal", xt, dot, causal, False))
     return cases
 
 
@@ -168,7 +271,7 @@ def phase_kernels(torch):
     for dtype, tol, key in ((torch.float32, TOL_F32, "max_abs_err_f32"),
                             (torch.bfloat16, TOL_BF16, "max_abs_err")):
         g = torch.Generator(device="cuda").manual_seed(0)
-        for name, label, kernel, plain, timed in _cases(torch, dtype, g):
+        for name, label, kernel, plain, timed, *timers in _cases(torch, dtype, g):
             with torch.no_grad():
                 got, want = kernel().float(), plain().float()
                 torch.cuda.synchronize()
@@ -176,12 +279,15 @@ def phase_kernels(torch):
                 ref = max(1.0, float(want.abs().max()))
             ok = math.isfinite(err) and err <= tol * ref
             report[name][key] = max(report[name][key], err)
-            line = (f"[kernel] {name:26s} {str(dtype)[6:]:8s} {label:26s} "
+            line = (f"[kernel] {name:28s} {str(dtype)[6:]:8s} {label:30s} "
                     f"max_abs_err {err:.3e} (limit {tol * ref:.3e})")
             if timed and dtype == torch.bfloat16:
+                # backward cases time the backward alone (timer factories)
+                k_fn, p_fn = (t() for t in timers) if timers else (kernel, plain)
                 with torch.no_grad():
-                    k_ms = _time_ms(torch, kernel)
-                    p_ms = _time_ms(torch, plain)
+                    k_ms = _time_ms(torch, k_fn)
+                    p_ms = _time_ms(torch, p_fn)
+                del k_fn, p_fn
                 if "ms" not in report[name]:  # the record keeps the first timed shape
                     report[name].update(ms=k_ms, plain_ms=p_ms, timed_shape=label)
                 line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
@@ -233,6 +339,72 @@ def phase_reference(torch):
         raise RuntimeError(f"card vs CPU SNR {snr:.1f} dB < 60 dB")
 
 
+def _train_batch(torch, np, Fr, S, seed):
+    """A pre-encoded training batch: latents, text ids, Plücker maps, F mats."""
+    rng = np.random.default_rng(seed)
+    return {
+        "latents": torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4))
+                                    .astype(np.float32)),
+        "text_ids": torch.from_numpy(rng.integers(0, 49408, (2, 77))),
+        "plucker": torch.from_numpy(rng.standard_normal((2, Fr, S, S, 6)).astype(np.float32)),
+        "F_mats": torch.from_numpy((rng.standard_normal((2, Fr, 3, 3)) * 1e-3)
+                                   .astype(np.float32)),
+    }
+
+
+def phase_train_reference(torch):
+    """One train step of the narrow UNet at 256 px: card (kernels) vs CPU
+    (plain versions), same weights, batch, noise, timesteps and slope."""
+    import numpy as np
+
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.train.state import create_train_state
+    from cvd_tpu_torch.train.train_step import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cpu",
+                                 generator=torch.Generator().manual_seed(1))
+    gpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cuda")
+    for name in ("unet", "clip", "pose_encoder"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    Fr, S = 2, 256
+    batch = _train_batch(torch, np, Fr, S, seed=1)
+    rng = np.random.default_rng(2)
+    pinned = dict(noise=torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4))
+                                         .astype(np.float32)),
+                  timesteps=torch.from_numpy(np.array([71, 642])), F_mat_size=S,
+                  rand_slope_ff=True, remat=True)
+    wrappers = _wrappers()
+    results = []
+    for m in (cpu, gpu):
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        state = create_train_state(m.unet)
+        # a CPU generator on both sides: the same first-frame slope
+        loss = loss_and_grads(state, batch, m, torch.Generator().manual_seed(3), **pinned)
+        params = dict(m.unet.named_parameters())
+        grads = {n: params[n].grad.detach().cpu().numpy() for n in state.trainable}
+        results.append((float(loss), grads, sorted(n for n, fn in wrappers.items()
+                                                   if fn.launches > before[n])))
+    (want_loss, want, _), (got_loss, got, used) = results
+    cat = np.concatenate
+    ref = cat([want[n].ravel() for n in want])
+    err = cat([got[n].ravel() for n in want]) - ref
+    snr = 10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-30))
+    zero = sorted(n for n, g in got.items() if not np.any(g))
+    rel = abs(got_loss - want_loss) / abs(want_loss)
+    log(f"[reference] narrow UNet train step 256 px f32, remat on: loss card {got_loss:.7f} "
+        f"CPU {want_loss:.7f} (rel {rel:.1e}); trainable gradients ({len(want)} tensors) "
+        f"SNR {snr:.1f} dB; zero on the card: {len(zero)} (kernels used: {', '.join(used)})")
+    if not (rel <= 1e-5 and snr >= 60.0) or zero:
+        raise RuntimeError(f"train step card vs CPU: loss rel {rel:.1e}, SNR {snr:.1f} dB, "
+                           f"zero gradients {zero[:5]}")
+    missing = [n for n in KERNELS if n not in used]
+    if missing:
+        raise RuntimeError(f"kernels not launched by the card's train step: {missing}")
+
+
 def _wrappers():
     """The op wrappers that launch each kernel; each carries its count."""
     from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn
@@ -241,7 +413,10 @@ def _wrappers():
             "flash_attention": epi_flash.flash_attention,
             "temporal_flash_attention": temporal_attn.temporal_flash_attention,
             "group_norm": norms.group_norm,
-            "layer_norm_matmul": ln_matmul.layer_norm_matmul}
+            "layer_norm_matmul": ln_matmul.layer_norm_matmul,
+            "epi_flash_attention_bwd": epi_flash.epi_flash_attention_bwd,
+            "flash_attention_bwd": epi_flash.flash_attention_bwd,
+            "temporal_flash_attention_bwd": temporal_attn.temporal_flash_attention_bwd}
 
 
 def phase_slice(torch):
@@ -279,10 +454,161 @@ def phase_slice(torch):
             f"video std {float(v.std()):.4f}")
     log(f"[slice] 2 requests in {seconds:.2f} s (module build included), "
         f"peak allocated {peak / 2**30:.2f} GiB, launches {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in FORWARD if launches[n] == 0]
     if len(records) != 2 or missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
     return launches
+
+
+class _SeededPairs:
+    """In-memory folded pairs with the sample keys of RealEstate10KPoseFolded:
+    Plücker maps and F mats of assets/pose_files/example_{dolly,arc}.txt
+    (data/validation.py), pixels uniform in [-1, 1] from the item's seed,
+    captions from assets/example_prompts.json."""
+
+    def __init__(self, n_items: int, n_frames: int, size: int, seed: int = 0):
+        import numpy as np
+
+        from cvd_tpu_torch.cli.inference import load_prompts
+        from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
+
+        assets = os.path.join(HERE, "assets")
+        self.captions = load_prompts(os.path.join(assets, "example_prompts.json"), False)[0]
+        cams = ValRealEstate10KPoseFolded(
+            self.captions, os.path.join(assets, "pose_files", "example_dolly.txt"),
+            os.path.join(assets, "pose_files", "example_arc.txt"),
+            sample_n_frames=n_frames, sample_size=size)[0]
+        self.plucker = cams["plucker_embedding"].astype(np.float32)   # [2n, S, S, 6]
+        self.F_mats = cams["F_mats"].astype(np.float32)               # [2n, 3, 3]
+        self.n_items, self.shape, self.seed = n_items, (2 * n_frames, size, size, 3), seed
+
+    def __len__(self):
+        return self.n_items
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        rng = np.random.default_rng(self.seed + int(i))
+        return {"pixel_values": rng.uniform(-1.0, 1.0, self.shape).astype(np.float32),
+                "text": self.captions[int(i) % len(self.captions)],
+                "plucker_embedding": self.plucker, "F_mats": self.F_mats}
+
+
+def phase_train(torch, profile: bool):
+    """cli.train.run at SD1.5 width, then one step with remat off."""
+    import numpy as np
+
+    from cvd_tpu_torch.cli import train
+    from cvd_tpu_torch.train.state import create_train_state
+    from cvd_tpu_torch.train.train_step import train_step
+
+    steps, n_frames, size = 4, 16, 256
+    cfg = dict(random_weights_full=True, bf16=True, sample_size=size, sample_n_frames=n_frames,
+               train_batch_size=1, max_train_steps=steps, num_workers=2, remat=True,
+               do_sanity_check=True, logger_interval=1, checkpointing_steps=10 ** 9,
+               output_dir=os.path.join(HERE, "build", "chip_smoke_train"), global_seed=42)
+    data = _SeededPairs(steps, n_frames, size)
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = train.run(cfg, sources=[data])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    state, modules, losses, secs = out["state"], out["modules"], out["losses"], out["step_seconds"]
+    log(f"[train] {steps} steps in {seconds:.2f} s (module build included): losses "
+        f"[{', '.join(f'{x:.5f}' for x in losses)}], s/step first {secs[0]:.3f} steady "
+        f"[{', '.join(f'{x:.3f}' for x in secs[1:])}], peak allocated {peak / 2**30:.2f} GiB "
+        f"(remat on), launches {launches}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"train losses {losses}")
+    missing = [n for n in KERNELS if launches[n] == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on the training path: {missing}")
+
+    # trainable weights moved, frozen ones bit-identical: against the same
+    # seeded initial weights, built again
+    init, _ = train.build_training_modules(cfg, torch.device("cuda"))
+    create_train_state(init.unet, frozen_dtype=torch.bfloat16)
+    now = dict(state.model.named_parameters())
+    trainable = set(state.trainable)
+    moved = sum(not torch.equal(p, now[n]) for n, p in init.unet.named_parameters()
+                if n in trainable)
+    frozen_changed = [n for n, p in init.unet.named_parameters()
+                      if n not in trainable and not torch.equal(p, now[n])]
+    log(f"[train] trainable tensors moved {moved}/{len(trainable)}, frozen tensors changed "
+        f"{len(frozen_changed)}/{len(now) - len(trainable)}")
+    if moved != len(trainable) or frozen_changed:
+        raise RuntimeError(f"trainable moved {moved}/{len(trainable)}; frozen changed "
+                           f"{frozen_changed[:5]}")
+    del init
+
+    # one more step with remat off, for its peak memory
+    batch = _folded(torch, np, data, n_frames)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            m = train_step(state, batch, modules, gen, F_mat_size=size, remat=remat)
+            torch.cuda.synchronize()
+            log(f"[train] one step remat={remat}: {time.perf_counter() - t0:.3f} s, loss "
+                f"{m['loss']:.5f}, peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        except torch.cuda.OutOfMemoryError:
+            state.optimizer.zero_grad(set_to_none=True)
+            log(f"[train] one step remat={remat}: out of memory on the card")
+    if profile:
+        _profile_step(torch, state, batch, modules, gen, size)
+    return launches
+
+
+def _folded(torch, np, data, n_frames):
+    """The training loop's folded device batch for item 0 (text unchanged)."""
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+
+    s = data[0]
+
+    def fold(x):
+        return torch.from_numpy(np.concatenate([x[None, :n_frames], x[None, n_frames:]]))
+
+    return {"text_ids": torch.from_numpy(HashTokenizer()([s["text"]] * 2)),
+            "pixel_values": fold(s["pixel_values"]), "plucker": fold(s["plucker_embedding"]),
+            "F_mats": fold(s["F_mats"])}
+
+
+def _profile_step(torch, state, batch, modules, gen, size):
+    """torch.profiler over one remat-on step: device time by kernel, device
+    busy time against the step's wall time (chiprun_out/)."""
+    from cvd_tpu_torch.train.train_step import train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    train_step(state, batch, modules, gen, F_mat_size=size)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch, modules, gen, F_mat_size=size)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    host_us = sum(e.self_cpu_time_total for e in events)
+    table = events.table(sort_by="self_device_time_total", row_limit=60)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
+        f.write(f"wall {wall * 1e3:.1f} ms, kernel time {device_us / 1e3:.1f} ms\n{table}\n")
+    log(f"[profile] one remat-on step: wall {wall * 1e3:.1f} ms, kernel time "
+        f"{device_us / 1e3:.1f} ms (idle share {1 - device_us / 1e3 / (wall * 1e3):.1%}), "
+        f"host self time {host_us / 1e3:.1f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+        log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def main() -> int:
@@ -302,12 +628,17 @@ def main() -> int:
     phase_build(torch)
     report = phase_kernels(torch)
     phase_reference(torch)
-    launches = phase_slice(torch)
+    phase_train_reference(torch)
+    sampler = phase_slice(torch)
+    launches = phase_train(torch, profile="--profile" in sys.argv[1:])
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
+        # launches: the training slice (this slice's main path); the
+        # sampler's run is kept beside it
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "launches": launches[name], "launches_sampler": sampler[name],
+                        "max_abs_err": r["max_abs_err"],
                         "max_abs_err_f32": r["max_abs_err_f32"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "timed_shape": r["timed_shape"]})
     log(smi)

@@ -1,18 +1,20 @@
-"""cvd_tpu_torch — the 2-view collaborative video sampler in PyTorch and CUDA.
+"""cvd_tpu_torch — collaborative video diffusion in PyTorch and CUDA.
 
 A port of ``cvd_tpu`` (JAX/Flax/Pallas) to PyTorch on an NVIDIA H100. The
 subpackages mirror the JAX package's, module for module:
 
   geometry/    camera & epipolar math (numpy on the host, torch on device)
-  data/        the pose-file validation dataset
+  data/        the pose-file validation dataset, RealEstate10K, the loader
   ops/         attention / norm ops: a plain PyTorch version of each, and a
-               hand-written Hopper kernel (csrc/, Triton) for CUDA tensors
-  models/      nn.Modules: UNet3D, motion / epi modules, pose encoder, VAE
-               decoder, CLIP text encoder
+               hand-written Hopper kernel (csrc/, Triton) for CUDA tensors,
+               forward and backward
+  models/      nn.Modules: UNet3D, motion / epi modules, pose encoder, VAE,
+               CLIP text encoder
   schedulers/  DDIM
   pipelines/   the simple 2-view sampler
+  train/       losses, train state, checkpoints, the epi training step
   io/          tokenizer, Flax param tree -> state dict conversion
-  cli/         ``python -m cvd_tpu_torch.cli.inference``
+  cli/         ``python -m cvd_tpu_torch.cli.inference`` and ``.cli.train``
 
 The package imports torch and numpy only: never jax, flax or cvd_tpu.
 """

@@ -1,0 +1,254 @@
+"""Training CLI (port of ``cvd_tpu/cli/train.py``, the reference's
+``train_epi_control.py``), on one device.
+
+    python -m cvd_tpu_torch.cli.train --config configs/train_epi.yaml
+
+Fine-tunes only the epi/sync/auxiliary parameters on folded RealEstate10K
+pairs: null-text dropout, periodic logging and checkpoints (the port's
+``save`` file and the reference-format ``.ckpt``), ``resume_from`` and a
+first-step sanity dump; ``remat: true`` recomputes each UNet block in the
+backward (off by default: PERF.md). ``run(cfg)`` takes the config as a
+dict, so a caller without PyYAML can drive it; ``sources`` replaces the
+on-disk dataset with in-memory ones.
+
+Weights: ``random_weights: true`` builds the tiny smoke model and
+``random_weights_full: true`` the SD1.5 widths, drawn on the device from a
+fixed seed. Not ported yet, and raising NotImplementedError (ROADMAP
+queue 1, training): checkpoint import, datasets other than RealEstate10K,
+``cache_latents``, ``validation_steps > 0``, ``--multihost``,
+``sync_lora_rank > 0``, remat policies other than ``""``, process workers.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import random
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+_CHECKPOINT_KEYS = ("ori_model_path", "motion_module_ckpt", "epi_module_ckpt",
+                    "pose_adaptor_ckpt", "image_lora_ckpt", "civitai_lora_ckpt",
+                    "civitai_base_model")
+_ROADMAP = "(ROADMAP queue 1, training)"
+
+
+def load_config(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def _refuse_unported(cfg: dict) -> None:
+    name = (cfg.get("train_data") or {}).get("dataset_name", "realestate10k")
+    checks = [
+        (name not in ("realestate10k", "realestate10k_local"),
+         f"dataset_name {name!r}: only RealEstate10K is ported"),
+        (cfg.get("cache_latents", False), "cache_latents: the latents cache"),
+        ((cfg.get("validation_steps") or 0) > 0, "validation_steps > 0: validation sampling"),
+        ((cfg.get("sync_lora_rank") or 0) > 0, "sync_lora_rank > 0: sync-LoRA"),
+        (cfg.get("remat_policy", "") != "", f"remat_policy {cfg.get('remat_policy')!r}: "
+                                           "the 'dots'/'layer' remat policies"),
+        (any(cfg.get(k) for k in _CHECKPOINT_KEYS), "checkpoint import"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet {_ROADMAP}")
+    if not (cfg.get("random_weights") or cfg.get("random_weights_full")):
+        raise NotImplementedError(f"checkpoint import is not ported yet {_ROADMAP}: "
+                                  "set random_weights or random_weights_full")
+
+
+def build_training_modules(cfg: dict, device):
+    """-> (modules with the VAE encoder, tokenizer), random weights from a
+    fixed seed: UNet in f32 (``create_train_state`` casts its frozen part),
+    VAE / CLIP / pose encoder in bf16 when ``bf16``."""
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+    from cvd_tpu_torch.models.clip_text import CLIPTextConfig
+    from cvd_tpu_torch.models.unet import UNetConfig
+    from cvd_tpu_torch.models.vae import VAEConfig
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    full = bool(cfg.get("random_weights_full"))
+    modules = PipelineModules.create(
+        unet_config=dataclasses.replace(UNetConfig() if full else SMOKE_UNET,
+                                        pose_scale=cfg.get("pose_adaptor_scale", 1.0)),
+        vae_config=VAEConfig() if full else SMOKE_VAE,
+        clip_config=CLIPTextConfig() if full else SMOKE_CLIP,
+        device=device, dtype=torch.float32,
+        generator=torch.Generator(device=device).manual_seed(0), vae_encoder=True)
+    if cfg.get("bf16", False):
+        for m in (modules.vae, modules.clip, modules.pose_encoder):
+            m.to(torch.bfloat16)
+    return modules, HashTokenizer()
+
+
+def _frozen_dtype(cfg: dict) -> Optional[torch.dtype]:
+    """The frozen UNet weights' dtype, which the UNet computes in."""
+    name = cfg.get("frozen_weights_dtype", "bfloat16" if cfg.get("bf16") else "float32")
+    return {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+            "float32": torch.float32, "f32": torch.float32}[name]
+
+
+def run(cfg: dict, sources: Optional[Sequence] = None) -> dict:
+    """The training loop. ``sources``: map-style datasets with the sample
+    keys of ``RealEstate10KPoseFolded`` (default: the one ``train_data``
+    names). Returns {"state", "modules", "losses", "step_seconds",
+    "global_step", "epoch", "out_dir"}."""
+    from cvd_tpu_torch.data.loader import DataLoader
+    from cvd_tpu_torch.data.realestate10k import RealEstate10KPoseFolded
+    from cvd_tpu_torch.train.checkpoint import restore, save, save_reference_ckpt
+    from cvd_tpu_torch.train.state import create_train_state
+    from cvd_tpu_torch.train.train_step import train_step
+    from cvd_tpu_torch.utils.logging import MetricsLogger, format_time, setup_logger
+
+    _refuse_unported(cfg)
+    out_dir = cfg.get("output_dir", "runs/train")
+    os.makedirs(out_dir, exist_ok=True)
+    logger = setup_logger(out_dir)
+    metrics_log = MetricsLogger(out_dir)
+    device = torch.device(cfg.get("device") or ("cuda" if torch.cuda.is_available() else "cpu"))
+    n_frames = cfg.get("sample_n_frames", 16)
+    sample_size = cfg.get("sample_size", 256)
+    seed = cfg.get("global_seed", 42)
+
+    modules, tokenizer = build_training_modules(cfg, device)
+    if sources is None:
+        train_cfg = cfg.get("train_data") or {}
+        sources = [RealEstate10KPoseFolded(
+            root_path=train_cfg["root_path"], sample_stride=train_cfg.get("sample_stride", 2),
+            sample_n_frames=n_frames, sample_size=sample_size, seed=seed)]
+    if len(sources) != 1:
+        raise NotImplementedError(f"hybrid (several) data sources are not ported yet {_ROADMAP}")
+    loader = DataLoader(sources[0], batch_size=cfg.get("train_batch_size", 1),
+                        num_workers=cfg.get("num_workers", 8),
+                        worker_type=cfg.get("worker_type", "thread"), seed=seed)
+    logger.info(f"dataset: {len(sources[0])} clips, {len(loader)} steps/epoch")
+    if len(loader) == 0:
+        raise SystemExit(f"empty dataset/loader (batch={cfg.get('train_batch_size', 1)}): "
+                         "nothing to train on")
+
+    max_steps = cfg.get("max_train_steps", 100_000)
+    state = create_train_state(
+        modules.unet, learning_rate=cfg.get("learning_rate", 1e-4),
+        adam_weight_decay=cfg.get("adam_weight_decay", 1e-2),
+        max_grad_norm=cfg.get("max_grad_norm", 1.0),
+        scheduler=cfg.get("lr_scheduler", "constant"),
+        warmup_steps=cfg.get("lr_warmup_steps", 0), total_steps=max_steps,
+        frozen_dtype=_frozen_dtype(cfg))
+    global_step, epoch = 0, 0
+    if cfg.get("resume_from"):
+        state, epoch = restore(cfg["resume_from"], state)
+        global_step = state.step
+        logger.info(f"resumed from {cfg['resume_from']} at step {global_step}")
+
+    ckpt_every = cfg.get("checkpointing_steps", 5000)
+    log_every = cfg.get("logger_interval", 10)
+    null_ratio = cfg.get("cfg_random_null_text_ratio", 0.1)
+    # block remat off by default: on an 80 GB H100 a 16-frame 256 px step
+    # peaks at 22.7 GiB without it (13.4 with) and runs 27% faster (PERF.md)
+    remat = cfg.get("remat", False)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    pyrng = random.Random(seed)
+
+    def fold(x):
+        # the 2F-frame pair, video-major like torch.cat(chunk(2, 1)) (:516)
+        return torch.from_numpy(np.concatenate([x[:, :n_frames], x[:, n_frames:]], axis=0))
+
+    def fold_batch(batch, texts):
+        if "plucker_embedding" not in batch:
+            raise NotImplementedError(f"unposed (WebVid) batches are not ported yet {_ROADMAP}")
+        return {"text_ids": torch.from_numpy(np.concatenate([tokenizer(texts)] * 2, axis=0)),
+                "pixel_values": fold(batch["pixel_values"]),
+                "plucker": fold(batch["plucker_embedding"]),
+                "F_mats": fold(batch["F_mats"])}
+
+    def sanity_dump(batch):
+        """First-step dumps of the raw batch (do_sanity_check,
+        train_epi_control.py:503-510) and an epipolar overlay of the training
+        pair (:419-431): .npy always, GIF/PNG where imageio imports."""
+        from cvd_tpu_torch.utils.video import have_imageio, save_videos_grid
+        from cvd_tpu_torch.utils.visualize import check_fundamental
+
+        sdir = os.path.join(out_dir, "sanity_check")
+        os.makedirs(sdir, exist_ok=True)
+        px = batch["pixel_values"]                          # [b, 2F, H, W, 3] in [-1, 1]
+        mid = n_frames // 2
+        overlay = check_fundamental(px[0, mid], px[0, n_frames + mid], batch["F_mats"][0, mid])
+        np.save(os.path.join(sdir, "epi_overlay.npy"), overlay)
+        if have_imageio():
+            import imageio
+
+            imageio.imwrite(os.path.join(sdir, "epi_overlay.png"), overlay)
+            for i, text in enumerate(batch["text"]):
+                name = "-".join(text.replace("/", "").split()[:10]) or f"0-{i}"
+                save_videos_grid((px[i:i + 1] + 1) / 2, os.path.join(sdir, f"{name}.gif"))
+
+    def endless():
+        while True:
+            yield from loader
+
+    batches = endless()
+    steps_per_epoch = max(1, len(loader))
+    draws = global_step
+    losses, step_seconds = [], []
+    logger.info("training starts")
+    while global_step < max_steps:
+        t_data = time.perf_counter()
+        batch = next(batches)
+        draws += 1
+        texts = ["" if pyrng.random() < null_ratio else t for t in batch["text"]]
+        if cfg.get("do_sanity_check", True) and global_step == 0:
+            sanity_dump(batch)
+        device_batch = fold_batch(batch, texts)
+        t0 = time.perf_counter()
+        m = train_step(state, device_batch, modules, generator, F_mat_size=sample_size,
+                       remat=remat)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        step_seconds.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        global_step += 1
+        if global_step % log_every == 0:
+            logger.info(f"iter {global_step}/{max_steps} loss {m['loss']:.4f} "
+                        f"epi {m['epi_loss']:.4f} data {t0 - t_data:.2f}s "
+                        f"iter {step_seconds[-1]:.2f}s "
+                        f"ETA {format_time(step_seconds[-1] * (max_steps - global_step))}")
+            metrics_log.log(global_step, loss=m["loss"], epi_loss=m["epi_loss"],
+                            grad_norm=m["grad_norm"])
+        if global_step % ckpt_every == 0:
+            ck = os.path.join(out_dir, "checkpoints")
+            save(os.path.join(ck, f"step-{global_step}.pt"), state, epoch)
+            save_reference_ckpt(os.path.join(ck, f"checkpoint-step-{global_step}.ckpt"),
+                                state, epoch, global_step)
+            logger.info(f"saved checkpoint at step {global_step}")
+        epoch = draws // steps_per_epoch
+    logger.info("training done")
+    return {"state": state, "modules": modules, "losses": losses,
+            "step_seconds": step_seconds, "global_step": global_step, "epoch": epoch,
+            "out_dir": out_dir}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", required=True)
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host training (not ported yet)")
+    return p
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(f"--multihost is not ported yet {_ROADMAP}: multi-GPU DDP")
+    return run(load_config(args.config))
+
+
+if __name__ == "__main__":
+    main()

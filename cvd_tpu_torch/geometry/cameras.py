@@ -76,6 +76,14 @@ def intrinsics_for_crop(
     return K, [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]
 
 
+def relative_poses(c2w_list: np.ndarray, tar_idx: int = 0) -> np.ndarray:
+    """Re-express c2w poses relative to the pose at ``tar_idx``
+    (dataset_train_realestate10k.py:289-292)."""
+    c2w_list = np.asarray(c2w_list)
+    abs2rel = np.linalg.inv(c2w_list[tar_idx])
+    return (abs2rel[None] @ c2w_list).astype(np.float32)
+
+
 def get_relative_pose(c2w_list: np.ndarray, zero_first_frame_scale: bool) -> np.ndarray:
     """CameraCtrl-style relative normalization (inference_epi_advanced.py:55-72).
 

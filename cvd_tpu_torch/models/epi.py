@@ -13,6 +13,10 @@ The 2-view route only: the partner of row b is row (b + B/2) mod B (the
 half swap). Left out of this port so far: homography (H_mats) and
 pose-free pseudo lines, explicit / multi-group kv routing (the N-view
 sampler's ``kv_index``), ``fix_firstframe``.
+
+The epi modules are what training updates: their weights may be f32
+masters under bf16 activations, so every projection casts its weights at
+use (``layers.linear``, and inside ``layer_norm_matmul``).
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from cvd_tpu_torch.geometry.epipolar_mask import (
     pixel_grid_coords, pseudo_lines,
 )
 from cvd_tpu_torch.models.layers import (
-    FeedForward, FusedGroupNorm, group_norm_per_frame, merge_heads, split_heads,
+    FeedForward, FusedGroupNorm, group_norm_per_frame, linear, merge_heads, split_heads,
 )
 from cvd_tpu_torch.ops.attention import attention_with_bias
 from cvd_tpu_torch.ops.epi_flash import epi_flash_attention
@@ -50,6 +54,9 @@ class EpiConditioning:
     mono_direction: bool = False
     # draws the first-frame pseudo-line slope of every epi attention
     generator: Optional[torch.Generator] = None
+    # or one slope [1] for every epi attention of the call, drawn beforehand
+    # (training: a remat replay must see the lines the loss saw)
+    slope: Optional[torch.Tensor] = None
 
 
 def _uniform_slope(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
@@ -72,7 +79,10 @@ def _epi_lines(cond: EpiConditioning, feat_size: int, device) -> torch.Tensor:
     F_mats = cond.F_mats.to(device=device, dtype=torch.float32)
     B = F_mats.shape[0]
     lines = epipolar_lines(F_mats, coords)
-    slope = _uniform_slope(cond.generator, (1,), device) if cond.rand_slope_ff else None
+    slope = None
+    if cond.rand_slope_ff:
+        slope = (cond.slope.to(device) if cond.slope is not None
+                 else _uniform_slope(cond.generator, (1,), device))
     ff_lines = pseudo_lines(coords[None], slope=slope)
     is_ff = (torch.arange(B, device=device) % cond.video_length) == 0
     return torch.where(is_ff[:, None, None], ff_lines, lines)
@@ -131,7 +141,7 @@ class EpiSelfAttention(nn.Module):
             out = merge_heads(attention_with_bias(
                 split_heads(q, self.heads), split_heads(k, self.heads),
                 split_heads(v, self.heads), bias))
-        return self.to_out[0](out)
+        return linear(self.to_out[0], out)
 
 
 class EpiTransformerBlock(nn.Module):
@@ -169,10 +179,10 @@ class EpiTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: EpiConditioning) -> torch.Tensor:
         B, Fr, H, W, C = x.shape
-        h = self.proj_in(group_norm_per_frame(self.norm, x).reshape(B * Fr, H * W, C))
+        h = linear(self.proj_in, group_norm_per_frame(self.norm, x).reshape(B * Fr, H * W, C))
         for blk in self.transformer_blocks:
             h = blk(h, cond)
-        return self.proj_out(h).reshape(B, Fr, H, W, C) + x
+        return linear(self.proj_out, h).reshape(B, Fr, H, W, C) + x
 
 
 class EpiModule(nn.Module):

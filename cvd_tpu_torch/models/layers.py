@@ -92,6 +92,15 @@ def group_norm_per_frame(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return norm(x.reshape((B * Fr,) + x.shape[2:])).reshape(x.shape)
 
 
+def linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``mod(x)`` with the weights cast to the activations' dtype at use, so
+    f32 master weights (the trainable epi modules) run in bf16 activations
+    and their gradients land on the f32 masters (Flax ``param_dtype=f32``,
+    ``dtype=bf16``). A no-op cast when the dtypes already agree."""
+    bias = None if mod.bias is None else mod.bias.to(x.dtype)
+    return F.linear(x, mod.weight.to(x.dtype), bias)
+
+
 def fused_matmul(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """x @ concat(weights)^T split back per weight (one read of x)."""
     out = F.linear(x, torch.cat(list(weights), dim=0))
@@ -129,7 +138,7 @@ class FeedForward(nn.Module):
         else:
             h = proj(x)
         h, gate = h.chunk(2, dim=-1)
-        return self.net[2](h * F.gelu(gate))
+        return linear(self.net[2], h * F.gelu(gate))
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

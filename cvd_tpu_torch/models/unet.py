@@ -7,9 +7,12 @@ motion modules and CVD epi (cross-video sync) modules (port of
 
 Layout is channels-last video [B, F, H, W, C]; per-frame 2D ops fold frames
 into the batch. Module names reproduce the reference state-dict keys
-(``down_blocks.{i}.resnets.{j}...``). Not ported yet: the layer scan
-(``scan_identical_layers``) and remat, which are XLA compile and memory
-levers; LoRA, sync-LoRA, first-frame fusion and the auxiliary q/k head.
+(``down_blocks.{i}.resnets.{j}...``). ``remat=True`` recomputes each UNet
+block in the backward (``torch.utils.checkpoint``, the JAX package's
+``remat_unit="block"`` with no saving policy). Not ported yet: the layer
+scan (``scan_identical_layers``, an XLA compile lever), the ``layer`` remat
+unit and the ``dots`` policy, LoRA, sync-LoRA, first-frame fusion and the
+auxiliary q/k head.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cvd_tpu_torch.models.epi import EpiConditioning, EpiModule
 from cvd_tpu_torch.models.layers import (
@@ -205,8 +209,18 @@ class UNet3DConditionModel(nn.Module):
         encoder_hidden_states: torch.Tensor,     # [B, L, cross_dim]
         pose_features: Optional[Sequence[torch.Tensor]] = None,  # 4x [B, F, h, w, c]
         epi_cond: Optional[EpiConditioning] = None,
+        remat: bool = False,
     ) -> torch.Tensor:
+        """``remat``: recompute each block's activations in the backward
+        instead of keeping them (only while autograd records)."""
         B, Fr = sample.shape[:2]
+        recompute = remat and torch.is_grad_enabled()
+
+        def run(block, *args):
+            if recompute:
+                return checkpoint(block, *args, use_reentrant=False)
+            return block(*args)
+
         dtype = self.conv_in.weight.dtype
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
@@ -220,12 +234,12 @@ class UNet3DConditionModel(nn.Module):
         x = _unfold(self.conv_in(_fold(sample.to(dtype))), B)
         res_stack = [x]
         for i, block in enumerate(self.down_blocks):
-            x, res = block(x, temb_f, context_f, pose_features[i], epi_cond)
+            x, res = run(block, x, temb_f, context_f, pose_features[i], epi_cond)
             res_stack += res
-        x = self.mid_block(x, temb_f, context_f, pose_features[-1], epi_cond)
+        x = run(self.mid_block, x, temb_f, context_f, pose_features[-1], epi_cond)
         for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
             res, res_stack = res_stack[-n:], res_stack[:-n]
-            x = block(x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond)
+            x = run(block, x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond)
         h = self.conv_norm_out(_fold(x))
         return _unfold(self.conv_out(h), B)

@@ -9,8 +9,11 @@ big spatial self-attentions. Both take q/k/v in the projections' native
 
 On CUDA tensors both launch ``csrc/epi_flash_fwd.cu``; on CPU tensors they
 run the plain PyTorch version below (``_plain``), which is also what the
-kernel is checked against on the card. Forward only: the backward kernel
-(TPU ``_bwd_kernel``) comes with training.
+kernel is checked against on the card. They are differentiable in q/k/v:
+on CUDA through an ``autograd.Function`` whose backward launches
+``csrc/epi_flash_bwd.cu`` (kernel K6, the TPU ``_bwd_kernel``), on the CPU
+through autograd of ``_plain``. The geometry and ``kv_index`` get no
+gradient (the reference detaches the mask too).
 """
 from __future__ import annotations
 
@@ -29,7 +32,16 @@ _SIGNATURE = {"epi_flash_fwd": [
     _build.P, _build.L, _build.L, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
 ]}
+_BWD_SIGNATURE = {"epi_flash_bwd": [
+    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
+    _build.L, _build.L, _build.L, _build.L, _build.L, _build.L, _build.L, _build.L,
+    _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
+]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# widest padded head_dim the backward's shared memory holds, per dtype
+_BWD_MAX_DP = {torch.float32: 96, torch.bfloat16: 160}
 
 
 def bias_from_geometry(norm_lines: torch.Tensor, coords: torch.Tensor,
@@ -51,7 +63,7 @@ def _plain(q, k, v, geom, kv_index, heads):
     def split(x):
         return x.reshape(x.shape[0], x.shape[1], heads, D).transpose(1, 2)
 
-    bias = None if geom is None else bias_from_geometry(*geom)
+    bias = None if geom is None else bias_from_geometry(*(t.detach() for t in geom))
     out = attention_with_bias(split(q), split(k), split(v), bias)
     return out.transpose(1, 2).reshape(B, Lq, C)
 
@@ -66,7 +78,9 @@ def _check_rows(x: torch.Tensor, name: str) -> torch.Tensor:
     return x
 
 
-def _launch(q, k, v, geom, kv_index, heads) -> Tuple[torch.Tensor, torch.Tensor]:
+def _prepare(q, k, v, geom, kv_index, heads):
+    """Check the kernel's constraints; -> (q, k, v, geom, kv_index) as the
+    kernels read them (16-byte rows, f32 contiguous geometry, int32 index)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"epi flash kernel takes f32 or bf16 q/k/v, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -80,30 +94,103 @@ def _launch(q, k, v, geom, kv_index, heads) -> Tuple[torch.Tensor, torch.Tensor]
         raise ValueError(f"head_dim {D}: the kernel takes a multiple of "
                          f"{16 // q.element_size()} up to 160")
     q, k, v = (_check_rows(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v")))
-    out = torch.empty((B, Lq, C), device=q.device, dtype=q.dtype)
-    lse = torch.empty((B, heads, Lq), device=q.device, dtype=torch.float32)
     if kv_index is not None:
         kv_index = kv_index.to(device=q.device, dtype=torch.int32).contiguous()
     if geom is not None:
-        norm_lines, coords, band, alpha = (
-            t.to(device=q.device, dtype=torch.float32).contiguous() for t in geom)
+        geom = tuple(t.detach().to(device=q.device, dtype=torch.float32).contiguous()
+                     for t in geom)
+        norm_lines, coords, band, alpha = geom
         if (norm_lines.shape != (B, Lq, 3) or coords.shape != (2, Lk)
                 or band.numel() != B or alpha.numel() != B):
             raise ValueError("bad epipolar geometry shapes")
-        geom_ptrs = [t.data_ptr() for t in (norm_lines, coords, band, alpha)]
-    else:
-        geom_ptrs = [None] * 4
+    return q, k, v, geom, kv_index
+
+
+def _geom_ptrs(geom):
+    return [None] * 4 if geom is None else [t.data_ptr() for t in geom]
+
+
+def _launch(q, k, v, geom, kv_index, heads) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1/K2 on prepared inputs -> (out [B, Lq, C], lse [B, H, Lq] f32)."""
+    B, Lq, C = q.shape
+    Lk = k.shape[1]
+    D = C // heads
+    out = torch.empty((B, Lq, C), device=q.device, dtype=q.dtype)
+    lse = torch.empty((B, heads, Lq), device=q.device, dtype=torch.float32)
     lib = _build.library("epi_flash_fwd", _SIGNATURE)
     err = lib.epi_flash_fwd(
         _DTYPES[q.dtype], int(geom is not None), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        None if kv_index is None else kv_index.data_ptr(), *geom_ptrs,
+        None if kv_index is None else kv_index.data_ptr(), *_geom_ptrs(geom),
         out.data_ptr(), out.stride(0), out.stride(1), lse.data_ptr(),
         B, heads, Lq, Lk, D, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "epi_flash_fwd")
     return out, lse
+
+
+def _launch_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
+    """K6 on prepared inputs -> (dq, dk, dv) in the input dtype, dk/dv
+    scatter-added back to the source rows of k/v."""
+    B, Lq, C = q.shape
+    Lk = k.shape[1]
+    D = C // heads
+    if (D + 15) // 16 * 16 > _BWD_MAX_DP[q.dtype]:
+        raise ValueError(f"head_dim {D}: the {q.dtype} backward kernel takes up to "
+                         f"{_BWD_MAX_DP[q.dtype]}")
+    g = _check_rows(g.to(q.dtype), "grad")
+    # delta[b, h, n] = rowsum(dO * O) per head (epi_flash.py:296-301)
+    delta = torch.einsum("bnhd,bnhd->bhn", g.float().reshape(B, Lq, heads, D),
+                         out.float().reshape(B, Lq, heads, D)).contiguous()
+    dq = torch.empty((B, Lq, C), device=q.device, dtype=torch.float32)
+    dk = torch.empty((B, Lk, C), device=q.device, dtype=torch.float32)
+    dv = torch.empty((B, Lk, C), device=q.device, dtype=torch.float32)
+    lib = _build.library("epi_flash_bwd", _BWD_SIGNATURE)
+    err = lib.epi_flash_bwd(
+        _DTYPES[q.dtype], int(geom is not None), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        g.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), g.stride(0), g.stride(1),
+        None if kv_index is None else kv_index.data_ptr(), *_geom_ptrs(geom),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, heads, Lq, Lk, D, 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "epi_flash_bwd")
+    if kv_index is not None:
+        # dk/dv come out per QUERY row; add them into the source rows
+        # (epi_flash.py:356-367). A row may be routed to more than once.
+        idx = kv_index.long()
+        dk = torch.zeros((k.shape[0], Lk, C), device=q.device,
+                         dtype=torch.float32).index_add_(0, idx, dk)
+        dv = torch.zeros((v.shape[0], Lk, C), device=q.device,
+                         dtype=torch.float32).index_add_(0, idx, dv)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashFn(torch.autograd.Function):
+    """K1/K2 forward, K6 backward; saves q, k, v, out and the row LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, norm_lines, coords, band, alpha, kv_index, heads, bwd_wrapper):
+        geom = None if norm_lines is None else (norm_lines, coords, band, alpha)
+        q, k, v, geom, kv_index = _prepare(q, k, v, geom, kv_index, heads)
+        out, lse = _launch(q, k, v, geom, kv_index, heads)
+        ctx.save_for_backward(q, k, v, out, lse, kv_index, *(geom or ()))
+        ctx.heads = heads
+        ctx.bwd_wrapper = bwd_wrapper
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, kv_index, *geom = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd_wrapper(q, k, v, tuple(geom) or None, kv_index, ctx.heads,
+                                     out, lse, g)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def epi_flash_attention(
@@ -123,7 +210,10 @@ def epi_flash_attention(
         return _plain(q, k, v, geom, kv_index, heads)
     if q.device.type != "cuda":
         raise ValueError(f"epi_flash_attention: no kernel for {q.device}")
-    out = _launch(q, k, v, geom, kv_index, heads)[0]
+    if _needs_grad(q, k, v):
+        out = _FlashFn.apply(q, k, v, *geom, kv_index, heads, epi_flash_attention_bwd)
+    else:
+        out = _launch(*_prepare(q, k, v, geom, kv_index, heads), heads)[0]
     epi_flash_attention.launches += 1
     return out
 
@@ -136,10 +226,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _plain(q, k, v, None, None, heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    out = _launch(q, k, v, None, None, heads)[0]
+    if _needs_grad(q, k, v):
+        out = _FlashFn.apply(q, k, v, None, None, None, None, None, heads,
+                             flash_attention_bwd)
+    else:
+        out = _launch(*_prepare(q, k, v, None, None, heads), heads)[0]
     flash_attention.launches += 1
     return out
 
 
+def _plain_bwd(q, k, v, geom, kv_index, heads, g):
+    """Autograd of ``_plain``: the backward kernel's plain version."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = _plain(*leaves, geom, kv_index, heads)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def epi_flash_attention_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
+    """(dq, dk, dv) of ``epi_flash_attention`` from the forward's saved out
+    and lse [B, H, Lq] (kernel K6 on CUDA; autograd of ``_plain`` on the
+    CPU, which needs neither)."""
+    if q.device.type == "cpu":
+        return _plain_bwd(q, k, v, geom, kv_index, heads, g)
+    grads = _launch_bwd(q, k, v, geom, kv_index, heads, out, lse, g)
+    epi_flash_attention_bwd.launches += 1
+    return grads
+
+
+def flash_attention_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
+    """(dq, dk, dv) of ``flash_attention`` (kernel K6 without bias)."""
+    if q.device.type == "cpu":
+        return _plain_bwd(q, k, v, None, None, heads, g)
+    grads = _launch_bwd(q, k, v, None, None, heads, out, lse, g)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
 epi_flash_attention.launches = 0
 flash_attention.launches = 0
+epi_flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = 0

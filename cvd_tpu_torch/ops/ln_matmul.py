@@ -9,7 +9,9 @@ q, the GEGLU input). The LayerNorm affine folds into the weights:
 so the kernel only standardizes (mean/var over C, f32 stats) and multiplies
 the folded weight. On CUDA tensors ``layer_norm_matmul`` launches
 ``csrc/ln_matmul_fwd.cu`` (kernel K5); on CPU tensors it runs the plain
-LayerNorm-then-matmul version ``_reference``.
+LayerNorm-then-matmul version ``_reference``. The backward is autograd of
+``_reference`` on both devices, so the folding stays inside the CUDA
+forward and the gradients reach the unfolded gamma, beta, W_i and b_i.
 
 Weights are in torch ``nn.Linear`` layout, [K_i, C].
 """
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from cvd_tpu_torch.ops import _build
+from cvd_tpu_torch.ops.norms import _vjp_of
 
 _SIGNATURE = {"ln_matmul_fwd": [
     _build.I, _build.P, _build.L, _build.P, _build.P, _build.P, _build.P, _build.L,
@@ -80,6 +83,36 @@ def _launch(x2, w_folded, b_folded, eps):
     return out
 
 
+def _fused(x, gamma, beta, weights, biases, eps):
+    """Fold, then K5 over [T, C] tokens -> [..., sum K_i]."""
+    C = x.shape[-1]
+    w_folded, b_folded = fold_weights(gamma, beta, weights, biases, x.dtype)
+    out = _launch(x.reshape(-1, C), w_folded, b_folded, eps)
+    return out.reshape(*x.shape[:-1], w_folded.shape[0])
+
+
+class _LnMatmulFn(torch.autograd.Function):
+    """Folding + K5 forward; backward = autograd of the plain LayerNorm then
+    matmul (ln_matmul.py:117-120), so the gradients reach the unfolded
+    gamma, beta, W_i and b_i. Inputs: x, gamma, beta, W_1..W_n, b_1..b_n."""
+
+    @staticmethod
+    def forward(ctx, n, eps, x, gamma, beta, *wb):
+        ctx.save_for_backward(x, gamma, beta, *wb)
+        ctx.n, ctx.eps = n, eps
+        return _fused(x, gamma, beta, wb[:n], wb[n:], eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, eps = ctx.n, ctx.eps
+
+        def plain(x, gamma, beta, *wb):
+            return _reference(x, gamma, beta, wb[:n], wb[n:], eps)
+
+        grads = _vjp_of(plain, ctx.saved_tensors, ctx.needs_input_grad[2:], g)
+        return (None, None, *grads)
+
+
 def layer_norm_matmul(
     x: torch.Tensor,
     gamma: torch.Tensor,
@@ -90,16 +123,16 @@ def layer_norm_matmul(
 ) -> Tuple[torch.Tensor, ...]:
     """(LayerNorm(x) @ W_i^T + b_i for each W_i), x [..., C], W_i [K_i, C];
     one fused kernel over the concatenated weights on CUDA."""
-    C = x.shape[-1]
-    lead = x.shape[:-1]
     sizes = [w.shape[0] for w in weights]
     if x.device.type == "cpu":
         out = _reference(x, gamma, beta, weights, biases, eps)
     elif x.device.type == "cuda":
-        w_folded, b_folded = fold_weights(gamma, beta, weights, biases, x.dtype)
-        out = _launch(x.reshape(-1, C), w_folded, b_folded, float(eps))
+        inputs = (x, gamma, beta, *weights, *biases)
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+            out = _LnMatmulFn.apply(len(weights), float(eps), *inputs)
+        else:
+            out = _fused(x, gamma, beta, weights, biases, float(eps))
         layer_norm_matmul.launches += 1
-        out = out.reshape(*lead, sum(sizes))
     else:
         raise ValueError(f"layer_norm_matmul: no kernel for {x.device}")
     return tuple(torch.split(out, sizes, dim=-1))

@@ -4,6 +4,8 @@
 dims per group of channels, with f32 statistics, a per-channel affine and
 an optional SiLU. On CPU tensors it runs the plain PyTorch version
 ``_reference``; on CUDA tensors it launches the Triton kernel K4 below.
+Its backward is autograd of ``_reference`` on both devices: the JAX package
+has no GroupNorm backward kernel either.
 
 Kernel K4 replaces cvd_tpu/ops/norms.py:_gn_kernel (the Pallas TPU kernel
 behind group_norm). What bounds it on the H100 is memory bandwidth: ~10
@@ -159,6 +161,36 @@ def _launch(x3, gamma, beta, groups, eps, act):
     return y
 
 
+def _vjp_of(fn, inputs, needs, g):
+    """Gradients of ``fn(*inputs)`` for the inputs flagged in ``needs``
+    (None elsewhere): a backward that is autograd of the plain version, as
+    the JAX package's custom_vjps take ``jax.vjp`` of their reference."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) if t is not None else None
+                  for t, n in zip(inputs, needs)]
+        wanted = [t for t, n in zip(leaves, needs) if n and t is not None]
+        grads = iter(torch.autograd.grad(fn(*leaves), wanted, g) if wanted else ())
+        return tuple(next(grads) if n and t is not None else None
+                     for t, n in zip(leaves, needs))
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """K4 forward; backward = autograd of ``_reference`` (norms.py:166-172:
+    the JAX package has no GroupNorm backward kernel either)."""
+
+    @staticmethod
+    def forward(ctx, x3, gamma, beta, groups, eps, act):
+        ctx.save_for_backward(x3, gamma, beta)
+        ctx.args = (groups, eps, act)
+        return _launch(x3, gamma, beta, groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _vjp_of(lambda x_, g_, b_: _reference(x_, g_, b_, *ctx.args),
+                        ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+        return (*grads, None, None, None)
+
+
 def group_norm(
     x: torch.Tensor,
     gamma: torch.Tensor,
@@ -180,7 +212,10 @@ def group_norm(
         raise ValueError(f"group_norm: no kernel for {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"group_norm kernel takes f32 or bf16, got {x.dtype}")
-    y = _launch(x3, gamma, beta, num_groups, float(eps), act)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x3, gamma, beta)):
+        y = _GroupNormFn.apply(x3, gamma, beta, num_groups, float(eps), act)
+    else:
+        y = _launch(x3, gamma, beta, num_groups, float(eps), act)
     group_norm.launches += 1
     return y.reshape(x.shape)
 

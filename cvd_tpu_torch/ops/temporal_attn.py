@@ -4,8 +4,10 @@ The motion module attends over the FRAME axis independently for every
 pixel, in the pixel-major [B, N, F, C] layout. On CUDA tensors
 ``temporal_flash_attention`` launches ``csrc/temporal_attn_fwd.cu``
 (kernel K3); on CPU tensors it runs the plain PyTorch version
-``temporal_attention_plain``.
-Forward only: the backward kernel comes with training.
+``temporal_attention_plain``. It is differentiable in q/k/v: on CUDA
+through an ``autograd.Function`` whose backward launches
+``csrc/temporal_attn_bwd.cu`` (kernel K7, the TPU ``_bwd_kernel``), on
+the CPU through autograd of the plain version. The mask gets no gradient.
 """
 from __future__ import annotations
 
@@ -15,13 +17,20 @@ from typing import Optional
 import torch
 
 from cvd_tpu_torch.ops import _build
-from cvd_tpu_torch.ops.epi_flash import _check_rows
+from cvd_tpu_torch.ops.epi_flash import _check_rows, _needs_grad
 
 _SIGNATURE = {"temporal_attn_fwd": [
     _build.I, _build.P, _build.P, _build.P,
     _build.L, _build.L, _build.L, _build.L, _build.L, _build.L,
     _build.L, _build.L, _build.L,
     _build.P, _build.P, _build.L, _build.L, _build.L,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
+]}
+_BWD_SIGNATURE = {"temporal_attn_bwd": [
+    _build.I, _build.P, _build.P, _build.P, _build.P,
+    *[_build.L] * 12,
+    _build.P, _build.P, _build.P, _build.P,
+    *[_build.L] * 6,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
 ]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,13 +47,13 @@ def temporal_attention_plain(q, k, v, mask=None, heads=8):
     vh = v.reshape(B, N, G, heads, D).permute(0, 1, 3, 2, 4)
     logits = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(D))
     if mask is not None:
-        logits = logits + mask.float()
+        logits = logits + mask.detach().float()
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.matmul(probs, vh)                     # [B, N, H, F, D]
     return out.permute(0, 1, 3, 2, 4).reshape(B, N, F, C)
 
 
-def _launch(q, k, v, mask, heads):
+def _prepare(q, k, v, mask, heads):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"temporal kernel takes f32 or bf16, got {q.dtype}")
     B, N, F, C = q.shape
@@ -57,9 +66,16 @@ def _launch(q, k, v, mask, heads):
         raise ValueError(f"head_dim {D} is not a multiple of 16 bytes")
     q, k, v = (_check_rows(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v")))
     if mask is not None:
-        mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
+        mask = mask.detach().to(device=q.device, dtype=torch.float32).contiguous()
         if mask.shape != (F, G):
             raise ValueError(f"mask {tuple(mask.shape)} is not [{F}, {G}]")
+    return q, k, v, mask
+
+
+def _launch(q, k, v, mask, heads):
+    B, N, F, C = q.shape
+    G = k.shape[2]
+    D = C // heads
     out = torch.empty((B, N, F, C), device=q.device, dtype=q.dtype)
     lib = _build.library("temporal_attn_fwd", _SIGNATURE)
     err = lib.temporal_attn_fwd(
@@ -74,6 +90,44 @@ def _launch(q, k, v, mask, heads):
     return out
 
 
+def _launch_bwd(q, k, v, mask, heads, g):
+    B, N, F, C = q.shape
+    G = k.shape[2]
+    D = C // heads
+    g = _check_rows(g.to(q.dtype), "grad")
+    dq = torch.empty((B, N, F, C), device=q.device, dtype=q.dtype)
+    dk = torch.empty((B, N, G, C), device=q.device, dtype=q.dtype)
+    dv = torch.empty_like(dk)
+    lib = _build.library("temporal_attn_bwd", _BWD_SIGNATURE)
+    err = lib.temporal_attn_bwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+        None if mask is None else mask.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dq.stride()[:3], *dk.stride()[:3],
+        B, N, F, G, heads, D, 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "temporal_attn_bwd")
+    return dq, dk, dv
+
+
+class _TemporalFn(torch.autograd.Function):
+    """K3 forward, K7 backward (recomputes P; saves only the inputs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, heads):
+        q, k, v, mask = _prepare(q, k, v, mask, heads)
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.heads = heads
+        return _launch(q, k, v, mask, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = temporal_flash_attention_bwd(q, k, v, mask, ctx.heads, g)
+        return dq, dk, dv, None, None
+
+
 def temporal_flash_attention(
     q: torch.Tensor,                    # [B, N, F, C] (pixel-major)
     k: torch.Tensor,                    # [B, N, G, C]
@@ -86,9 +140,27 @@ def temporal_flash_attention(
         return temporal_attention_plain(q, k, v, mask, heads)
     if q.device.type != "cuda":
         raise ValueError(f"temporal_flash_attention: no kernel for {q.device}")
-    out = _launch(q, k, v, mask, heads)
+    if _needs_grad(q, k, v):
+        out = _TemporalFn.apply(q, k, v, mask, heads)
+    else:
+        out = _launch(*_prepare(q, k, v, mask, heads), heads)
     temporal_flash_attention.launches += 1
     return out
 
 
+def temporal_flash_attention_bwd(q, k, v, mask, heads, g):
+    """(dq, dk, dv) of ``temporal_flash_attention`` for the output
+    gradient ``g`` (kernel K7 on CUDA; autograd of the plain version on the
+    CPU)."""
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = temporal_attention_plain(*leaves, mask, heads)
+            return torch.autograd.grad(out, leaves, g)
+    grads = _launch_bwd(*_prepare(q, k, v, mask, heads), heads, g)
+    temporal_flash_attention_bwd.launches += 1
+    return grads
+
+
 temporal_flash_attention.launches = 0
+temporal_flash_attention_bwd.launches = 0

@@ -1,5 +1,5 @@
-"""Shared pipeline machinery: the module bundle, text encoding, VAE decode
-(port of ``cvd_tpu/pipelines/common.py``)."""
+"""Shared pipeline machinery: the module bundle, text encoding, VAE encode
+and decode (port of ``cvd_tpu/pipelines/common.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,17 +58,18 @@ class PipelineModules:
         device="cpu",
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
+        vae_encoder: bool = False,
     ) -> "PipelineModules":
         """Build the bundle on ``device``. With ``generator`` the weights are
         random, drawn on the generator's device; without it they are left
         for ``load_state_dict``. Modules are built on the meta device and
         materialized in place, so a full-size bundle never exists on the
-        host."""
+        host. ``vae_encoder`` adds the VAE's encoder (training)."""
         unet_config = unet_config or UNetConfig()
         with torch.device("meta"):
             mods = [
                 UNet3DConditionModel(unet_config),
-                AutoencoderKL(vae_config or VAEConfig()),
+                AutoencoderKL(vae_config or VAEConfig(), with_encoder=vae_encoder),
                 CLIPTextEncoder(clip_config or CLIPTextConfig()),
                 CameraPoseEncoder(channels=unet_config.block_out_channels),
             ]
@@ -99,3 +100,15 @@ def decode_latents(modules: PipelineModules, latents: torch.Tensor) -> torch.Ten
     imgs = modules.vae.decode(z).float()
     imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
     return imgs.reshape(B, Fr, *imgs.shape[1:])
+
+
+def encode_images(modules: PipelineModules, images: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  frame_chunk: int = 8) -> torch.Tensor:
+    """[N, H, W, 3] in [-1, 1] -> sampled, scaled latents [N, H/8, W/8, 4]
+    (f32). Frames encode ``frame_chunk`` at a time, which bounds the
+    encoder's activation memory (common.py:363-390)."""
+    dtype = modules.vae.quant_conv.weight.dtype
+    z = [modules.vae.sample_posterior(images[i:i + frame_chunk].to(dtype), generator).float()
+         for i in range(0, images.shape[0], frame_chunk)]
+    return torch.cat(z) * VAE_SCALE

@@ -43,6 +43,15 @@ class DDIMScheduler:
     def init_noise_sigma(self) -> float:
         return 1.0
 
+    def add_noise(self, state: DDIMState, original_samples: torch.Tensor,
+                  noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) = sqrt(acp_t) x0 + sqrt(1 - acp_t) eps, timesteps [B]
+        (ddim.py:150-161)."""
+        acp = torch.from_numpy(state.alphas_cumprod).to(original_samples.device)
+        acp = acp[timesteps.to(acp.device).long()]
+        acp = acp.reshape(acp.shape + (1,) * (original_samples.ndim - acp.ndim))
+        return acp ** 0.5 * original_samples + (1.0 - acp) ** 0.5 * noise
+
     def step(self, state: DDIMState, model_output: torch.Tensor, timestep: int,
              sample: torch.Tensor) -> torch.Tensor:
         """One DDIM update x_t -> x_{t-1} (diffusers DDIMScheduler.step, eta 0)."""

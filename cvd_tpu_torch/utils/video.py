@@ -39,6 +39,17 @@ def save_video(video: np.ndarray, path: str, fps: int = 8) -> None:
         imageio.mimsave(gif_path, frames, duration=1000 / fps, loop=0)
 
 
+def save_videos_grid(videos: np.ndarray, path: str, fps: int = 8, n_rows: int = 1) -> None:
+    """videos [B, F, H, W, 3] in [0, 1] -> one tiled video file."""
+    B, F, H, W, C = videos.shape
+    cols = (B + n_rows - 1) // n_rows
+    grid = np.zeros((F, H * n_rows, W * cols, C), videos.dtype)
+    for b in range(B):
+        r, c = divmod(b, cols)
+        grid[:, r * H:(r + 1) * H, c * W:(c + 1) * W] = videos[b]
+    save_video(grid, path, fps)
+
+
 def save_video_as_images(video: np.ndarray, out_dir: str) -> List[str]:
     """video [F, H, W, 3] -> out_dir/%04d.png, returning paths."""
     import imageio

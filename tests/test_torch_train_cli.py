@@ -1,0 +1,169 @@
+"""The port's training CLI as a user runs it, on the CPU: tiny random
+weights, 64 px, 2 frames, 2 steps, on a RealEstate10K-layout dataset
+written from a seed (a copy of assets/pose_files/example_dolly.txt, seeded
+80x64 PNG frames so resize and crop run, and the captions file). Also the
+dataset reader and loader, checkpoints against cvd_tpu's export keys,
+resume, and the options that are not ported yet."""
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+torch.set_num_threads(2)
+
+ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
+CLIP = "example_dolly"
+
+
+@pytest.fixture(scope="module")
+def re10k_root(tmp_path_factory):
+    from PIL import Image
+
+    from cvd_tpu_torch.geometry.cameras import parse_pose_file
+
+    root = tmp_path_factory.mktemp("re10k")
+    pose_dir = root / "RealEstate10K" / "train"
+    frame_dir = root / "dataset" / "train" / CLIP
+    pose_dir.mkdir(parents=True)
+    frame_dir.mkdir(parents=True)
+    pose_file = os.path.join(ASSETS, "pose_files", f"{CLIP}.txt")
+    shutil.copy(pose_file, pose_dir / f"{CLIP}.txt")
+    rng = np.random.default_rng(0)
+    for cam in parse_pose_file(pose_file):
+        img = rng.integers(0, 256, (64, 80, 3), dtype=np.uint8)   # H 64, W 80
+        Image.fromarray(img).save(frame_dir / f"{int(cam.cid)}.png")
+    (root / "annotation_json").mkdir()
+    with open(root / "annotation_json" / "train_captions.json", "w") as f:
+        json.dump({f"{CLIP}.mp4": ["a quiet living room, slow dolly"]}, f)
+    return root
+
+
+def _config(tmp_path, root, **kw):
+    cfg = dict(
+        output_dir=str(tmp_path / "run"), random_weights=True, bf16=False, device="cpu",
+        train_data=dict(root_path=str(root), sample_stride=2), sample_size=64,
+        sample_n_frames=2, train_batch_size=1, num_workers=2, max_train_steps=2,
+        checkpointing_steps=2, logger_interval=1, learning_rate=1e-3, global_seed=3,
+        do_sanity_check=True)
+    cfg.update(kw)
+    return cfg
+
+
+def _write(tmp_path, cfg, name="train.yaml"):
+    path = tmp_path / name
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
+def test_realestate10k_folded_sample(re10k_root):
+    from cvd_tpu_torch.data.realestate10k import RealEstate10KPoseFolded
+
+    ds = RealEstate10KPoseFolded(str(re10k_root), sample_n_frames=2, sample_size=64, seed=0)
+    assert len(ds) == 1
+    s = ds[0]
+    assert s["pixel_values"].shape == (4, 64, 64, 3)
+    assert -1.0 <= s["pixel_values"].min() and s["pixel_values"].max() <= 1.0
+    assert s["plucker_embedding"].shape == (4, 64, 64, 6)
+    assert s["F_mats"].shape == (4, 3, 3) and np.isfinite(s["F_mats"]).all()
+    assert s["text"] == "a quiet living room, slow dolly"
+    # the folded pair shares its start frame: identity relative pose
+    np.testing.assert_allclose(s["ret_c2w"][0], np.eye(4), atol=1e-5)
+    np.testing.assert_allclose(s["ret_c2w"][2], np.eye(4), atol=1e-5)
+
+
+def test_data_loader_batches_and_raises_for_process_workers():
+    from cvd_tpu_torch.data.loader import DataLoader
+
+    data = [{"x": np.full((2,), i, np.float32), "text": str(i)} for i in range(5)]
+    loader = DataLoader(data, batch_size=2, num_workers=2, seed=1)
+    batches = list(loader)
+    assert len(loader) == len(batches) == 2
+    assert all(b["x"].shape == (2, 2) and len(b["text"]) == 2 for b in batches)
+    seen = np.concatenate([b["x"][:, 0] for b in batches])
+    assert len(set(seen.tolist())) == 4
+    with pytest.raises(NotImplementedError):
+        DataLoader(data, batch_size=2, worker_type="process")
+
+
+def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
+    from cvd_tpu.io.key_mapping import export_torch_state
+    from cvd_tpu.pipelines.common import abstract_param_shapes
+    from cvd_tpu.train.state import trainable_mask
+    from flax import traverse_util
+    from tiny import TINY_UNET
+
+    from cvd_tpu_torch.cli import train
+
+    cfg = _config(tmp_path, re10k_root)
+    out = train.main(["--config", _write(tmp_path, cfg)])
+    assert out["global_step"] == 2 and out["state"].step == 2
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    run = tmp_path / "run"
+    ck = run / "checkpoints"
+    assert (ck / "step-2.pt").exists()
+    assert (run / "sanity_check" / "epi_overlay.npy").exists()
+    lines = (run / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(line)["step"] for line in lines] == [1, 2]
+
+    # the reference-format checkpoint: cvd_tpu's export keys and shapes for
+    # the same (tiny) UNet's trainable subset
+    ref = torch.load(ck / "checkpoint-step-2.ckpt", weights_only=True)
+    assert ref["global_step"] == 2 and ref["epoch"] == 1  # passes completed before step 2
+    shapes = abstract_param_shapes(unet_config=TINY_UNET, latent_size=8,
+                                   video_length=2)["unet"]
+    flat = traverse_util.flatten_dict(shapes["params"])
+    mask = traverse_util.flatten_dict(trainable_mask(shapes)["params"])
+    trainable = traverse_util.unflatten_dict(
+        {k: np.zeros(v.shape, np.float32) for k, v in flat.items() if mask[k]})
+    want = export_torch_state(trainable)
+    got = ref["unet_trainable_dict"]
+    assert set(got) == set(want)
+    assert all(tuple(got[k].shape) == want[k].shape for k in want)
+    params = dict(out["state"].model.named_parameters())
+    assert all(torch.equal(got[k], params[k].detach()) for k in got)
+
+    # resume: continues at step 2 with the saved weights and optimizer
+    cfg2 = _config(tmp_path, re10k_root, max_train_steps=3, checkpointing_steps=100,
+                   resume_from=str(ck / "step-2.pt"), do_sanity_check=False,
+                   output_dir=str(tmp_path / "resumed"))
+    out2 = train.run(cfg2)
+    assert out2["global_step"] == 3 and out2["state"].step == 3 and len(out2["losses"]) == 1
+    opt = out2["state"].optimizer.state_dict()["state"]
+    assert all(int(s["step"]) == 3 for s in opt.values())
+
+
+@pytest.mark.parametrize("override", [
+    {"train_data": {"dataset_name": "webvid10m", "root_path": "/nonexistent"}},
+    {"cache_latents": True},
+    {"validation_steps": 10},
+    {"sync_lora_rank": 4},
+    {"remat_policy": "dots"},
+    {"random_weights": False},
+])
+def test_unported_options_raise(tmp_path, override):
+    from cvd_tpu_torch.cli import train
+
+    cfg = _config(tmp_path, "/nonexistent")
+    cfg.update(override)
+    with pytest.raises(NotImplementedError):
+        train.run(cfg)
+
+
+def test_multihost_raises(tmp_path):
+    from cvd_tpu_torch.cli import train
+
+    with pytest.raises(NotImplementedError):
+        train.main(["--config", _write(tmp_path, _config(tmp_path, "/nonexistent")),
+                    "--multihost"])
+
+
+def test_unposed_batches_raise():
+    from cvd_tpu_torch.train.train_step import train_step
+
+    with pytest.raises(NotImplementedError):
+        train_step(None, {"H_mats": torch.zeros(2, 2, 3, 3)}, None)
