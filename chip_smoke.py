@@ -13,10 +13,16 @@ Phases (any failure raises and exits non-zero):
    sm_90a, all sources at once) and the Triton GroupNorm, and prints the
    seconds taken.
 3. kernels: each forward kernel against its plain PyTorch version at the
-   sampler's shapes, and each backward kernel (K6, K7: autograd through
-   the kernels against autograd of the plain versions) at the training
-   shapes, in f32 (TF32 off) and in bf16; max |error| against the stated
-   tolerance, and kernel ms beside plain ms (CUDA events, after warm-up).
+   sampler's shapes and at the kernels' edges (64 tokens, head_dim 160, a
+   ragged key length, a ragged token count), and each backward kernel (K6,
+   K7: autograd through the kernels against autograd of the plain
+   versions) at the training shapes, in f32 (TF32 off) and in bf16; max
+   |error| against the stated tolerance. For the timed bf16 shapes, in
+   turns inside the one call (CUDA events, after warm-up): the plain
+   version, the kernel alone on prepared inputs (twice), one PyTorch
+   library call for the same function as a yardstick (never used by the
+   package), and the whole wrapper; beside them the roofline bound of the
+   case from ``cvd_tpu_torch.ops.work`` (H100 SXM peaks).
 4. reference: a narrow UNet (the smoke widths) at 256 px runs the sampler
    on the card, through the kernels, and on the CPU, through the plain
    versions, from the same weights and latents; final latents must agree
@@ -33,11 +39,13 @@ Phases (any failure raises and exits non-zero):
    on, sanity dump on) on seeded pixels with the camera geometry of
    assets/pose_files: finite losses, trainable weights moved, frozen ones
    bit-identical, every kernel K1-K7 launched. Then one step with remat
-   off for its peak memory; with ``--profile``, a torch.profiler table of
-   one step (chiprun_out/train_step_profile.txt).
+   off for its peak memory. With ``--profile``, torch.profiler tables of
+   three sampler UNet steps and of one training step (kernel time by name,
+   idle share; chiprun_out/{sampler,train}_step_profile.txt).
 
-The second-to-last line is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The second-to-last line is the per-kernel JSON record (times, bound,
+library yardstick, launches per UNet step of the sampler and per training
+step); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -122,65 +130,154 @@ def _time_ms(torch, fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def _cases(torch, dtype, g):
-    """(kernel name, shape label, kernel fn, plain fn, timed?) at the
-    main-path shapes (256 px, 16 frames, 2 views = 4 CFG rows)."""
+def _case(name, label, kernel, plain, timed=False, **timing):
+    """One comparison of phase 3. ``kernel`` / ``plain``: the wrapper and its
+    plain version on the same inputs. For a timed case ``timing`` holds
+    factories, called only in bf16, each -> the function to time:
+    ``launch`` the kernel alone on prepared inputs (default: the wrapper),
+    ``wrapper`` the public function where ``kernel`` does more than call it,
+    ``plain_timer`` (default: ``plain``), ``library`` the PyTorch yardstick
+    named by ``library_call``; and ``work`` = (flops, bytes, the type the
+    operations run in) of the case."""
+    return dict(name=name, label=label, kernel=kernel, plain=plain, timed=timed, **timing)
+
+
+def _heads(x, heads):
+    """[B, L, C] -> [B, heads, L, D], the layout of scaled_dot_product_attention."""
+    B, L, C = x.shape
+    return x.reshape(B, L, heads, C // heads).transpose(1, 2)
+
+
+def _epi_inputs(torch, g, B, feat, randn):
+    """The epipolar geometry and routing of B frame rows at a feat x feat grid."""
     from cvd_tpu_torch.geometry.epipolar_mask import (
         epipolar_lines, lines_and_band, pixel_grid_coords,
     )
-    from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn
+
+    F_mats = torch.randn(B, 3, 3, generator=g, device="cuda") * 1e-3
+    coords = pixel_grid_coords(feat, 256, "cuda")
+    lines, band, alpha = lines_and_band(epipolar_lines(F_mats, coords), feat, 256)
+    route = torch.cat([torch.arange(B // 2, B), torch.arange(0, B // 2)]).to("cuda", torch.int32)
+    return (lines, coords[:, :2].T.contiguous(), band, alpha), route
+
+
+def _cases(torch, dtype, g):
+    """The comparisons at the main-path shapes (256 px, 16 frames, 2 views =
+    4 CFG rows) and at the kernels' edges."""
+    import torch.nn.functional as F
+
+    from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn, work
 
     dev = "cuda"
+    size = torch.empty((), dtype=dtype).element_size()
+    sdpa = F.scaled_dot_product_attention
 
     def randn(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=g, device=dev) * scale + shift).to(dtype)
 
+    def epi_launch(q, k, v, geom, route):
+        prep = epi_flash._prepare(q, k, v, geom, route, 8)
+        return lambda: epi_flash._launch(*prep, 8)
+
+    def epi_library(q, k, v, geom, route):
+        # outside the timed call: the [B, 1, N, N] bias and the routed k / v
+        qh = _heads(q, 8)
+        kh, vh = ((_heads(x, 8) if route is None else _heads(x[route.long()], 8)) for x in (k, v))
+        mask = None if geom is None else epi_flash.bias_from_geometry(*geom)[:, None].to(q.dtype)
+        return lambda: sdpa(qh, kh, vh, attn_mask=mask)
+
     cases = []
-    for feat, C in ((32, 320), (16, 640)):
+    for feat, C in ((32, 320), (16, 640), (8, 1280)):
         N, B = feat * feat, 64
         q, k, v = randn(B, N, C), randn(B, N, C), randn(B, N, C)
-        F_mats = torch.randn(B, 3, 3, generator=g, device=dev) * 1e-3
-        coords = pixel_grid_coords(feat, 256, dev)
-        lines, band, alpha = lines_and_band(epipolar_lines(F_mats, coords), feat, 256)
-        xy = coords[:, :2].T.contiguous()
-        route = torch.cat([torch.arange(32, 64), torch.arange(0, 32)]).to(dev, torch.int32)
-        geom = (lines, xy, band, alpha)
-        cases.append(("epi_flash_attention", f"B{B} N{N} C{C} h8 routed",
-                      lambda q=q, k=k, v=v, geom=geom, route=route:
-                      epi_flash.epi_flash_attention(q, k, v, *geom, heads=8, kv_index=route),
-                      lambda q=q, k=k, v=v, geom=geom, route=route:
-                      epi_flash._plain(q, k, v, geom, route, 8), feat == 32))
-        cases.append(("flash_attention", f"B{B} N{N} C{C} h8",
-                      lambda q=q, k=k, v=v: epi_flash.flash_attention(q, k, v, heads=8),
-                      lambda q=q, k=k, v=v: epi_flash._plain(q, k, v, None, None, 8),
-                      feat == 32))
+        geom, route = _epi_inputs(torch, g, B, feat, randn)
+        D = C // 8
+        cases.append(_case(
+            "epi_flash_attention", f"B{B} N{N} C{C} h8 routed",
+            lambda q=q, k=k, v=v, geom=geom, route=route:
+            epi_flash.epi_flash_attention(q, k, v, *geom, heads=8, kv_index=route),
+            lambda q=q, k=k, v=v, geom=geom, route=route:
+            epi_flash._plain(q, k, v, geom, route, 8), feat == 32,
+            launch=lambda q=q, k=k, v=v, geom=geom, route=route: epi_launch(q, k, v, geom, route),
+            library=lambda q=q, k=k, v=v, geom=geom, route=route:
+            epi_library(q, k, v, geom, route),
+            library_call="scaled_dot_product_attention, attn_mask = the bias; excludes "
+                         "materialising the bias and gathering k/v by kv_index",
+            work=(*work.attention_fwd(B, 8, N, N, D, size, True, True), "bfloat16")))
+        cases.append(_case(
+            "flash_attention", f"B{B} N{N} C{C} h8",
+            lambda q=q, k=k, v=v: epi_flash.flash_attention(q, k, v, heads=8),
+            lambda q=q, k=k, v=v: epi_flash._plain(q, k, v, None, None, 8), feat == 32,
+            launch=lambda q=q, k=k, v=v: epi_launch(q, k, v, None, None),
+            library=lambda q=q, k=k, v=v: epi_library(q, k, v, None, None),
+            library_call="scaled_dot_product_attention",
+            work=(*work.attention_fwd(B, 8, N, N, D, size), "bfloat16")))
+        if feat == 8:
+            continue  # the temporal kernel's shapes stay those of the main path
         qt, kt, vt = randn(4, N, 16, C), randn(4, N, 16, C), randn(4, N, 16, C)
-        cases.append(("temporal_flash_attention", f"B4 N{N} F16 C{C} h8",
-                      lambda q=qt, k=kt, v=vt:
-                      temporal_attn.temporal_flash_attention(q, k, v, None, heads=8),
-                      lambda q=qt, k=kt, v=vt:
-                      temporal_attn.temporal_attention_plain(q, k, v, None, 8), feat == 32))
+
+        def temporal_library(q=qt, k=kt, v=vt):
+            qh, kh, vh = (_heads(x.reshape(-1, 16, x.shape[-1]), 8) for x in (q, k, v))
+            return lambda: sdpa(qh, kh, vh)
+
+        cases.append(_case(
+            "temporal_flash_attention", f"B4 N{N} F16 C{C} h8",
+            lambda q=qt, k=kt, v=vt:
+            temporal_attn.temporal_flash_attention(q, k, v, None, heads=8),
+            lambda q=qt, k=kt, v=vt:
+            temporal_attn.temporal_attention_plain(q, k, v, None, 8), feat == 32,
+            library=temporal_library,
+            library_call="scaled_dot_product_attention on [B*N, h, F, D]",
+            work=(*work.temporal_fwd(4, N, 16, C, size), "float32")))
+    # a ragged key length and a query length that fills no tile
+    q, k, v = randn(4, 200, 320), randn(4, 150, 320), randn(4, 150, 320)
+    cases.append(_case("flash_attention", "B4 Lq200 Lk150 C320 h8 ragged",
+                       lambda q=q, k=k, v=v: epi_flash.flash_attention(q, k, v, heads=8),
+                       lambda q=q, k=k, v=v: epi_flash._plain(q, k, v, None, None, 8)))
     for R, S, C, eps, timed in ((64, 1024, 320, 1e-6, True), (64, 256, 1920, 1e-6, False),
                                 (32, 65536, 128, 1e-6, True)):
         x = randn(R, S, C, scale=2.0, shift=3.0)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
-        cases.append(("group_norm", f"R{R} S{S} C{C} silu",
-                      lambda x=x, gam=gam, bet=bet, eps=eps:
-                      norms.group_norm(x, gam, bet, 32, eps, act="silu"),
-                      lambda x=x, gam=gam, bet=bet, eps=eps:
-                      norms._reference(x, gam, bet, 32, eps, "silu"), timed))
-    for T, C, Ks in ((65536, 320, (320, 320, 320)), (65536, 320, (2560,)),
-                     (16384, 640, (5120,)), (4096, 1280, (1280, 1280, 1280))):
+
+        def gn_library(x=x, gam=gam, bet=bet, eps=eps):
+            xc = x.transpose(1, 2).contiguous()  # [R, C, S], as F.group_norm reads it
+            return lambda: F.silu(F.group_norm(xc, 32, gam, bet, eps))
+
+        cases.append(_case(
+            "group_norm", f"R{R} S{S} C{C} silu",
+            lambda x=x, gam=gam, bet=bet, eps=eps:
+            norms.group_norm(x, gam, bet, 32, eps, act="silu"),
+            lambda x=x, gam=gam, bet=bet, eps=eps:
+            norms._reference(x, gam, bet, 32, eps, "silu"), timed,
+            library=gn_library, library_call="2 calls: group_norm + silu on [R, C, S]",
+            work=(*work.group_norm(R, S, C, size), "float32")))
+    for T, C, Ks in ((65536, 320, (2560,)), (65536, 320, (320, 320, 320)), (16384, 640, (5120,)),
+                     (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320))):
         x = randn(T, C)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         ws = [randn(K, C, scale=1.0 / math.sqrt(C)) for K in Ks]
         bs = [None] * len(Ks) if len(Ks) > 1 else [randn(Ks[0], scale=0.1)]
-        cases.append(("layer_norm_matmul", f"T{T} C{C} K{sum(Ks)}",
-                      lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
-                      torch.cat(ln_matmul.layer_norm_matmul(x, gam, bet, ws, bs), -1),
-                      lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
-                      ln_matmul._reference(x, gam, bet, ws, bs, 1e-5), T == 65536 and C == 320
-                      and len(Ks) == 1))
+
+        def lnmm_launch(x=x, gam=gam, bet=bet, ws=ws, bs=bs):
+            w_f, b_f = ln_matmul.fold_weights(gam, bet, ws, bs, x.dtype)
+            return lambda: ln_matmul._launch(x, w_f, b_f, 1e-5)
+
+        def lnmm_library(x=x, gam=gam, bet=bet, ws=ws, bs=bs):
+            w_all = torch.cat(ws)
+            b_all = None if bs[0] is None else torch.cat(bs)
+            return lambda: F.linear(F.layer_norm(x, (x.shape[-1],), gam, bet, 1e-5), w_all, b_all)
+
+        cases.append(_case(
+            "layer_norm_matmul", f"T{T} C{C} K{sum(Ks)}",
+            lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
+            torch.cat(ln_matmul.layer_norm_matmul(x, gam, bet, ws, bs), -1),
+            lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
+            ln_matmul._reference(x, gam, bet, ws, bs, 1e-5), T == 65536,
+            launch=lnmm_launch, library=lnmm_library,
+            wrapper=lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
+            ln_matmul.layer_norm_matmul(x, gam, bet, ws, bs),
+            library_call="2 calls: layer_norm + linear",
+            work=(*work.ln_matmul(T, C, sum(Ks), size), "bfloat16")))
     return cases + _bwd_cases(torch, dtype, g)
 
 
@@ -205,21 +302,25 @@ def _bwd_cases(torch, dtype, g):
     frame rows, no CFG): autograd through the kernels (forward kernel + the
     backward kernel) against autograd of the plain version. The timed pair
     is the backward alone: the K6/K7 wrapper from the saved forward, and
-    the plain version's backward from its recorded graph."""
-    from cvd_tpu_torch.geometry.epipolar_mask import (
-        epipolar_lines, lines_and_band, pixel_grid_coords,
-    )
-    from cvd_tpu_torch.ops import epi_flash, temporal_attn
+    the plain version's backward from its recorded graph; the library
+    yardstick is the backward alone of the scaled_dot_product_attention
+    graph."""
+    import torch.nn.functional as F
+
+    from cvd_tpu_torch.ops import epi_flash, temporal_attn, work
 
     dev = "cuda"
+    size = torch.empty((), dtype=dtype).element_size()
+    sdpa = F.scaled_dot_product_attention
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    def case(name, label, fwd, plain, xs, dout, timed, kernel_timer):
-        return (name, label, lambda: _grads(torch, fwd, xs, dout),
-                lambda: _grads(torch, plain, xs, dout), timed, kernel_timer,
-                lambda: _backward_only(torch, plain, xs, dout))
+    def case(name, label, fwd, plain, xs, dout, timed, kernel_timer, library, library_call, wk):
+        return _case(name, label, lambda: _grads(torch, fwd, xs, dout),
+                     lambda: _grads(torch, plain, xs, dout), timed, launch=kernel_timer,
+                     plain_timer=lambda: _backward_only(torch, plain, xs, dout),
+                     library=library, library_call=library_call, work=wk)
 
     def epi_case(name, label, xs, dout, gm, rt, timed):
         def fwd(a, b, c):
@@ -232,26 +333,43 @@ def _bwd_cases(torch, dtype, g):
             out, lse = epi_flash._launch(*prep, 8)
             return lambda: getattr(epi_flash, name)(*prep, 8, out, lse, dout)
 
+        def library():
+            q, k, v = xs
+            hs = [_heads(q, 8)] + [_heads(x if rt is None else x[rt.long()], 8) for x in (k, v)]
+            mask = None if gm is None else epi_flash.bias_from_geometry(*gm)[:, None].to(q.dtype)
+            return _backward_only(torch, lambda a, b, c: sdpa(a, b, c, attn_mask=mask), hs,
+                                  _heads(dout, 8))
+
+        B, N, C = xs[0].shape
         return case(name, label, fwd, lambda a, b, c: epi_flash._plain(a, b, c, gm, rt, 8),
-                    xs, dout, timed, kernel_timer)
+                    xs, dout, timed, kernel_timer, library,
+                    "backward of scaled_dot_product_attention" + (
+                        "" if gm is None else ", attn_mask = the bias; excludes the bias, the "
+                        "k/v gather and the scatter of dk/dv"),
+                    (*work.attention_bwd(B, 8, N, N, C // 8, size, gm is not None,
+                                         rt is not None), "bfloat16"))
 
     def temporal_case(label, xs, dout, mask, timed):
+        def library():
+            hs = [_heads(x.reshape(-1, 16, x.shape[-1]), 8) for x in xs]
+            return _backward_only(torch, lambda a, b, c: sdpa(a, b, c, attn_mask=mask), hs,
+                                  _heads(dout.reshape(-1, 16, dout.shape[-1]), 8))
+
+        B, N, Fr, C = xs[0].shape
         return case("temporal_flash_attention_bwd", label,
                     lambda a, b, c: temporal_attn.temporal_flash_attention(a, b, c, mask, 8),
                     lambda a, b, c: temporal_attn.temporal_attention_plain(a, b, c, mask, 8),
                     xs, dout, timed,
                     lambda: lambda: temporal_attn.temporal_flash_attention_bwd(
-                        *xs, mask, 8, dout))
+                        *xs, mask, 8, dout),
+                    library, "backward of scaled_dot_product_attention on [B*N, h, F, D]",
+                    (*work.temporal_bwd(B, N, Fr, C, size, mask is not None), "float32"))
 
     cases = []
     for feat, C in ((32, 320), (16, 640)):
         N, B = feat * feat, 32
         xs, do = (randn(B, N, C), randn(B, N, C), randn(B, N, C)), randn(B, N, C)
-        F_mats = torch.randn(B, 3, 3, generator=g, device=dev) * 1e-3
-        coords = pixel_grid_coords(feat, 256, dev)
-        lines, band, alpha = lines_and_band(epipolar_lines(F_mats, coords), feat, 256)
-        geom = (lines, coords[:, :2].T.contiguous(), band, alpha)
-        route = torch.cat([torch.arange(16, 32), torch.arange(0, 16)]).to(dev, torch.int32)
+        geom, route = _epi_inputs(torch, g, B, feat, randn)
         cases.append(epi_case("epi_flash_attention_bwd", f"B{B} N{N} C{C} h8 routed",
                               xs, do, geom, route, feat == 32))
         cases.append(epi_case("flash_attention_bwd", f"B{B} N{N} C{C} h8",
@@ -263,6 +381,30 @@ def _bwd_cases(torch, dtype, g):
     return cases
 
 
+def _time_case(torch, case):
+    """The timings of one bf16 case, taken in turns inside this one call:
+    plain, kernel, kernel, library, then the whole wrapper where the kernel
+    was timed alone. -> the record's entries."""
+    from cvd_tpu_torch.ops import work
+
+    launch = case.get("launch")
+    k_fn = launch() if launch else case["kernel"]
+    p_fn = case["plain_timer"]() if case.get("plain_timer") else case["plain"]
+    l_fn = case["library"]()
+    with torch.no_grad():
+        p_ms = _time_ms(torch, p_fn)
+        k_ms = [_time_ms(torch, k_fn), _time_ms(torch, k_fn)]
+        l_ms = _time_ms(torch, l_fn)
+        # backward cases time their wrapper already (``launch`` is its timer)
+        alone = launch is not None and not case.get("plain_timer")
+        w_ms = _time_ms(torch, case.get("wrapper", case["kernel"])) if alone else sum(k_ms) / 2
+    flops, moved, arith = case["work"]
+    bound, by = work.bound_ms(flops, moved, arith)
+    return dict(ms=sum(k_ms) / 2, ms_runs=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                library_call=case["library_call"], wrapper_ms=w_ms, bound_ms=bound,
+                bound_by=by, timed_shape=case["label"])
+
+
 def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -271,9 +413,10 @@ def phase_kernels(torch):
     for dtype, tol, key in ((torch.float32, TOL_F32, "max_abs_err_f32"),
                             (torch.bfloat16, TOL_BF16, "max_abs_err")):
         g = torch.Generator(device="cuda").manual_seed(0)
-        for name, label, kernel, plain, timed, *timers in _cases(torch, dtype, g):
+        for case in _cases(torch, dtype, g):
+            name, label = case["name"], case["label"]
             with torch.no_grad():
-                got, want = kernel().float(), plain().float()
+                got, want = case["kernel"]().float(), case["plain"]().float()
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 ref = max(1.0, float(want.abs().max()))
@@ -281,20 +424,18 @@ def phase_kernels(torch):
             report[name][key] = max(report[name][key], err)
             line = (f"[kernel] {name:28s} {str(dtype)[6:]:8s} {label:30s} "
                     f"max_abs_err {err:.3e} (limit {tol * ref:.3e})")
-            if timed and dtype == torch.bfloat16:
-                # backward cases time the backward alone (timer factories)
-                k_fn, p_fn = (t() for t in timers) if timers else (kernel, plain)
-                with torch.no_grad():
-                    k_ms = _time_ms(torch, k_fn)
-                    p_ms = _time_ms(torch, p_fn)
-                del k_fn, p_fn
+            if case["timed"] and dtype == torch.bfloat16:
+                t = _time_case(torch, case)
                 if "ms" not in report[name]:  # the record keeps the first timed shape
-                    report[name].update(ms=k_ms, plain_ms=p_ms, timed_shape=label)
-                line += f"  kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms"
+                    report[name].update(t)
+                line += (f"  kernel {t['ms']:.3f} ms ({t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f})"
+                         f"  wrapper {t['wrapper_ms']:.3f} ms  plain {t['plain_ms']:.3f} ms"
+                         f"  library {t['library_ms']:.3f} ms [{t['library_call']}]"
+                         f"  bound {t['bound_ms']:.3f} ms by {t['bound_by']}")
             log(line + ("" if ok else "  FAILED"))
             if not ok:
                 failures.append(f"{name} {label} {dtype}")
-            del got, want
+            del got, want, case
         torch.cuda.empty_cache()
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
@@ -457,7 +598,8 @@ def phase_slice(torch):
     missing = [n for n in FORWARD if launches[n] == 0]
     if len(records) != 2 or missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    return launches
+    unet_steps = sum(len(rec["unet_step_ms"]) for rec in records)
+    return launches, unet_steps
 
 
 class _SeededPairs:
@@ -565,7 +707,7 @@ def phase_train(torch, profile: bool):
             log(f"[train] one step remat={remat}: out of memory on the card")
     if profile:
         _profile_step(torch, state, batch, modules, gen, size)
-    return launches
+    return launches, steps
 
 
 def _folded(torch, np, data, n_frames):
@@ -582,6 +724,67 @@ def _folded(torch, np, data, n_frames):
             "F_mats": fold(s["F_mats"])}
 
 
+def _report_profile(prof, wall, steps, what, path):
+    """Device time by kernel of a profiled window of ``steps`` steps: the sums
+    per step on the log, the whole table in chiprun_out/."""
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    host_us = sum(e.self_cpu_time_total for e in events)
+    table = events.table(sort_by="self_device_time_total", row_limit=60)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, path), "w") as f:
+        f.write(f"{what}: {steps} step(s), wall {wall * 1e3:.1f} ms, kernel time "
+                f"{device_us / 1e3:.1f} ms\n{table}\n")
+    log(f"[profile] {what}, per step: wall {wall * 1e3 / steps:.1f} ms, kernel time "
+        f"{device_us / 1e3 / steps:.1f} ms (idle share "
+        f"{1 - device_us / 1e3 / (wall * 1e3):.1%}), host self time "
+        f"{host_us / 1e3 / steps:.1f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+        log(f"[profile] {e.self_device_time_total / 1e3 / steps:9.2f} ms  "
+            f"x{e.count / steps:<7.1f} {e.key[:90]}")
+
+
+def _profile_sampler(torch):
+    """torch.profiler over three bf16 UNet steps of the sampler at SD1.5
+    width (4 CFG rows x 16 frames, 256 px, no decode), after a warm-up run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvd_tpu_torch.models.clip_text import CLIPTextConfig
+    from cvd_tpu_torch.models.unet import UNetConfig
+    from cvd_tpu_torch.models.vae import VAEConfig
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+
+    modules = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cuda",
+                                     dtype=torch.bfloat16,
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    Fr, S, steps = 16, 256, 3
+    inputs = dict(
+        prompt_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+        negative_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+        plucker=torch.from_numpy(rng.standard_normal((2, Fr, S, S, 6)).astype(np.float32)),
+        F_mats=torch.from_numpy((rng.standard_normal((2, Fr, 3, 3)) * 1e-3).astype(np.float32)),
+        latents=torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4)).astype(np.float32)),
+    )
+    pipe = SimplePipeline(modules)
+    inputs["generator"] = torch.Generator(device="cuda").manual_seed(0)  # the epi slope
+    pipe(**inputs, num_inference_steps=steps, decode=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(**inputs, num_inference_steps=steps, decode=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, wall, steps, "sampler, bf16 UNet steps (text and pose encoders "
+                    "included once)", "sampler_step_profile.txt")
+    del modules, pipe
+    torch.cuda.empty_cache()
+
+
 def _profile_step(torch, state, batch, modules, gen, size):
     """torch.profiler over one remat-on step: device time by kernel, device
     busy time against the step's wall time (chiprun_out/)."""
@@ -595,20 +798,7 @@ def _profile_step(torch, state, batch, modules, gen, size):
         train_step(state, batch, modules, gen, F_mat_size=size)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    host_us = sum(e.self_cpu_time_total for e in events)
-    table = events.table(sort_by="self_device_time_total", row_limit=60)
-    out_dir = os.path.join(HERE, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
-        f.write(f"wall {wall * 1e3:.1f} ms, kernel time {device_us / 1e3:.1f} ms\n{table}\n")
-    log(f"[profile] one remat-on step: wall {wall * 1e3:.1f} ms, kernel time "
-        f"{device_us / 1e3:.1f} ms (idle share {1 - device_us / 1e3 / (wall * 1e3):.1%}), "
-        f"host self time {host_us / 1e3:.1f} ms")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
-        log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    _report_profile(prof, wall, 1, "one remat-on training step", "train_step_profile.txt")
 
 
 def main() -> int:
@@ -624,23 +814,33 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    t_all = time.perf_counter()
     smi = phase_device(torch)
     phase_build(torch)
     report = phase_kernels(torch)
     phase_reference(torch)
     phase_train_reference(torch)
-    sampler = phase_slice(torch)
-    launches = phase_train(torch, profile="--profile" in sys.argv[1:])
+    sampler, unet_steps = phase_slice(torch)
+    if "--profile" in sys.argv[1:]:
+        _profile_sampler(torch)
+    launches, train_steps = phase_train(torch, profile="--profile" in sys.argv[1:])
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
-        # launches: the training slice (this slice's main path); the
-        # sampler's run is kept beside it
+        # launches: the training slice (the later slice's main path); the
+        # sampler's run is kept beside it. Per step: the run's count over
+        # the steps it took (the sampler's K4 count includes the VAE decode)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[name], "launches_sampler": sampler[name],
+                        "launches_per_unet_step": sampler[name] / unet_steps,
+                        "launches_per_train_step": launches[name] / train_steps,
                         "max_abs_err": r["max_abs_err"],
                         "max_abs_err_f32": r["max_abs_err_f32"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "timed_shape": r["timed_shape"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "library_call": r["library_call"], "wrapper_ms": r["wrapper_ms"],
+                        "timed_shape": r["timed_shape"]})
+    log(f"[total] {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

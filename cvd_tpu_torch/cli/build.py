@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,13 +37,20 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pose_adaptor_scale", type=float, default=1.0)
     p.add_argument("--bf16", action="store_true", help="bfloat16 weights and activations")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: cuda; a machine without a CUDA "
+                        "device must ask for --device cpu)")
 
 
-def resolve_device(args) -> torch.device:
-    if args.device:
-        return torch.device(args.device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(requested: Optional[str]) -> torch.device:
+    """The device an entry point runs on: the one asked for, else the card.
+    Without a card nothing falls back to the CPU silently: a run there has
+    to be asked for (``--device cpu`` / ``device: cpu``)."""
+    if requested:
+        return torch.device(requested)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found: cvd_tpu_torch runs on the GPU by default; "
+                           "pass --device cpu (config key `device: cpu`) to run on the CPU")
+    return torch.device("cuda")
 
 
 def build_modules(args, device: torch.device) -> Tuple[PipelineModules, HashTokenizer]:

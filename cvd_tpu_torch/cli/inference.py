@@ -59,7 +59,7 @@ def main(args) -> List[dict]:
         raise SystemExit("--multidiff_total_steps > 1 is not ported yet")
     captions, negatives, seeds = load_prompts(
         args.caption_file, args.use_negative_prompt, args.num_videos)
-    device = resolve_device(args)
+    device = resolve_device(args.device)
     t0 = time.perf_counter()
     modules, tokenizer = build_modules(args, device)
     print(f"[inference] built modules on {device} in {time.perf_counter() - t0:.1f} s",

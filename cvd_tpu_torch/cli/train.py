@@ -100,6 +100,7 @@ def run(cfg: dict, sources: Optional[Sequence] = None) -> dict:
     keys of ``RealEstate10KPoseFolded`` (default: the one ``train_data``
     names). Returns {"state", "modules", "losses", "step_seconds",
     "global_step", "epoch", "out_dir"}."""
+    from cvd_tpu_torch.cli.build import resolve_device
     from cvd_tpu_torch.data.loader import DataLoader
     from cvd_tpu_torch.data.realestate10k import RealEstate10KPoseFolded
     from cvd_tpu_torch.train.checkpoint import restore, save, save_reference_ckpt
@@ -108,11 +109,11 @@ def run(cfg: dict, sources: Optional[Sequence] = None) -> dict:
     from cvd_tpu_torch.utils.logging import MetricsLogger, format_time, setup_logger
 
     _refuse_unported(cfg)
+    device = resolve_device(cfg.get("device"))
     out_dir = cfg.get("output_dir", "runs/train")
     os.makedirs(out_dir, exist_ok=True)
     logger = setup_logger(out_dir)
     metrics_log = MetricsLogger(out_dir)
-    device = torch.device(cfg.get("device") or ("cuda" if torch.cuda.is_available() else "cpu"))
     n_frames = cfg.get("sample_n_frames", 16)
     sample_size = cfg.get("sample_size", 256)
     seed = cfg.get("global_seed", 42)

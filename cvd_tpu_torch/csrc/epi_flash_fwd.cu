@@ -8,163 +8,585 @@
 // routed kv row kb = kv_index[b] (or b),
 //   logit = q[b,n,hD:hD+D] . k[kb,m,hD:hD+D] / sqrt(D)
 //         + (HAS_BIAS ? -relu(|a_n x_m + b_n y_m + c_n| - band[b]) * alpha[b] : 0)
-// softmax over m in f32, out = P V, plus the row log-sum-exp lse[b,h,n].
+// softmax over m in f32, out = P V, plus the row log-sum-exp lse[b,h,n]
+// (natural log; the backward kernel reads it).
 //
-// What bounds it on the H100: at the main-path shapes (N = 1024 or 256
-// tokens, head_dim 40 or 80) the two products are ~2*N*N*D flops against
-// ~4*N*D*2 bytes per (row, head), i.e. compute-bound in principle; what
-// limits this first version is the scalar work per tile (the bias, the
-// online softmax, and the f32 accumulator kept in shared memory), not the
-// tensor cores.
+// What bounds it on the H100 (bf16, B 64, N 1024, C 320, 8 heads of 40):
+// 4*B*h*N*N*D = 85.9 GFLOP over ~171 MB, i.e. 0.087 ms on the tensor cores
+// (989 TFLOP/s) against 0.051 ms of memory traffic (3.35 TB/s). At head_dim
+// 40 the nearer limit is the softmax: 5.4e8 exponentials at 16 per clock
+// per SM are ~0.14 ms, and the bias adds ~8 f32 operations per logit. So
+// the design keeps every per-logit step in registers and the tensor cores
+// fed without a round trip through shared memory.
 //
-// Design:
-//  * one block owns (q-tile of 64 queries, head, batch row) and loads its
-//    kv row index itself (the TPU kernel's scalar prefetch);
-//  * q, k, v are read in place from the [B, N, C] projection layout through
-//    row strides, head h at column offset h*D: no transposes, no gather;
-//  * k/v stream through shared memory in tiles of 64 keys with an online
-//    softmax in f32 (the TPU kernel held a whole key row in VMEM and took an
-//    exact softmax; 227 KB of shared memory does not hold one here);
-//  * the bias is evaluated per (query, key) in-tile from the query line's
-//    (a, b, c) and the key pixel's (x, y), as _bias_tile does;
-//  * bf16: both products on the tensor cores (WMMA 16x16x16, f32
-//    accumulate), P rounded to bf16 before P V as the TPU kernel does;
-//    f32: both products as f32 FMAs, so f32 inputs keep full-f32 products;
-//  * head_dim 40/80/160 is not a power of two: the tiles pad it to a
-//    multiple of 16 (DP) with zeros;
-//  * above 48 KB the shared-memory budget is raised with
-//    cudaFuncAttributeMaxDynamicSharedMemorySize (DP = 160 in f32 needs
-//    ~200 KB).
+// Design of the bf16 path (FlashAttention-2's layout on wgmma):
+//  * a block owns 128 queries of one (row, head): two warpgroups of 64
+//    rows, 16 per warp (one warpgroup where Lq < 128). The score tile S
+//    [64 x 64 keys] and the output accumulator O [64 x D] of a warpgroup
+//    stay in registers over the whole key loop, in f32. Row max and row sum
+//    come from shuffles among the four lanes that share a row. P is rounded
+//    to bf16 in registers and is the A operand of P V as it stands: the
+//    accumulator layout of one product is the A layout of the next.
+//  * instruction: wgmma.mma_async (bf16 in, f32 accumulate). S = Q K^T is
+//    m64n64k16 with both operands read from shared memory through
+//    descriptors; O += P V is m64nWk16 with A from registers and V read
+//    with the instruction's transpose flag (rows = keys), so V needs no
+//    transpose. W is the width of a 64-channel atom of the head: 40 at
+//    head_dim 40, 64 + 16 at 80, 64 + 64 + 32 at 160, so P V multiplies no
+//    padding. The same structure on mma.sync.m16n8k16 + ldmatrix took 0.63
+//    (bias) / 0.48 ms (no bias) at the shape above on an H100 at 700 W,
+//    this one 0.62 / 0.43 ms (scripts/kernel_check.py).
+//  * Q, K and V tiles are [rows][64 channels] atoms with the 128-byte
+//    swizzle (16-byte piece index XOR row mod 8), written by hand by the
+//    cp.async copies, so neither the copies nor wgmma meet bank conflicts.
+//  * K and V stream through a two-stage ring filled with cp.async (16-byte
+//    copies, zero-filled outside the matrix): the next tile loads while
+//    this one multiplies, one block barrier per tile. cp.async, not TMA:
+//    q/k/v are strided views of the fused projection (row stride 3C, head
+//    at column h*D) and are read in place; the pad columns beyond D of a
+//    head's tile, which in that layout are the next head's channels, are
+//    zero-filled and never read from device memory.
+//  * the softmax runs in base 2: scale*log2(e) is folded into the scores
+//    and the exponential is one ex2.approx; lse is written in natural log.
+//    A row whose keys are all masked so far subtracts 0, not -inf.
+//  * the epipolar bias is evaluated on the register fragment: a thread
+//    keeps (a, b, c) of its two query rows in registers and reads the
+//    tile's key (x, y) from shared memory (copied with the K tile).
+//  * head_dim: Q K^T pads the depth to a multiple of 16 with zeros; P V is
+//    D wide.
+//  * each product is awaited where it is issued: the softmax needs all of
+//    S, and the next S needs nothing of O, but with three blocks an SM
+//    (84 registers a thread at head_dim 40) the other blocks' products fill
+//    the gap. Above head_dim 64 ptxas reports
+//    that it serializes the P V instructions of the atoms (remark C7514).
+//  * the output goes through the warp's own (finished) Q rows in shared
+//    memory, so that device memory sees whole 16-byte row pieces.
+// In shared memory: the Q tile, the K/V ring, the key coordinates (51 KB at
+// head_dim 40). In registers: S, P, O, row max, row sum, the query lines.
+//
+// The f32 path (f32 inputs keep full-f32 products, as the CPU tests and the
+// card-vs-CPU checks need) is the simple tiled kernel below: 64 queries a
+// block, f32 FMAs, S/P/O in shared memory. Above 48 KB the shared-memory
+// budget is raised with cudaFuncAttributeMaxDynamicSharedMemorySize.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 
 #include <cstdint>
-#include <type_traits>
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
+constexpr int BKEY = 64;  // keys per tile, both paths
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? bytes : 0;  // 0: no read, the destination is zero-filled
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bf16: register-resident flash attention on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int STAGES = 2;
+constexpr int TILE = 64 * 128;  // bytes of 64 rows of one 64-channel atom
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ void cp_async_to(unsigned dst, const void* src, bool pred) {
+  const int n = pred ? 16 : 0;  // 0: no read, the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+// writes of this thread to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Operand tiles are [rows][64 channels] bf16 atoms with the 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the 16-byte piece
+// index XORed with row mod 8. Read K-major (Q, K: rows = the M / N index) or,
+// with the transpose flag of the instruction, MN-major (V: rows = the keys).
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ unsigned swz(int r, int piece) {
+  return r * 128 + ((piece ^ (r & 7)) << 4);
+}
+
+// S[64 x 64] (+)= Q[64 x 16] * K[64 x 16]^T, both from shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// O[64 x 8] += P[64 x 16] (registers) * V[16 x 8] (shared memory, rows = keys)
+__device__ __forceinline__ void wgmma_pv_n8(float (&d)[32], const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// O[64 x 16] += P[64 x 16] (registers) * V[16 x 16] (shared memory, rows = keys)
+__device__ __forceinline__ void wgmma_pv_n16(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// O[64 x 32] += P[64 x 16] (registers) * V[16 x 32] (shared memory, rows = keys)
+__device__ __forceinline__ void wgmma_pv_n32(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// O[64 x 40] += P[64 x 16] (registers) * V[16 x 40] (shared memory, rows = keys)
+__device__ __forceinline__ void wgmma_pv_n40(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// O[64 x 48] += P[64 x 16] (registers) * V[16 x 48] (shared memory, rows = keys)
+__device__ __forceinline__ void wgmma_pv_n48(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// O[64 x 64] += P[64 x 16] (registers) * V[16 x 64] (shared memory, rows = keys)
+__device__ __forceinline__ void wgmma_pv_n64(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 8) wgmma_pv_n8(d, a, b);
+  if constexpr (N == 16) wgmma_pv_n16(d, a, b);
+  if constexpr (N == 32) wgmma_pv_n32(d, a, b);
+  if constexpr (N == 40) wgmma_pv_n40(d, a, b);
+  if constexpr (N == 48) wgmma_pv_n48(d, a, b);
+  if constexpr (N == 64) wgmma_pv_n64(d, a, b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));  // ex2(-inf) = +0
+  return y;
+}
+
+template <int ND>
+struct Tile {
+  static constexpr int D = ND * 8;            // head_dim
+  static constexpr int AT = (D + 63) / 64;    // 64-channel atoms of a row
+  static constexpr int KS = (D + 15) / 16;    // k-steps of Q K^T (zeros beyond D)
+  // width of atom a in P V
+  __host__ __device__ static constexpr int width(int a) {
+    return D - 64 * a < 64 ? D - 64 * a : 64;
+  }
+  static constexpr int bytes(int bq) {
+    return 1024 + AT * (bq * 128 + 2 * STAGES * TILE) + STAGES * 2 * BKEY * 4;
+  }
+};
+
+// rows [n0, n0 + rows) of a [L, *] slab (row stride rs, head columns at src)
+// into swizzled atoms at dst ([AT][rows][64]); zeros beyond D and beyond L;
+// only the 16-byte pieces that Q K^T reads (16 * KS channels) are written
+template <int ND>
+__device__ __forceinline__ void copy_rows(unsigned dst, const bf16* src, long long rs, int n0,
+                                          int rows, int L) {
+  using Tl = Tile<ND>;
+  constexpr int CH = Tl::KS * 2;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = n0 + r < L && c < ND;
+    cp_async_to(dst + (c >> 3) * rows * 128 + swz(r, c & 7),
+                ok ? src + (long long)(n0 + r) * rs + c * 8 : src, ok);
+  }
+}
+
+template <bool HAS_BIAS, int ND>
+__global__ void __launch_bounds__(256) epi_flash_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    long long q_bs, long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+    long long v_rs, const int* __restrict__ kv_index, const float* __restrict__ lines,
+    const float* __restrict__ coords, const float* __restrict__ band,
+    const float* __restrict__ alpha, bf16* __restrict__ out, long long o_bs, long long o_rs,
+    float* __restrict__ lse, int H, int Lq, int Lk, float scale) {
+  using Tl = Tile<ND>;
+  constexpr int D = Tl::D, AT = Tl::AT, KS = Tl::KS;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
+  const int BQ = blockDim.x / 2;  // 64 query rows per warpgroup, 16 per warp
+  const unsigned Qs = (raw + 1023u) & ~1023u;          // [AT][BQ][64]
+  const unsigned Ks = Qs + AT * BQ * 128;              // [STAGES][AT][64][64]
+  const unsigned Vs = Ks + STAGES * AT * TILE;         // [STAGES][AT][64][64]
+  unsigned char* q_ptr = smem_raw + (Qs - raw);
+  float* Kx = reinterpret_cast<float*>(smem_raw + (Vs + STAGES * AT * TILE - raw));
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kb = kv_index != nullptr ? kv_index[b] : b;
+  const int lane = threadIdx.x % 32;
+  // the warp index as a value the compiler knows to be uniform in the warp
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), wg = warp / 4;
+  const int g = lane >> 2, c = lane & 3;  // fragment row and column pair
+  const int r0 = warp * 16;               // this warp's rows of the block
+
+  const bf16* kbase = k + kb * k_bs + (long long)h * D;
+  const bf16* vbase = v + kb * v_bs + (long long)h * D;
+  const int tiles = (Lk + BKEY - 1) / BKEY;
+
+  auto copy_kv = [&](int t) {
+    const int st = t % STAGES, k0 = t * BKEY;
+    copy_rows<ND>(Ks + st * AT * TILE, kbase, k_rs, k0, BKEY, Lk);
+    copy_rows<ND>(Vs + st * AT * TILE, vbase, v_rs, k0, BKEY, Lk);
+    if constexpr (HAS_BIAS) {
+      for (int i = threadIdx.x; i < 2 * BKEY; i += blockDim.x) {
+        const int col = k0 + i % BKEY, j = i / BKEY;
+        const bool ok = col < Lk;
+        cp_async(Kx + st * 2 * BKEY + i, ok ? coords + (long long)j * Lk + col : coords, ok, 4);
+      }
+    }
+    cp_async_commit();
+  };
+
+  copy_rows<ND>(Qs, q + b * q_bs + (long long)h * D, q_rs, q0, BQ, Lq);
+  copy_kv(0);
+
+  // this thread's two query rows: r0 + g and r0 + g + 8
+  float la[2][3] = {};
+  float band_b = 0.f, alpha2 = 0.f;
+  if constexpr (HAS_BIAS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = q0 + r0 + g + 8 * i;
+      if (n < Lq) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) la[i][j] = lines[((long long)b * Lq + n) * 3 + j];
+      }
+    }
+    band_b = band[b];
+    alpha2 = alpha[b] * LOG2E;
+  }
+  const float scale2 = scale * LOG2E;
+
+  float o[AT][32];  // atom a holds width(a) / 2 values a thread
+#pragma unroll
+  for (int a = 0; a < AT; ++a)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[a][e] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};  // this lane's share of the row sum
+
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait_all();
+    fence_proxy_async();  // the copies are visible to wgmma
+    __syncthreads();      // tile t has landed; every warp is done with tile t - 1
+    if (t + 1 < tiles) copy_kv(t + 1);
+    const unsigned Kt = Ks + (t % STAGES) * AT * TILE;
+    const unsigned Vt = Vs + (t % STAGES) * AT * TILE;
+    const float* Kxt = Kx + (t % STAGES) * 2 * BKEY;
+    const int k0 = t * BKEY;
+
+    // S = Q K^T: 64 rows of the warpgroup x 64 keys; s[4 j + e]: column
+    // block j of 8 keys, e = 0, 1 row g, e = 2, 3 row g + 8
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      wgmma_qk(s, smem_desc(Qs + (ks / 4) * BQ * 128 + wg * TILE + 32 * (ks % 4)),
+               smem_desc(Kt + (ks / 4) * TILE + 32 * (ks % 4)), ks != 0);
+    wgmma_commit();
+    wgmma_wait_all();
+
+    // logits in base 2, bias and key mask on the fragment; row max
+    const bool ragged = k0 + BKEY > Lk;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < BKEY / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      float kx[2] = {0.f, 0.f}, ky[2] = {0.f, 0.f};
+      if constexpr (HAS_BIAS) {
+        const float2 xx = *reinterpret_cast<const float2*>(Kxt + col);
+        const float2 yy = *reinterpret_cast<const float2*>(Kxt + BKEY + col);
+        kx[0] = xx.x, kx[1] = xx.y, ky[0] = yy.x, ky[1] = yy.y;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, cc = e & 1;
+        float val = s[4 * j + e] * scale2;
+        if constexpr (HAS_BIAS) {
+          const float dist = fabsf(la[i][0] * kx[cc] + la[i][1] * ky[cc] + la[i][2]);
+          val -= fmaxf(dist - band_b, 0.f) * alpha2;
+        }
+        if (ragged && k0 + col + cc >= Lk) val = -CUDART_INF_F;
+        s[4 * j + e] = val;
+        mx[i] = fmaxf(mx[i], val);
+      }
+    }
+    float m_use[2], corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      // a row with every key masked so far: subtract 0, not -inf
+      m_use[i] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      corr[i] = fast_exp2(m_run[i] - m_use[i]);
+      m_run[i] = m_new;
+      l_run[i] *= corr[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float p = fast_exp2(s[e] - m_use[(e >> 1) & 1]);
+      l_run[(e >> 1) & 1] += p;
+      s[e] = p;
+    }
+#pragma unroll
+    for (int a = 0; a < AT; ++a)
+#pragma unroll
+      for (int e = 0; e < Tl::width(a) / 2; ++e) o[a][e] *= corr[(e >> 1) & 1];
+
+    // O += P V: P from the score registers (the accumulator layout of one
+    // product is the A layout of the next), V read transposed from its tile
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKEY / 16; ++kk) {
+      const uint32_t pf[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                              pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                              pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                              pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      wgmma_pv<Tl::width(0)>(o[0], pf, smem_desc(Vt + kk * 2048));
+      if constexpr (AT > 1) wgmma_pv<Tl::width(1)>(o[1], pf, smem_desc(Vt + TILE + kk * 2048));
+      if constexpr (AT > 2)
+        wgmma_pv<Tl::width(2)>(o[2], pf, smem_desc(Vt + 2 * TILE + kk * 2048));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+
+  // finish the rows: full sums, 1 / l, lse; the output goes through this
+  // warp's own rows of the Q tile (every warp of the warpgroup is done with
+  // it), then out in 16-byte pieces
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / l;
+    const int n = q0 + r0 + g + 8 * i;
+    if (c == 0 && n < Lq) lse[((long long)b * H + h) * Lq + n] = m_run[i] * LN2 + logf(l);
+  }
+  bar_sync(1 + wg, 128);
+#pragma unroll
+  for (int a = 0; a < AT; ++a)
+#pragma unroll
+    for (int j = 0; j < Tl::width(a) / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + g + 8 * i;
+        *reinterpret_cast<uint32_t*>(q_ptr + a * BQ * 128 + swz(r, j) + 4 * c) =
+            pack_bf16(o[a][4 * j + 2 * i] * inv[i], o[a][4 * j + 2 * i + 1] * inv[i]);
+      }
+  __syncwarp();
+  bf16* obase = out + b * o_bs + (long long)h * D;
+  for (int idx = lane; idx < 16 * ND; idx += 32) {
+    const int r = r0 + idx / ND, ch = idx % ND;
+    const int n = q0 + r;
+    if (n < Lq)
+      *reinterpret_cast<uint4*>(obase + (long long)n * o_rs + ch * 8) =
+          *reinterpret_cast<const uint4*>(q_ptr + (ch >> 3) * BQ * 128 + swz(r, ch & 7));
+  }
+}
+
+template <bool HAS_BIAS, int ND>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, long long q_bs,
+                        long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                        long long v_rs, const void* kv_index, const void* lines,
+                        const void* coords, const void* band, const void* alpha, void* out,
+                        long long o_bs, long long o_rs, void* lse, int B, int H, int Lq,
+                        int Lk, float scale, cudaStream_t stream) {
+  auto kernel = epi_flash_fwd_bf16_kernel<HAS_BIAS, ND>;
+  const int bq = Lq >= 128 ? 128 : 64;  // two warpgroups, or one
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Tile<ND>::bytes(128));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Lq + bq - 1) / bq, H, B);
+  kernel<<<grid, 2 * bq, Tile<ND>::bytes(bq), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, static_cast<const int*>(kv_index),
+      static_cast<const float*>(lines), static_cast<const float*>(coords),
+      static_cast<const float*>(band), static_cast<const float*>(alpha),
+      static_cast<bf16*>(out), o_bs, o_rs, static_cast<float*>(lse), H, Lq, Lk, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: tiled kernel with f32 FMAs, S / P / O in shared memory
+// ---------------------------------------------------------------------------
+
 constexpr int BQ = 64;           // queries per block
-constexpr int BKEY = 64;         // keys per tile
 constexpr int WARPS = 4;         // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
 constexpr int align128(int x) { return (x + 127) / 128 * 128; }
 
-template <typename T, int DP>
+template <int DP>
 struct Layout {
-  static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int LDT = F32 ? DP + 1 : DP + 8;      // q/k/v tiles
-  static constexpr int LDS = BKEY + 4;                   // f32 scores
-  static constexpr int LDP = F32 ? BKEY + 1 : BKEY + 8;  // probabilities
-  static constexpr int LDO = DP + 4;                     // f32 accumulator
+  static constexpr int LDT = DP + 1;    // q/k/v tiles
+  static constexpr int LDS = BKEY + 4;  // scores
+  static constexpr int LDP = BKEY + 1;  // probabilities
+  static constexpr int LDO = DP + 4;    // accumulator
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + align128(BQ * LDT * (int)sizeof(T));
-  static constexpr int V_OFF = K_OFF + align128(BKEY * LDT * (int)sizeof(T));
-  static constexpr int S_OFF = V_OFF + align128(BKEY * LDT * (int)sizeof(T));
+  static constexpr int K_OFF = Q_OFF + align128(BQ * LDT * 4);
+  static constexpr int V_OFF = K_OFF + align128(BKEY * LDT * 4);
+  static constexpr int S_OFF = V_OFF + align128(BKEY * LDT * 4);
   static constexpr int P_OFF = S_OFF + align128(BQ * LDS * 4);
-  static constexpr int O_OFF = P_OFF + align128(BQ * LDP * (int)sizeof(T));
+  static constexpr int O_OFF = P_OFF + align128(BQ * LDP * 4);
   static constexpr int G_OFF = O_OFF + align128(BQ * LDO * 4);
   static constexpr int BYTES = G_OFF + align128((3 * BQ + 2 * BKEY) * 4);
 };
 
 // rows [n0, n0+64) of a [L, *] slab (row stride rs, head columns at src),
 // columns [0, DP) with zeros beyond D and beyond L
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
-                                          int n0, int L, int D) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = DP / VEC;
+template <int DP, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long rs, int n0,
+                                          int L, int D) {
+  constexpr int CHUNKS = DP / 4;
   for (int idx = threadIdx.x; idx < BQ * CHUNKS; idx += THREADS) {
     const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * VEC;
+    const int c = (idx % CHUNKS) * 4;
     const int n = n0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (n < L && c < D) raw = *reinterpret_cast<const uint4*>(src + (long long)n * rs + c);
-    if constexpr ((LD * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = raw;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) dst[r * LD + c + j] = e[j];
-    }
-  }
-}
-
-// S[r0:r0+16, 0:64] = Q[r0:r0+16] K^T for this warp's rows
-template <typename T, int DP>
-__device__ __forceinline__ void warp_scores(const T* Qs, const T* Ks, float* Ss,
-                                            int r0, int lane) {
-  using Lt = Layout<T, DP>;
-  if constexpr (Lt::F32) {
-    for (int rr = 0; rr < 16; ++rr) {
-      const float* qrow = Qs + (r0 + rr) * Lt::LDT;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const float* krow = Ks + c * Lt::LDT;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DP; ++d) acc = fmaf(qrow[d], krow[d], acc);
-        Ss[(r0 + rr) * Lt::LDS + c] = acc;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < BKEY / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + r0 * Lt::LDT + kk * 16, Lt::LDT);
-        wmma::load_matrix_sync(b, Ks + n * 16 * Lt::LDT + kk * 16, Lt::LDT);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Ss + r0 * Lt::LDS + n * 16, acc, Lt::LDS, wmma::mem_row_major);
-    }
-  }
-}
-
-// O[r0:r0+16, 0:DP] += P[r0:r0+16, 0:64] V for this warp's rows
-template <typename T, int DP>
-__device__ __forceinline__ void warp_pv(const T* Ps, const T* Vs, float* Os,
-                                        int r0, int lane) {
-  using Lt = Layout<T, DP>;
-  if constexpr (Lt::F32) {
-    for (int rr = 0; rr < 16; ++rr) {
-      const float* prow = Ps + (r0 + rr) * Lt::LDP;
-      for (int d = lane; d < DP; d += 32) {
-        float acc = Os[(r0 + rr) * Lt::LDO + d];
-#pragma unroll 8
-        for (int c = 0; c < BKEY; ++c) acc = fmaf(prow[c], Vs[c * Lt::LDT + d], acc);
-        Os[(r0 + rr) * Lt::LDO + d] = acc;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Os + r0 * Lt::LDO + j * 16, Lt::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKEY / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + r0 * Lt::LDP + kk * 16, Lt::LDP);
-        wmma::load_matrix_sync(b, Vs + kk * 16 * Lt::LDT + j * 16, Lt::LDT);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Os + r0 * Lt::LDO + j * 16, acc, Lt::LDO, wmma::mem_row_major);
-    }
+    float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n < L && c < D) raw = *reinterpret_cast<const float4*>(src + (long long)n * rs + c);
+    dst[r * LD + c] = raw.x, dst[r * LD + c + 1] = raw.y;
+    dst[r * LD + c + 2] = raw.z, dst[r * LD + c + 3] = raw.w;
   }
 }
 
@@ -180,22 +602,22 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, bool HAS_BIAS, int DP>
-__global__ void __launch_bounds__(THREADS) epi_flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+template <bool HAS_BIAS, int DP>
+__global__ void __launch_bounds__(THREADS) epi_flash_fwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, const int* __restrict__ kv_index,
     const float* __restrict__ lines, const float* __restrict__ coords,
     const float* __restrict__ band, const float* __restrict__ alpha,
-    T* __restrict__ out, long long o_bs, long long o_rs, float* __restrict__ lse,
+    float* __restrict__ out, long long o_bs, long long o_rs, float* __restrict__ lse,
     int H, int Lq, int Lk, int D, float scale) {
-  using Lt = Layout<T, DP>;
+  using Lt = Layout<DP>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + Lt::Q_OFF);
-  T* Ks = reinterpret_cast<T*>(smem + Lt::K_OFF);
-  T* Vs = reinterpret_cast<T*>(smem + Lt::V_OFF);
+  float* Qs = reinterpret_cast<float*>(smem + Lt::Q_OFF);
+  float* Ks = reinterpret_cast<float*>(smem + Lt::K_OFF);
+  float* Vs = reinterpret_cast<float*>(smem + Lt::V_OFF);
   float* Ss = reinterpret_cast<float*>(smem + Lt::S_OFF);
-  T* Ps = reinterpret_cast<T*>(smem + Lt::P_OFF);
+  float* Ps = reinterpret_cast<float*>(smem + Lt::P_OFF);
   float* Os = reinterpret_cast<float*>(smem + Lt::O_OFF);
   float* La = reinterpret_cast<float*>(smem + Lt::G_OFF);  // [3][BQ] query lines
   float* Kx = La + 3 * BQ;                                 // [2][BKEY] key coords
@@ -208,7 +630,7 @@ __global__ void __launch_bounds__(THREADS) epi_flash_fwd_kernel(
   const int lane = threadIdx.x % 32;
   const int r0 = warp * 16;
 
-  load_tile<T, DP, Lt::LDT>(Qs, q + b * q_bs + (long long)h * D, q_rs, q0, Lq, D);
+  load_tile<DP, Lt::LDT>(Qs, q + b * q_bs + (long long)h * D, q_rs, q0, Lq, D);
   for (int i = threadIdx.x; i < BQ * Lt::LDO; i += THREADS) Os[i] = 0.f;
   float band_b = 0.f, alpha_b = 0.f;
   if constexpr (HAS_BIAS) {
@@ -228,12 +650,12 @@ __global__ void __launch_bounds__(THREADS) epi_flash_fwd_kernel(
     l_run[rr] = 0.f;
   }
 
-  const T* kbase = k + kb * k_bs + (long long)h * D;
-  const T* vbase = v + kb * v_bs + (long long)h * D;
+  const float* kbase = k + kb * k_bs + (long long)h * D;
+  const float* vbase = v + kb * v_bs + (long long)h * D;
   for (int k0 = 0; k0 < Lk; k0 += BKEY) {
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<T, DP, Lt::LDT>(Ks, kbase, k_rs, k0, Lk, D);
-    load_tile<T, DP, Lt::LDT>(Vs, vbase, v_rs, k0, Lk, D);
+    load_tile<DP, Lt::LDT>(Ks, kbase, k_rs, k0, Lk, D);
+    load_tile<DP, Lt::LDT>(Vs, vbase, v_rs, k0, Lk, D);
     if constexpr (HAS_BIAS) {
       for (int i = threadIdx.x; i < 2 * BKEY; i += THREADS) {
         const int c = i % BKEY, j = i / BKEY;
@@ -242,7 +664,19 @@ __global__ void __launch_bounds__(THREADS) epi_flash_fwd_kernel(
     }
     __syncthreads();
 
-    warp_scores<T, DP>(Qs, Ks, Ss, r0, lane);
+    // S[r0:r0+16, 0:64] = Q[r0:r0+16] K^T for this warp's rows
+    for (int rr = 0; rr < 16; ++rr) {
+      const float* qrow = Qs + (r0 + rr) * Lt::LDT;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = lane + 32 * j;
+        const float* krow = Ks + c * Lt::LDT;
+        float acc = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < DP; ++d) acc = fmaf(qrow[d], krow[d], acc);
+        Ss[(r0 + rr) * Lt::LDS + c] = acc;
+      }
+    }
     __syncwarp();
 
     // online softmax over this tile, one row at a time (2 keys per lane)
@@ -267,64 +701,76 @@ __global__ void __launch_bounds__(THREADS) epi_flash_fwd_kernel(
       for (int j = 0; j < 2; ++j) {
         const float p = expf(s[j] - m_new);
         psum += p;
-        Ps[r * Lt::LDP + lane + 32 * j] = from_f<T>(p);
+        Ps[r * Lt::LDP + lane + 32 * j] = p;
       }
       l_run[rr] = l_run[rr] * corr + warp_sum(psum);
       m_run[rr] = m_new;
       for (int d = lane; d < DP; d += 32) Os[r * Lt::LDO + d] *= corr;
     }
     __syncwarp();
-    warp_pv<T, DP>(Ps, Vs, Os, r0, lane);
+
+    // O[r0:r0+16, 0:DP] += P[r0:r0+16, 0:64] V for this warp's rows
+    for (int rr = 0; rr < 16; ++rr) {
+      const float* prow = Ps + (r0 + rr) * Lt::LDP;
+      for (int d = lane; d < DP; d += 32) {
+        float acc = Os[(r0 + rr) * Lt::LDO + d];
+#pragma unroll 8
+        for (int c = 0; c < BKEY; ++c) acc = fmaf(prow[c], Vs[c * Lt::LDT + d], acc);
+        Os[(r0 + rr) * Lt::LDO + d] = acc;
+      }
+    }
   }
   __syncwarp();
 
-  T* obase = out + b * o_bs + (long long)h * D;
+  float* obase = out + b * o_bs + (long long)h * D;
 #pragma unroll
   for (int rr = 0; rr < 16; ++rr) {
     const int n = q0 + r0 + rr;
     if (n >= Lq) continue;
     const float inv = 1.f / l_run[rr];
     for (int d = lane; d < D; d += 32)
-      obase[(long long)n * o_rs + d] = from_f<T>(Os[(r0 + rr) * Lt::LDO + d] * inv);
+      obase[(long long)n * o_rs + d] = Os[(r0 + rr) * Lt::LDO + d] * inv;
     if (lane == 0) lse[((long long)b * H + h) * Lq + n] = m_run[rr] + logf(l_run[rr]);
   }
 }
 
-template <typename T, bool HAS_BIAS, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, long long q_bs,
-                   long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-                   long long v_rs, const void* kv_index, const void* lines,
-                   const void* coords, const void* band, const void* alpha, void* out,
-                   long long o_bs, long long o_rs, void* lse, int B, int H, int Lq,
-                   int Lk, int D, float scale, cudaStream_t stream) {
-  auto kernel = epi_flash_fwd_kernel<T, HAS_BIAS, DP>;
-  constexpr int bytes = Layout<T, DP>::BYTES;
+template <bool HAS_BIAS, int DP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, long long q_bs,
+                       long long q_rs, long long k_bs, long long k_rs, long long v_bs,
+                       long long v_rs, const void* kv_index, const void* lines,
+                       const void* coords, const void* band, const void* alpha, void* out,
+                       long long o_bs, long long o_rs, void* lse, int B, int H, int Lq,
+                       int Lk, int D, float scale, cudaStream_t stream) {
+  auto kernel = epi_flash_fwd_f32_kernel<HAS_BIAS, DP>;
+  constexpr int bytes = Layout<DP>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_bs,
-      q_rs, k_bs, k_rs, v_bs, v_rs, static_cast<const int*>(kv_index),
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, static_cast<const int*>(kv_index),
       static_cast<const float*>(lines), static_cast<const float*>(coords),
-      static_cast<const float*>(band), static_cast<const float*>(alpha), static_cast<T*>(out),
-      o_bs, o_rs, static_cast<float*>(lse), H, Lq, Lk, D, scale);
+      static_cast<const float*>(band), static_cast<const float*>(alpha),
+      static_cast<float*>(out), o_bs, o_rs, static_cast<float*>(lse), H, Lq, Lk, D, scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool HAS_BIAS>
-cudaError_t dispatch(int DP, const void* q, const void* k, const void* v, long long q_bs,
-                     long long q_rs, long long k_bs, long long k_rs, long long v_bs,
-                     long long v_rs, const void* kv_index, const void* lines,
-                     const void* coords, const void* band, const void* alpha, void* out,
-                     long long o_bs, long long o_rs, void* lse, int B, int H, int Lq, int Lk,
-                     int D, float scale, cudaStream_t stream) {
-#define EPI_CASE(dp)                                                                     \
-  case dp:                                                                               \
-    return launch<T, HAS_BIAS, dp>(q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, kv_index, \
-                                   lines, coords, band, alpha, out, o_bs, o_rs, lse, B, H, \
-                                   Lq, Lk, D, scale, stream);
-  switch (DP) {
+#define EPI_PARAMS                                                                         \
+  const void *q, const void *k, const void *v, long long q_bs, long long q_rs,             \
+      long long k_bs, long long k_rs, long long v_bs, long long v_rs, const void *kv_index, \
+      const void *lines, const void *coords, const void *band, const void *alpha,          \
+      void *out, long long o_bs, long long o_rs, void *lse, int B, int H, int Lq, int Lk
+#define EPI_ARGS                                                                           \
+  q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, kv_index, lines, coords, band, alpha, out,  \
+      o_bs, o_rs, lse, B, H, Lq, Lk
+
+template <bool HAS_BIAS>
+cudaError_t dispatch_f32(EPI_PARAMS, int D, float scale, cudaStream_t stream) {
+#define EPI_CASE(dp) \
+  case dp:           \
+    return launch_f32<HAS_BIAS, dp>(EPI_ARGS, D, scale, stream);
+  switch ((D + 15) / 16 * 16) {
     EPI_CASE(16)
     EPI_CASE(32)
     EPI_CASE(48)
@@ -339,29 +785,46 @@ cudaError_t dispatch(int DP, const void* q, const void* k, const void* v, long l
 #undef EPI_CASE
 }
 
+// head_dim in eighths: 8, 16, 32, 40, 48, 64, 80, 96, 128, 160
+template <bool HAS_BIAS>
+cudaError_t dispatch_bf16(EPI_PARAMS, int D, float scale, cudaStream_t stream) {
+#define EPI_CASE(nd) \
+  case nd:           \
+    return launch_bf16<HAS_BIAS, nd>(EPI_ARGS, scale, stream);
+  if (D % 8) return cudaErrorInvalidValue;
+  switch (D / 8) {
+    EPI_CASE(1)
+    EPI_CASE(2)
+    EPI_CASE(4)
+    EPI_CASE(5)
+    EPI_CASE(6)
+    EPI_CASE(8)
+    EPI_CASE(10)
+    EPI_CASE(12)
+    EPI_CASE(16)
+    EPI_CASE(20)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef EPI_CASE
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kv_index may be null (identity routing);
 // lines/coords/band/alpha are read only when has_bias. Strides in elements.
-extern "C" int epi_flash_fwd(int dtype, int has_bias, const void* q, const void* k,
-                             const void* v, long long q_bs, long long q_rs, long long k_bs,
-                             long long k_rs, long long v_bs, long long v_rs,
-                             const void* kv_index, const void* lines, const void* coords,
-                             const void* band, const void* alpha, void* out, long long o_bs,
-                             long long o_rs, void* lse, int B, int H, int Lq, int Lk, int D,
-                             float scale, void* stream) {
-  const int DP = (D + 15) / 16 * 16;
+// Returns the cudaError_t of the launch (a refused launch included).
+extern "C" int epi_flash_fwd(int dtype, int has_bias, EPI_PARAMS, int D, float scale,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define EPI_ARGS                                                                          \
-  DP, q, k, v, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, kv_index, lines, coords, band, alpha, out, \
-      o_bs, o_rs, lse, B, H, Lq, Lk, D, scale, s
   cudaError_t err;
   if (dtype == 0)
-    err = has_bias ? dispatch<float, true>(EPI_ARGS) : dispatch<float, false>(EPI_ARGS);
+    err = has_bias ? dispatch_f32<true>(EPI_ARGS, D, scale, s)
+                   : dispatch_f32<false>(EPI_ARGS, D, scale, s);
   else if (dtype == 1)
-    err = has_bias ? dispatch<bf16, true>(EPI_ARGS) : dispatch<bf16, false>(EPI_ARGS);
+    err = has_bias ? dispatch_bf16<true>(EPI_ARGS, D, scale, s)
+                   : dispatch_bf16<false>(EPI_ARGS, D, scale, s);
   else
     err = cudaErrorInvalidValue;
-#undef EPI_ARGS
   return static_cast<int>(err);
 }

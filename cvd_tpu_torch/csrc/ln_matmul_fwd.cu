@@ -9,34 +9,67 @@
 // W' is [K, C] (one row per output, torch Linear layout), K the
 // concatenated projections (q|k|v, or the GEGLU input).
 //
-// What bounds it on the H100: the product. At the main-path shapes
-// (T = 65,536 tokens, C = 320, K = 960 or 2,560, and the narrower-T, wider-C
-// levels) it is 2*T*C*K flops on (T*C + C*K + T*K)*2 bytes, well above the
-// card's ~295 flops per byte, so it wants the tensor cores; the point of
-// the fusion is that the normalized tokens never go back to device memory.
+// What bounds it on the H100 (bf16, T 65,536 tokens, C 320, K 2,560): 2*T*C*K
+// = 107.4 GFLOP is 0.109 ms on the tensor cores (989 TFLOP/s); reading x
+// and W' once and writing out once is 379 MB, 0.113 ms at 3.35 TB/s. The
+// two bounds meet: the reduction is short and the output is 88% of the
+// bytes. So the design reads x exactly once, never writes the normalized
+// tokens or their statistics to device memory, keeps the tensor cores on
+// wgmma, and writes the output in whole 16-byte row pieces. At C 1280 a
+// 64-row panel asks L2 for W' twice as often per product as a 128-row one
+// would, and that traffic, not the tensor cores, bounds the kernel there.
 //
-// Design: two kernels. ln_stats takes the per-token mean and 1/std (one
-// warp per token, two passes over the row in f32, like _standardize).
-// ln_matmul then runs a tiled product; each k-step standardizes its token
-// chunk on the fly while staging it in shared memory (rounded to the input
-// type before the product, as the TPU kernel casts x_hat to the weight
-// type), so the normalized tokens exist only in shared memory. The folded
-// bias is added in the epilogue.
-//  * bf16: (128 tokens) x (128 outputs) blocks of 8 warps, each warp a
-//    64 x 32 tile on the tensor cores (WMMA 16x16x16, f32 accumulate);
-//    k-chunks of 32 are double-buffered: the next W' chunk streams in with
-//    cp.async and the next token chunk is held in registers while the
-//    current chunk multiplies, then standardized into the other buffer.
-//  * f32: (64 tokens) x (64 outputs) blocks on an f32 FMA path, so f32
-//    keeps full f32 products; single-buffered.
-// No wgmma or TMA yet.
+// Design of the bf16 path:
+//  * a block owns a PANEL of tokens held whole in shared memory: 128 rows
+//    up to C 640, 64 rows up to C 1280 (160 KB at most). The panel is copied
+//    in once with cp.async, mean and 1/std are taken from the shared copy
+//    (eight lanes per token, f32, two passes over registers, as
+//    _standardize does), and the panel is standardized in place once,
+//    rounded to bf16 as the TPU kernel casts x_hat to the weight type. No
+//    stats kernel, no stats scratch.
+//  * the block then walks over the column tiles of W' (128 wide up to
+//    C 320, 64 wide above, where the panel leaves less room). W' [K, C] is
+//    already the K-major B operand; a tile streams in 64-channel pieces
+//    through a ring of 4 stages filled by cp.async, two pieces ahead of the
+//    products (W' is a few MB and stays in L2).
+//  * instruction: wgmma.mma_async m64n128k16 / m64n64k16, bf16 in, f32
+//    accumulators in registers, both operands read from shared memory
+//    through descriptors. Panel and ring use the 128-byte swizzle (16-byte
+//    piece index XOR row mod 8 inside each 128-byte row of 64 channels),
+//    written by hand by the cp.async copies and by the in-place
+//    standardization, so neither the copies, the statistics nor wgmma meet
+//    bank conflicts. One product group stays in flight while the next piece
+//    is awaited.
+//  * two warpgroups, each on its own: they take the block's column tiles in
+//    turns, each with its own ring and its own named barrier, over all rows
+//    of the panel. Warpgroup 1 starts half a tile late, so that one's
+//    epilogue and waits fall under the other's products.
+//  * epilogue from registers: + b', round to bf16, a 4x4 exchange among
+//    the four lanes that share a row so that each lane holds 8 neighbouring
+//    outputs, one 16-byte store per lane: a row's four lanes write 64
+//    contiguous bytes. The stores are fire-and-forget.
+//  * few tokens (the deep UNet levels): the column tiles are split over
+//    gridDim.y so that the card is filled; a block then standardizes its
+//    panel again for its share of the tiles (x is small there). At the
+//    main-path shape gridDim.y is 1 and x is read from device memory once.
+//  * what the compiler needs: the warp and warpgroup index come from
+//    __shfl_sync, so that the per-warpgroup loops are uniform to it, and the
+//    tile and piece loops are nested; otherwise ptxas serializes the wgmma
+//    instructions (remarks C7517 / C7518 under -Xptxas -v).
+// In shared memory: the panel, the two W' rings. In registers: the
+// accumulators, the folded bias of the lane's columns. Compiled with
+// -DLNMM_PROF the kernel adds up clock cycles per phase (panel copy,
+// standardization, product loop, epilogue, waits), read back through
+// ln_matmul_prof; scripts/kernel_check.py prints them.
+//
+// The f32 path (full-f32 products, as the CPU tests and the card-vs-CPU
+// checks need) stays the simple pair below: ln_stats (a warp per token)
+// and a 64x64 tiled FMA product that standardizes while staging.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
@@ -44,11 +77,6 @@ namespace {
 constexpr int BM = 64, BN = 64, BKC = 32;
 constexpr int THREADS = 128;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -56,19 +84,417 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
-__global__ void ln_stats_kernel(const T* __restrict__ x, long long rs, float* __restrict__ stats,
-                                int rows, int C, float eps) {
+// sum over the eight lanes of an octet
+__device__ __forceinline__ float oct_sum(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: token panel in shared memory, wgmma over streamed W' tiles
+// ---------------------------------------------------------------------------
+
+constexpr int KC = 64;                  // channels per piece: one 128-byte swizzled row
+constexpr int RING = 4;                 // W' stages of a warpgroup
+constexpr int W_THREADS = 256;          // two warpgroups
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool pred) {
+  const int n = pred ? 16 : 0;  // 0: no read, the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// writes of this thread to shared memory become visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// K-major operand with 128-byte swizzle: rows of 128 bytes, 8-row groups
+// 1024 bytes apart (SBO), start address and offsets in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_m64n128k16(d, a, b, scale_d);
+  else
+    wgmma_m64n64k16(d, a, b, scale_d);
+}
+
+// byte offset of the 16-byte piece `piece` (0..7) of row r in a swizzled
+// [rows][64] bf16 block
+__device__ __forceinline__ unsigned swz(int r, int piece) {
+  return r * 128 + ((piece ^ (r & 7)) << 4);
+}
+
+// lane c of a quad holds v[j] = its two outputs of column block j (j = 0..3);
+// afterwards v[s] = lane s's two outputs of column block c: 8 neighbouring
+// outputs of one block. Two butterfly steps: with lane c ^ 2 the halves
+// {0, 1} / {2, 3} of the blocks, with lane c ^ 1 the block of the half.
+__device__ __forceinline__ void quad_exchange(uint32_t (&v)[4], int c) {
+  const bool hi2 = c & 2, hi1 = c & 1;
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi2 ? v[0] : v[2], 2);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi2 ? v[1] : v[3], 2);
+  const uint32_t k0 = hi2 ? v[2] : v[0], k1 = hi2 ? v[3] : v[1];
+  // blocks (b, b + 1) of this lane's half, from lane c & 1 (a) and (c & 1) + 2 (b)
+  const uint32_t a0 = hi2 ? r0 : k0, a1 = hi2 ? r1 : k1;
+  const uint32_t b0 = hi2 ? k0 : r0, b1 = hi2 ? k1 : r1;
+  const uint32_t t0 = __shfl_xor_sync(0xffffffffu, hi1 ? a0 : a1, 1);
+  const uint32_t t1 = __shfl_xor_sync(0xffffffffu, hi1 ? b0 : b1, 1);
+  const uint32_t m0 = hi1 ? a1 : a0, m1 = hi1 ? b1 : b0;
+  v[0] = hi1 ? t0 : m0;
+  v[1] = hi1 ? m0 : t0;
+  v[2] = hi1 ? t1 : m1;
+  v[3] = hi1 ? m1 : t1;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+#ifdef LNMM_PROF
+__device__ unsigned long long g_prof[8];
+#define PROF_MARK(i)                                                        \
+  do {                                                                      \
+    if (threadIdx.x == 0) {                                                 \
+      const long long now = clock64();                                      \
+      atomicAdd(&g_prof[i], (unsigned long long)(now - prof_last));         \
+      prof_last = now;                                                      \
+    }                                                                       \
+  } while (0)
+#define PROF_T0() prof_t0 = clock64()
+#define PROF_ADD(i) \
+  if (threadIdx.x == 0) atomicAdd(&g_prof[i], (unsigned long long)(clock64() - prof_t0))
+#else
+#define PROF_MARK(i)
+#define PROF_T0()
+#define PROF_ADD(i)
+#endif
+
+template <int PANEL, int TNW>
+__global__ void __launch_bounds__(W_THREADS, 1) ln_matmul_bf16_kernel(
+    const bf16* __restrict__ x, long long x_rs, const bf16* __restrict__ w,
+    const float* __restrict__ bias, bf16* __restrict__ out, long long o_rs, int rows, int C,
+    int K, float eps, int tiles_per_block) {
+  constexpr int MH = PANEL / 64;           // 64-row halves of the panel
+  constexpr int STAGE = TNW * KC * 2;      // bytes of one W' piece
+  // 16-byte pieces of a token per lane of its octet: C <= 320, 640, 1280
+  constexpr int MAX_PIECES = PANEL == 64 ? 20 : (TNW == 128 ? 5 : 10);
+#ifdef LNMM_PROF
+  long long prof_last = clock64(), prof_t0 = 0;
+  if (threadIdx.x == 0) atomicAdd(&g_prof[0], 1ull);
+#endif
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
+  const int tid = threadIdx.x, lane = tid % 32;
+  // warp and warpgroup as values the compiler knows to be uniform in a warp:
+  // the per-warpgroup loops below must not look divergent to it, or it
+  // serializes the wgmma instructions
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0), wg = warp / 4;
+  const int wtid = tid % 128;  // thread of the warpgroup
+  const unsigned rings = (raw + 1023u) & ~1023u;     // [2][RING][TNW][64] swizzled
+  const unsigned ring = rings + wg * RING * STAGE;   // this warpgroup's ring
+  const unsigned panel = rings + 2 * RING * STAGE;   // [CB][PANEL][64] swizzled
+  unsigned char* panel_ptr = smem_raw + (panel - raw);
+
+  const int CB = (C + KC - 1) / KC;
+  const int m0 = blockIdx.x * PANEL;
+  const int ntiles = (K + TNW - 1) / TNW;
+  const int tile_begin = blockIdx.y * tiles_per_block;
+  const int tile_end = min(ntiles, tile_begin + tiles_per_block);
+  if (tile_begin >= tile_end) return;
+  // the warpgroups take the block's column tiles in turns
+  const int my_tiles = (tile_end - tile_begin - wg + 1) / 2;
+  const int iters = my_tiles * CB;
+
+  // piece `it` of this warpgroup: 64 channels of one column tile of W'
+  int w_tile = tile_begin + wg, w_kc = 0;  // the piece the next load_w brings
+  auto load_w = [&](int it) {
+    if (it < iters) {
+      const int n0 = w_tile * TNW, k0 = w_kc * KC;
+      const unsigned dst = ring + (it % RING) * STAGE;
+#pragma unroll
+      for (int i = 0; i < TNW * 8 / 128; ++i) {
+        const int idx = wtid + i * 128;
+        const int r = idx >> 3, piece = idx & 7;
+        const int n = n0 + r, col = k0 + piece * 8;
+        const bool ok = n < K && col < C;
+        cp_async16(dst + swz(r, piece), ok ? w + (long long)n * C + col : w, ok);
+      }
+      if (++w_kc == CB) w_kc = 0, w_tile += 2;
+    }
+    cp_async_commit();
+  };
+
+  // the token panel, zeros outside the matrix
+  for (int idx = tid; idx < PANEL * CB * 8; idx += W_THREADS) {
+    const int r = idx / (CB * 8), ch = idx % (CB * 8);
+    const bool ok = m0 + r < rows && ch * 8 < C;
+    cp_async16(panel + (ch >> 3) * PANEL * 128 + swz(r, ch & 7),
+               ok ? x + (long long)(m0 + r) * x_rs + ch * 8 : x, ok);
+  }
+  cp_async_commit();
+  load_w(0);
+  load_w(1);
+  cp_async_wait<2>();
+  __syncthreads();
+  PROF_MARK(1);
+
+  // standardize the panel in place: eight lanes per token (four tokens a
+  // warp at a time), f32, two passes over the token's 16-byte pieces, which
+  // the lanes hold in registers (C <= 1280: 20 a lane). Rows outside the
+  // matrix are zeros and stay zeros.
+  {
+    const int l8 = lane & 7, pieces = C / 8;
+    for (int r = warp * 4 + (lane >> 3); r < PANEL; r += W_THREADS / 32 * 4) {
+      unsigned char* rowp = panel_ptr + r * 128 + ((l8 ^ (r & 7)) << 4);
+      uint4 v[MAX_PIECES];
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAX_PIECES; ++i) {
+        if (l8 + 8 * i < pieces) {
+          v[i] = *reinterpret_cast<const uint4*>(rowp + i * PANEL * 128);
+          const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+        }
+      }
+      const float mean = oct_sum(s) / C;
+      float s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAX_PIECES; ++i) {
+        if (l8 + 8 * i < pieces) {
+          const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float d = __bfloat162float(e[j]) - mean;
+            s2 += d * d;
+          }
+        }
+      }
+      const float rstd = 1.f / sqrtf(oct_sum(s2) / C + eps);
+#pragma unroll
+      for (int i = 0; i < MAX_PIECES; ++i) {
+        if (l8 + 8 * i < pieces) {
+          bf16* e = reinterpret_cast<bf16*>(&v[i]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16((__bfloat162float(e[j]) - mean) * rstd);
+          *reinterpret_cast<uint4*>(rowp + i * PANEL * 128) = v[i];
+        }
+      }
+    }
+  }
+  fence_proxy_async();  // the standardized panel is visible to wgmma
+  __syncthreads();
+  PROF_MARK(2);
+
+  // from here on the warpgroups run on their own: own tiles, own ring, own
+  // barrier, so one's epilogue and waits hide behind the other's products
+  const int g = lane >> 2, c = lane & 3;
+  float acc[MH][TNW / 2];
+#pragma unroll
+  for (int h = 0; h < MH; ++h)
+#pragma unroll
+    for (int i = 0; i < TNW / 2; ++i) acc[h][i] = 0.f;
+  float2 bj[TNW / 8];  // the folded bias of this lane's columns of the tile
+
+  // Warpgroup 1 starts its first tile when warpgroup 0 has issued the
+  // products of its first (barrier 3: 128 threads wait, 128 arrive). From
+  // then on they run half a tile apart, so that one's epilogue falls under
+  // the other's products and not under the other's epilogue.
+  int it = 0;
+  for (int tile = tile_begin + wg; tile < tile_end; tile += 2) {
+    // read early, used in the tile's epilogue
+#pragma unroll
+    for (int j = 0; j < TNW / 8; ++j) {
+      const int col = tile * TNW + 8 * j + 2 * c;
+      bj[j] = col < K ? *reinterpret_cast<const float2*>(bias + col) : make_float2(0.f, 0.f);
+    }
+    if (wg == 1 && it == 0) bar_sync(3, W_THREADS);
+    for (int kc = 0; kc < CB; ++kc, ++it) {
+      PROF_T0();
+      cp_async_wait<1>();   // piece `it` has landed (piece it + 1 may be in flight)
+      fence_proxy_async();  // ... and is visible to wgmma
+      // every warp of the warpgroup is past the products of piece it - 2
+      bar_sync(1 + wg, 128);
+      PROF_ADD(5);
+      load_w(it + 2);
+      const unsigned a = panel + kc * PANEL * 128;
+      const unsigned b = ring + (it % RING) * STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < KC / 16; ++k16)
+#pragma unroll
+        for (int h = 0; h < MH; ++h)
+          wgmma_k16<TNW>(acc[h], smem_desc(a + h * 64 * 128 + 32 * k16),
+                         smem_desc(b + 32 * k16), (kc | k16) != 0);
+      wgmma_commit();
+      PROF_T0();
+      wgmma_wait<1>();  // the products of piece it - 1 are done
+      PROF_ADD(6);
+    }
+    if (wg == 0 && it == CB) bar_arrive(3, W_THREADS);
+    PROF_T0();
+    wgmma_wait<0>();
+    PROF_ADD(6);
+
+    // epilogue of this tile
+    PROF_T0();
+    const int n0 = tile * TNW;
+#pragma unroll
+    for (int h = 0; h < MH; ++h) {
+      const int row = m0 + h * 64 + (warp & 3) * 16 + g;
+#pragma unroll
+      for (int j0 = 0; j0 < TNW / 8; j0 += 4) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t v[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            v[jj] = pack_bf16(acc[h][4 * (j0 + jj) + 2 * half] + bj[j0 + jj].x,
+                              acc[h][4 * (j0 + jj) + 2 * half + 1] + bj[j0 + jj].y);
+          quad_exchange(v, c);
+          const int r = row + 8 * half, col8 = n0 + 8 * (j0 + c);
+          if (r < rows && col8 < K)
+            *reinterpret_cast<uint4*>(out + (long long)r * o_rs + col8) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+    PROF_ADD(4);
+  }
+  PROF_MARK(3);
+}
+
+template <int PANEL, int TNW>
+cudaError_t launch_bf16(const void* x, long long x_rs, const void* w, const void* bias,
+                        void* out, long long o_rs, int rows, int C, int K, float eps,
+                        cudaStream_t stream) {
+  auto kernel = ln_matmul_bf16_kernel<PANEL, TNW>;
+  const int CB = (C + KC - 1) / KC;
+  const int bytes = 1024 + 2 * RING * TNW * KC * 2 + CB * PANEL * 128;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  // few panels: split the column tiles over gridDim.y to fill the card, at
+  // least two tiles a block (one for each warpgroup)
+  const int panels = (rows + PANEL - 1) / PANEL, ntiles = (K + TNW - 1) / TNW;
+  int split = 2 * sms / panels;
+  split = split > ntiles / 2 ? ntiles / 2 : split;
+  split = split < 1 ? 1 : split;
+  int tiles_per_block = (ntiles + split - 1) / split;
+  tiles_per_block += tiles_per_block & 1;  // even: both warpgroups get as many
+  const dim3 grid(panels, (ntiles + tiles_per_block - 1) / tiles_per_block);
+  kernel<<<grid, W_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(x), x_rs, static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), o_rs, rows, C, K, eps,
+      tiles_per_block);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: stats kernel + tiled FMA product
+// ---------------------------------------------------------------------------
+
+__global__ void ln_stats_kernel(const float* __restrict__ x, long long rs,
+                                float* __restrict__ stats, int rows, int C, float eps) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* xr = x + row * rs;
+  const float* xr = x + row * rs;
   float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
+  for (int c = lane; c < C; c += 32) s += xr[c];
   const float mean = warp_sum(s) / C;
   float s2 = 0.f;
   for (int c = lane; c < C; c += 32) {
-    const float d = to_f(xr[c]) - mean;
+    const float d = xr[c] - mean;
     s2 += d * d;
   }
   const float var = warp_sum(s2) / C;
@@ -80,179 +506,21 @@ __global__ void ln_stats_kernel(const T* __restrict__ x, long long rs, float* __
 
 // stage a [64, 32] chunk of rows [r0, r0+64), columns [k0, k0+32) of a
 // [rows, C] matrix (row stride rs) into dst[64][LD]; standardize when stats
-template <typename T, int LD>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long rs, int r0, int rows,
-                                      int k0, int C, const float* mean, const float* rstd) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = BKC / VEC;
+template <int LD>
+__device__ __forceinline__ void stage(float* dst, const float* src, long long rs, int r0,
+                                      int rows, int k0, int C, const float* mean,
+                                      const float* rstd) {
+  constexpr int CHUNKS = BKC / 4;
   for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += THREADS) {
     const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * VEC;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    const int c = (idx % CHUNKS) * 4;
+    float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
     const bool ok = r0 + r < rows && k0 + c < C;
-    if (ok) raw = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + k0 + c);
-    T* e = reinterpret_cast<T*>(&raw);
-    if (mean != nullptr && ok) {
+    if (ok) raw = *reinterpret_cast<const float4*>(src + (long long)(r0 + r) * rs + k0 + c);
+    float e[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) e[j] = from_f<T>((to_f(e[j]) - mean[r]) * rstd[r]);
-    }
-    if constexpr ((LD * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = raw;
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) dst[r * LD + c + j] = e[j];
-    }
-  }
-}
-
-// bf16 tiles: TM tokens x TN outputs per block, k-chunks of TK channels
-constexpr int TM = 128, TN = 128, TK = 32, T_THREADS = 256;
-constexpr int LDK = TK + 8;  // 80-byte rows: 16-byte aligned, banks staggered
-constexpr int LDE = 20;      // epilogue staging of one 16x16 f32 fragment
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0: no read, the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// raw token chunk: rows [m0, m0+TM), channels [k0, k0+TK), two 16-byte
-// vectors per thread, zeros outside the matrix
-__device__ __forceinline__ void load_tokens(uint4 (&ra)[2], const bf16* x, long long rs,
-                                            int m0, int rows, int k0, int C) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * T_THREADS;
-    const int r = idx >> 2, c = k0 + (idx & 3) * 8;
-    ra[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < rows && c < C)
-      ra[i] = *reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * rs + c);
-  }
-}
-
-// standardize the held chunk into As (zeros stay zeros outside the matrix)
-__device__ __forceinline__ void store_tokens(bf16* As, const uint4 (&ra)[2], const float* mean,
-                                             const float* rstd, int m0, int rows, int k0,
-                                             int C) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * T_THREADS;
-    const int r = idx >> 2, c = (idx & 3) * 8;
-    uint4 v = ra[i];
-    if (m0 + r < rows && k0 + c < C) {
-      bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16((__bfloat162float(e[j]) - mean[r]) * rstd[r]);
-    }
-    *reinterpret_cast<uint4*>(As + r * LDK + c) = v;
-  }
-}
-
-// W' chunk: outputs [n0, n0+TN), channels [k0, k0+TK), with cp.async
-__device__ __forceinline__ void load_weights(bf16* Bs, const bf16* w, int n0, int K, int k0,
-                                             int C) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * T_THREADS;
-    const int r = idx >> 2, c = (idx & 3) * 8;
-    const bool ok = n0 + r < K && k0 + c < C;
-    cp_async16(Bs + r * LDK + c, ok ? w + (long long)(n0 + r) * C + k0 + c : w, ok);
-  }
-}
-
-__global__ void __launch_bounds__(T_THREADS, 2) ln_matmul_bf16_kernel(
-    const bf16* __restrict__ x, long long x_rs, const float* __restrict__ stats,
-    const bf16* __restrict__ w, const float* __restrict__ bias, bf16* __restrict__ out,
-    long long o_rs, int rows, int C, int K) {
-  __shared__ __align__(128) bf16 As[2][TM * LDK];
-  __shared__ __align__(128) bf16 Bs[2][TN * LDK];
-  __shared__ float mean[TM], rstd[TM];
-
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  for (int i = threadIdx.x; i < TM; i += T_THREADS) {
-    const bool ok = m0 + i < rows;
-    mean[i] = ok ? stats[2 * (long long)(m0 + i)] : 0.f;
-    rstd[i] = ok ? stats[2 * (long long)(m0 + i) + 1] : 0.f;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (C + TK - 1) / TK;
-  uint4 ra[2];
-  load_tokens(ra, x, x_rs, m0, rows, 0, C);
-  load_weights(Bs[0], w, n0, K, 0, C);
-  cp_async_commit();
-  __syncthreads();  // mean / rstd
-  store_tokens(As[0], ra, mean, rstd, m0, rows, 0, C);
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int kc = 0; kc < nk; ++kc) {
-    const int cur = kc & 1;
-    const bool more = kc + 1 < nk;
-    if (more) {  // the other buffer was released by the barrier ending kc - 1
-      load_tokens(ra, x, x_rs, m0, rows, (kc + 1) * TK, C);
-      load_weights(Bs[cur ^ 1], w, n0, K, (kc + 1) * TK, C);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As[cur] + (wm + 16 * i) * LDK + kk * 16, LDK);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs[cur] + (wn + 16 * j) * LDK + kk * 16, LDK);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    if (more) store_tokens(As[cur ^ 1], ra, mean, rstd, m0, rows, (kc + 1) * TK, C);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-
-  // epilogue: each 16x16 fragment goes through this warp's staging slice
-  // (the token buffers are free after the last barrier), + bias, to bf16
-  float* stage = reinterpret_cast<float*>(&As[0][0]) + warp * 16 * LDE;
-  const bool vec = K % 8 == 0 && o_rs % 8 == 0;
-  const int r = lane >> 1, c = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], LDE, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + wm + 16 * i + r, col = n0 + wn + 16 * j + c;
-      if (row < rows) {
-        bf16* dst = out + (long long)row * o_rs + col;
-        if (vec && col + 8 <= K) {
-          uint4 v;
-          bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) e[q] = __float2bfloat16(stage[r * LDE + c + q] + bias[col + q]);
-          *reinterpret_cast<uint4*>(dst) = v;
-        } else {
-          for (int q = 0; q < 8 && col + q < K; ++q)
-            dst[q] = __float2bfloat16(stage[r * LDE + c + q] + bias[col + q]);
-        }
-      }
-      __syncwarp();
-    }
+    for (int j = 0; j < 4; ++j)
+      dst[r * LD + c + j] = mean != nullptr && ok ? (e[j] - mean[r]) * rstd[r] : e[j];
   }
 }
 
@@ -279,8 +547,8 @@ __global__ void __launch_bounds__(THREADS) ln_matmul_f32_kernel(
   float acc[8][4] = {};
   for (int k0 = 0; k0 < C; k0 += BKC) {
     __syncthreads();
-    stage<float, LDA>(As, x, x_rs, m0, rows, k0, C, mean, rstd);
-    stage<float, LDA>(Bs, w, C, n0, K, k0, C, nullptr, nullptr);
+    stage<LDA>(As, x, x_rs, m0, rows, k0, C, mean, rstd);
+    stage<LDA>(Bs, w, C, n0, K, k0, C, nullptr, nullptr);
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < BKC; ++kk) {
@@ -308,32 +576,44 @@ __global__ void __launch_bounds__(THREADS) ln_matmul_f32_kernel(
 
 }  // namespace
 
+#ifdef LNMM_PROF
+extern "C" int ln_matmul_prof(unsigned long long* host8, int reset) {
+  if (reset) {
+    unsigned long long z[8] = {};
+    return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+  }
+  return (int)cudaMemcpyFromSymbol(host8, g_prof, 8 * sizeof(unsigned long long));
+}
+#endif
+
 // dtype: 0 = float32, 1 = bfloat16. x [rows, C] (row stride x_rs), w [K, C]
-// contiguous, bias [K] f32, stats [rows, 2] f32 scratch, out [rows, K]
-// (row stride o_rs). C must be a multiple of 16 bytes' worth of elements.
+// contiguous, bias [K] f32, out [rows, K] (row stride o_rs). C must be a
+// multiple of 16 bytes' worth of elements. stats [rows, 2] f32 is scratch of
+// the f32 path only (null for bf16). bf16 takes C up to 1280 and K a
+// multiple of 8. Returns the cudaError_t of the launch.
 extern "C" int ln_matmul_fwd(int dtype, const void* x, long long x_rs, const void* w,
                              const void* bias, void* stats, void* out, long long o_rs,
                              int rows, int C, int K, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 stats_grid((rows + 7) / 8);
   if (dtype == 0) {
+    const dim3 stats_grid((rows + 7) / 8);
     const dim3 grid((K + BN - 1) / BN, (rows + BM - 1) / BM);
-    ln_stats_kernel<float><<<stats_grid, 256, 0, s>>>(static_cast<const float*>(x), x_rs,
-                                                      static_cast<float*>(stats), rows, C, eps);
+    ln_stats_kernel<<<stats_grid, 256, 0, s>>>(static_cast<const float*>(x), x_rs,
+                                               static_cast<float*>(stats), rows, C, eps);
     ln_matmul_f32_kernel<<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), x_rs, static_cast<const float*>(stats),
         static_cast<const float*>(w), static_cast<const float*>(bias), static_cast<float*>(out),
         o_rs, rows, C, K);
-  } else if (dtype == 1) {
-    ln_stats_kernel<bf16><<<stats_grid, 256, 0, s>>>(static_cast<const bf16*>(x), x_rs,
-                                                     static_cast<float*>(stats), rows, C, eps);
-    const dim3 grid16((K + TN - 1) / TN, (rows + TM - 1) / TM);
-    ln_matmul_bf16_kernel<<<grid16, T_THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), x_rs, static_cast<const float*>(stats),
-        static_cast<const bf16*>(w), static_cast<const float*>(bias), static_cast<bf16*>(out),
-        o_rs, rows, C, K);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != 1 || C % 8 || K % 8) return static_cast<int>(cudaErrorInvalidValue);
+  // panel rows and tile width by what fits beside the panel in 227 KB
+  const int CB = (C + KC - 1) / KC;
+  if (CB <= 5)
+    return static_cast<int>(launch_bf16<128, 128>(x, x_rs, w, bias, out, o_rs, rows, C, K, eps, s));
+  if (CB <= 10)
+    return static_cast<int>(launch_bf16<128, 64>(x, x_rs, w, bias, out, o_rs, rows, C, K, eps, s));
+  if (CB <= 20)
+    return static_cast<int>(launch_bf16<64, 64>(x, x_rs, w, bias, out, o_rs, rows, C, K, eps, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

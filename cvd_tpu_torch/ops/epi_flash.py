@@ -42,6 +42,8 @@ _BWD_SIGNATURE = {"epi_flash_bwd": [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # widest padded head_dim the backward's shared memory holds, per dtype
 _BWD_MAX_DP = {torch.float32: 96, torch.bfloat16: 160}
+# head_dims the bf16 forward kernel is instantiated for (SD1.5: 40, 80, 160)
+_FWD_BF16_HEAD_DIMS = (8, 16, 32, 40, 48, 64, 80, 96, 128, 160)
 
 
 def bias_from_geometry(norm_lines: torch.Tensor, coords: torch.Tensor,
@@ -93,6 +95,8 @@ def _prepare(q, k, v, geom, kv_index, heads):
     if D % (16 // q.element_size()) or D > 160:
         raise ValueError(f"head_dim {D}: the kernel takes a multiple of "
                          f"{16 // q.element_size()} up to 160")
+    if q.dtype == torch.bfloat16 and D not in _FWD_BF16_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the bf16 kernel takes one of {_FWD_BF16_HEAD_DIMS}")
     q, k, v = (_check_rows(x, n) for x, n in ((q, "q"), (k, "k"), (v, "v")))
     if kv_index is not None:
         kv_index = kv_index.to(device=q.device, dtype=torch.int32).contiguous()

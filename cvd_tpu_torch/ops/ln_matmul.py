@@ -13,11 +13,16 @@ LayerNorm-then-matmul version ``_reference``. The backward is autograd of
 ``_reference`` on both devices, so the folding stays inside the CUDA
 forward and the gradients reach the unfolded gamma, beta, W_i and b_i.
 
+The fold is cached per layer (``folded``): it is redone only when one of
+gamma, beta, the W_i or the b_i has been written (an optimizer step, a
+``load_state_dict``) or replaced, so a sampler folds each layer once.
+
 Weights are in torch ``nn.Linear`` layout, [K_i, C].
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import weakref
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +35,7 @@ _SIGNATURE = {"ln_matmul_fwd": [
     _build.I, _build.I, _build.I, _build.F, _build.P,
 ]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_C_BF16 = 1280  # the widest token panel the bf16 kernel holds in shared memory
 
 
 def fold_weights(gamma: torch.Tensor, beta: torch.Tensor,
@@ -47,6 +53,44 @@ def fold_weights(gamma: torch.Tensor, beta: torch.Tensor,
     ])
     b_folded = w_all @ beta.float() + b_extra
     return w_folded.to(dtype).contiguous(), b_folded.contiguous()
+
+
+def _stamp(t: Optional[torch.Tensor]):
+    """What a cached fold depends on: the tensor's storage, and the counter
+    that every in-place write bumps."""
+    if t is None:
+        return None
+    version = 0 if t.is_inference() else t._version  # inference tensors keep no counter
+    return (t.data_ptr(), version)
+
+
+_FOLDS: Dict[tuple, tuple] = {}
+
+
+def folded(gamma: torch.Tensor, beta: torch.Tensor,
+           weights: Sequence[torch.Tensor],
+           biases: Sequence[Optional[torch.Tensor]],
+           dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fold_weights`` through a cache keyed by the identity of the source
+    tensors: the same (W', b') objects come back until one of the sources
+    has been written in place (its ``_version`` moved), moved or replaced.
+    An entry goes when one of its tensors is collected."""
+    tensors = (gamma, beta, *weights, *biases)
+    key = (*(id(t) for t in tensors), dtype)
+    stamps = tuple(_stamp(t) for t in tensors)
+    hit = _FOLDS.get(key)
+    if hit is not None and hit[0] == stamps and all(r() is t for r, t in zip(hit[1], tensors)
+                                                    if t is not None):
+        return hit[2]
+    with torch.no_grad():
+        value = fold_weights(gamma, beta, weights, biases, dtype)
+
+    def drop(_, key=key):
+        _FOLDS.pop(key, None)
+
+    refs = tuple(None if t is None else weakref.ref(t, drop) for t in tensors)
+    _FOLDS[key] = (stamps, refs, value)
+    return value
 
 
 def _reference(x, gamma, beta, weights, biases, eps):
@@ -69,14 +113,19 @@ def _launch(x2, w_folded, b_folded, eps):
     K = w_folded.shape[0]
     if C % (16 // x2.element_size()):
         raise ValueError(f"C={C} is not a multiple of 16 bytes")
+    bf16 = x2.dtype == torch.bfloat16
+    if bf16 and (C > _MAX_C_BF16 or K % 8):
+        raise ValueError(f"the bf16 ln_matmul kernel takes C <= {_MAX_C_BF16} and K a "
+                         f"multiple of 8, got C={C} K={K}")
     if x2.stride(-1) != 1 or (x2.stride(0) * x2.element_size()) % 16 or x2.data_ptr() % 16:
         x2 = x2.contiguous()
     out = torch.empty((T, K), device=x2.device, dtype=x2.dtype)
-    stats = torch.empty((T, 2), device=x2.device, dtype=torch.float32)
+    # per-token mean / rstd scratch: the f32 path only (bf16 keeps them on chip)
+    stats = None if bf16 else torch.empty((T, 2), device=x2.device, dtype=torch.float32)
     lib = _build.library("ln_matmul_fwd", _SIGNATURE)
     err = lib.ln_matmul_fwd(
         _DTYPES[x2.dtype], x2.data_ptr(), x2.stride(0), w_folded.data_ptr(),
-        b_folded.data_ptr(), stats.data_ptr(), out.data_ptr(), out.stride(0),
+        b_folded.data_ptr(), None if bf16 else stats.data_ptr(), out.data_ptr(), out.stride(0),
         T, C, K, eps, torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(err, "ln_matmul_fwd")
@@ -84,9 +133,9 @@ def _launch(x2, w_folded, b_folded, eps):
 
 
 def _fused(x, gamma, beta, weights, biases, eps):
-    """Fold, then K5 over [T, C] tokens -> [..., sum K_i]."""
+    """Fold (cached), then K5 over [T, C] tokens -> [..., sum K_i]."""
     C = x.shape[-1]
-    w_folded, b_folded = fold_weights(gamma, beta, weights, biases, x.dtype)
+    w_folded, b_folded = folded(gamma, beta, weights, biases, x.dtype)
     out = _launch(x.reshape(-1, C), w_folded, b_folded, eps)
     return out.reshape(*x.shape[:-1], w_folded.shape[0])
 

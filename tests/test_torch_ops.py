@@ -159,3 +159,102 @@ def test_ops_raise_on_a_device_without_a_kernel():
     x = torch.zeros(2, 4, 32, device="meta")
     with pytest.raises(ValueError):
         group_norm(x, torch.ones(32, device="meta"), torch.zeros(32, device="meta"), 8)
+
+
+def _fold_inputs(seed=8, n_proj=3, c=64):
+    rng = np.random.default_rng(seed)
+    g, b = (t(rng.standard_normal(c).astype(np.float32)) for _ in range(2))
+    ws = [t((rng.standard_normal((n, c)) * 0.1).astype(np.float32)) for n in (64, 96, 32)[:n_proj]]
+    bs = [None] * n_proj if n_proj > 1 else [t(rng.standard_normal(64).astype(np.float32))]
+    return g, b, ws, bs
+
+
+def test_fold_cache_returns_the_same_objects_until_a_source_is_written():
+    """The fold that feeds K5 is cached per layer: the same (W', b') objects
+    on a second call, new ones after an in-place write to any source (what
+    an optimizer step or load_state_dict does), equal to a fresh fold."""
+    from cvd_tpu_torch.ops.ln_matmul import fold_weights, folded
+
+    g, b, ws, bs = _fold_inputs()
+    first = folded(g, b, ws, bs, torch.float32)
+    again = folded(g, b, ws, bs, torch.float32)
+    assert again[0] is first[0] and again[1] is first[1]
+    ws[1].add_(0.5)   # an in-place update bumps the tensor's _version
+    after = folded(g, b, ws, bs, torch.float32)
+    assert after[0] is not first[0]
+    fresh = fold_weights(g, b, ws, bs, torch.float32)
+    torch.testing.assert_close(after[0], fresh[0], rtol=0, atol=0)
+    torch.testing.assert_close(after[1], fresh[1], rtol=0, atol=0)
+    assert not torch.equal(after[0], first[0])
+    assert folded(g, b, ws, bs, torch.float32)[0] is after[0]
+
+
+@pytest.mark.parametrize("which", ["gamma", "beta", "bias", "optimizer"])
+def test_fold_cache_sees_every_source(which):
+    from cvd_tpu_torch.ops.ln_matmul import folded
+
+    g, b, ws, bs = _fold_inputs(n_proj=1)
+    w = torch.nn.Parameter(ws[0])
+    first = folded(g, b, [w], bs, torch.float32)
+    if which == "gamma":
+        g.mul_(2.0)
+    elif which == "beta":
+        b.add_(1.0)
+    elif which == "bias":
+        bs[0].sub_(1.0)
+    else:  # AdamW writes the master weight in place
+        opt = torch.optim.AdamW([w], lr=1e-2)
+        w.grad = torch.ones_like(w)
+        opt.step()
+    after = folded(g, b, [w], bs, torch.float32)
+    assert after[0] is not first[0]
+    changed = after[1] if which in ("beta", "bias") else after[0]
+    before = first[1] if which in ("beta", "bias") else first[0]
+    assert not torch.equal(changed, before)
+
+
+def test_fold_cache_keys_on_dtype_and_on_the_tensor_not_its_id():
+    """A cast copy of a weight (what ``.to(dtype)`` hands over) is another
+    tensor: it never takes a stale entry, and its entry goes with it."""
+    from cvd_tpu_torch.ops import ln_matmul
+
+    g, b, ws, bs = _fold_inputs()
+    f32 = ln_matmul.folded(g, b, ws, bs, torch.float32)
+    bf16 = ln_matmul.folded(g, b, ws, bs, torch.bfloat16)
+    assert bf16[0].dtype == torch.bfloat16 and f32[0].dtype == torch.float32
+    assert ln_matmul.folded(g, b, ws, bs, torch.float32)[0] is f32[0]
+    n = len(ln_matmul._FOLDS)
+    for scale in (1.0, 2.0):
+        cast = [(w * scale).to(torch.float64).to(torch.float32) for w in ws]
+        got = ln_matmul.folded(g, b, cast, bs, torch.float32)
+        want = ln_matmul.fold_weights(g, b, cast, bs, torch.float32)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        del cast, got
+    assert len(ln_matmul._FOLDS) <= n + 1   # the temporaries' entries were dropped
+
+
+@pytest.mark.parametrize("n_proj", [1, 3])
+def test_folded_product_matches_jax_layer_norm_matmul(n_proj):
+    """What K5 computes on the card, in plain f32 on the CPU: standardize,
+    multiply the cached folded weight, add the folded bias; against the JAX
+    layer_norm_matmul (Pallas, interpret mode) at 1e-4 x max|ref|."""
+    from cvd_tpu.ops.ln_matmul import layer_norm_matmul as jax_lnmm
+    from cvd_tpu_torch.ops.ln_matmul import folded
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    g = rng.standard_normal(128).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    ws = [(rng.standard_normal((128, 128)) * 0.1).astype(np.float32) for _ in range(n_proj)]
+    bs = [None] * n_proj if n_proj > 1 else [rng.standard_normal(128).astype(np.float32)]
+    want = np.concatenate([np.asarray(o) for o in jax_lnmm(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), [jnp.asarray(w) for w in ws],
+        [None if c is None else jnp.asarray(c) for c in bs], force_kernel=True)], -1)
+    tw = [t(w.T.copy()) for w in ws]
+    tb = [None if c is None else t(c) for c in bs]
+    tg, tbeta = t(g), t(b)
+    for _ in range(2):   # the second pass takes the cached fold
+        w_f, b_f = folded(tg, tbeta, tw, tb, torch.float32)
+        x_hat = torch.nn.functional.layer_norm(t(x), (128,), eps=1e-5)
+        got = (x_hat @ w_f.T + b_f).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())

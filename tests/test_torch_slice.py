@@ -156,3 +156,34 @@ def test_multidiff_windows_are_refused():
                           torch.zeros(1, 77, dtype=torch.int32),
                           torch.zeros(2, 2, 64, 64, 6), torch.zeros(2, 2, 3, 3),
                           multidiff_total_steps=2)
+
+
+def test_entry_points_refuse_a_silent_cpu_run(monkeypatch, tmp_path):
+    """With no card and no device asked for, the CLIs raise instead of
+    running on the CPU; asked for the CPU, they take it."""
+    from cvd_tpu_torch.cli import build, inference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        build.resolve_device(None)
+    assert build.resolve_device("cpu") == torch.device("cpu")
+    args = inference.build_parser().parse_args([
+        "--random-weights", "--image_height", "64", "--image_width", "64",
+        "--video_length", "2", "--num_inference_steps", "1",
+        "--caption_file", os.path.join(ASSETS, "example_prompts.json"),
+        "--pose_file_0", os.path.join(ASSETS, "pose_files", "example_dolly.txt"),
+        "--pose_file_1", os.path.join(ASSETS, "pose_files", "example_arc.txt"),
+        "--out_root", str(tmp_path),
+    ])
+    assert args.device is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.main(args)
+    assert not os.listdir(tmp_path)   # refused before anything was written
+
+
+def test_default_device_is_the_card(monkeypatch):
+    from cvd_tpu_torch.cli import build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert build.resolve_device(None) == torch.device("cuda")
+    assert build.resolve_device("cpu") == torch.device("cpu")

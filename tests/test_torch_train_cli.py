@@ -167,3 +167,16 @@ def test_unposed_batches_raise():
 
     with pytest.raises(NotImplementedError):
         train_step(None, {"H_mats": torch.zeros(2, 2, 3, 3)}, None)
+
+
+def test_train_run_refuses_a_silent_cpu_run(monkeypatch, tmp_path, re10k_root):
+    """No card and no ``device`` in the config: ``run`` raises, before it
+    creates the output directory; ``device: cpu`` is taken (the tests above)."""
+    from cvd_tpu_torch.cli import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _config(tmp_path, re10k_root)
+    del cfg["device"]
+    with pytest.raises(RuntimeError, match="device: cpu"):
+        train.run(cfg)
+    assert not os.path.exists(cfg["output_dir"])
