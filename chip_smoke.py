@@ -14,15 +14,19 @@ Phases (any failure raises and exits non-zero):
    seconds taken.
 3. kernels: each forward kernel against its plain PyTorch version at the
    sampler's shapes and at the kernels' edges (64 tokens, head_dim 160, a
-   ragged key length, a ragged token count), and each backward kernel (K6,
-   K7: autograd through the kernels against autograd of the plain
-   versions) at the training shapes, in f32 (TF32 off) and in bf16; max
-   |error| against the stated tolerance. For the timed bf16 shapes, in
-   turns inside the one call (CUDA events, after warm-up): the plain
-   version, the kernel alone on prepared inputs (twice), one PyTorch
-   library call for the same function as a yardstick (never used by the
-   package), and the whole wrapper; beside them the roofline bound of the
-   case from ``cvd_tpu_torch.ops.work`` (H100 SXM peaks).
+   ragged key length, a ragged token count; for GroupNorm every kind of
+   slab of the UNet, C/G off a power of two, and which path each shape
+   takes), and each backward kernel (K6, K7: autograd through the kernels
+   against autograd of the plain versions) at the training shapes and at
+   K6's edges (ragged lengths, 64 tokens, two query rows routed to one
+   source row), in f32 (TF32 off) and in bf16; max |error| against the
+   stated tolerance, dq, dk and dv each against its own plain version. For
+   the timed bf16 shapes, in turns inside the one call (CUDA events, after
+   warm-up): the plain version, the kernels alone
+   on prepared inputs and buffers (twice), one PyTorch library call for the
+   same function as a yardstick (never used by the package), and the whole
+   wrapper; beside them the roofline bound of the case from
+   ``cvd_tpu_torch.ops.work`` (H100 SXM peaks).
 4. reference: a narrow UNet (the smoke widths) at 256 px runs the sampler
    on the card, through the kernels, and on the CPU, through the plain
    versions, from the same weights and latents; final latents must agree
@@ -79,6 +83,10 @@ KERNELS = {
     "temporal_flash_attention_bwd": ("cuda", "cvd_tpu_torch/csrc/temporal_attn_bwd.cu",
                                      "cvd_tpu/ops/temporal_attn.py:77"),
 }
+# device-kernel name stems of the port's kernels, for the profile's sums
+PORT_KERNELS = ("epi_flash_fwd_bf16", "ln_matmul_bf16", "temporal_attn_fwd", "temporal_attn_bwd",
+                "epi_flash_bwd_dkdv", "epi_flash_bwd_dq", "epi_flash_bwd_delta", "_gn_one_pass",
+                "_gn_partial", "_gn_finalize", "_gn_apply")
 FORWARD = ("epi_flash_attention", "flash_attention", "temporal_flash_attention",
            "group_norm", "layer_norm_matmul")
 
@@ -107,14 +115,18 @@ def phase_build(torch):
     _build.build(["epi_flash_fwd", "epi_flash_bwd", "temporal_attn_fwd",
                   "temporal_attn_bwd", "ln_matmul_fwd"])
     t_nvcc = time.perf_counter() - t0
-    # Triton compiles at first launch: one small GroupNorm per dtype/act
+    # Triton compiles at first launch: one small GroupNorm per dtype / act on
+    # each path (a slab that fits a block, a row that needs the split)
     for dtype in (torch.float32, torch.bfloat16):
         for act in (None, "silu"):
-            x = torch.randn(2, 64, 64, device="cuda", dtype=dtype)
-            group_norm(x, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"),
-                       32, act=act)
+            for S, C in ((64, 64), (8192, 256)):
+                x = torch.randn(2, S, C, device="cuda", dtype=dtype)
+                group_norm(x, torch.ones(C, device="cuda"), torch.zeros(C, device="cuda"),
+                           32, act=act)
     torch.cuda.synchronize()
-    log(f"[build] nvcc {t_nvcc:.1f} s, total {time.perf_counter() - t0:.1f} s")
+    t_build = time.perf_counter() - t0
+    log(f"[build] nvcc {t_nvcc:.1f} s, total {t_build:.1f} s")
+    return t_nvcc, t_build
 
 
 def _time_ms(torch, fn, iters=10):
@@ -134,8 +146,9 @@ def _case(name, label, kernel, plain, timed=False, **timing):
     """One comparison of phase 3. ``kernel`` / ``plain``: the wrapper and its
     plain version on the same inputs. For a timed case ``timing`` holds
     factories, called only in bf16, each -> the function to time:
-    ``launch`` the kernel alone on prepared inputs (default: the wrapper),
-    ``wrapper`` the public function where ``kernel`` does more than call it,
+    ``launch`` the kernel alone on prepared inputs (default: the wrapper);
+    ``wrapper``, not a factory, the public function where ``kernel`` does
+    more than call it;
     ``plain_timer`` (default: ``plain``), ``library`` the PyTorch yardstick
     named by ``library_call``; and ``work`` = (flops, bytes, the type the
     operations run in) of the case."""
@@ -234,23 +247,33 @@ def _cases(torch, dtype, g):
     cases.append(_case("flash_attention", "B4 Lq200 Lk150 C320 h8 ragged",
                        lambda q=q, k=k, v=v: epi_flash.flash_attention(q, k, v, heads=8),
                        lambda q=q, k=k, v=v: epi_flash._plain(q, k, v, None, None, 8)))
-    for R, S, C, eps, timed in ((64, 1024, 320, 1e-6, True), (64, 256, 1920, 1e-6, False),
-                                (32, 65536, 128, 1e-6, True)):
+    sms = norms._sm_count(torch.device("cuda", 0))
+    # the UNet's slabs (res 32 in, res 32 / 16 / 8 up-path concatenations), a
+    # C/G off a power of two with S off the block, and the VAE's full-size rows
+    for R, S, C, timed in ((64, 1024, 320, True), (64, 1024, 960, False), (64, 256, 1920, False),
+                           (64, 64, 2560, False), (5, 200, 1344, False), (32, 65536, 128, True)):
         x = randn(R, S, C, scale=2.0, shift=3.0)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
+        p = norms.plan(R, S, C, 32, size, sms)
+        path = f"one pass x{p.bundle}" if p.one_pass else f"split x{p.nsplit}"
 
-        def gn_library(x=x, gam=gam, bet=bet, eps=eps):
+        def gn_library(x=x, gam=gam, bet=bet):
             xc = x.transpose(1, 2).contiguous()  # [R, C, S], as F.group_norm reads it
-            return lambda: F.silu(F.group_norm(xc, 32, gam, bet, eps))
+            return lambda: F.silu(F.group_norm(xc, 32, gam, bet, 1e-6))
 
-        cases.append(_case(
-            "group_norm", f"R{R} S{S} C{C} silu",
-            lambda x=x, gam=gam, bet=bet, eps=eps:
-            norms.group_norm(x, gam, bet, 32, eps, act="silu"),
-            lambda x=x, gam=gam, bet=bet, eps=eps:
-            norms._reference(x, gam, bet, 32, eps, "silu"), timed,
-            library=gn_library, library_call="2 calls: group_norm + silu on [R, C, S]",
-            work=(*work.group_norm(R, S, C, size), "float32")))
+        def gn_launch(x=x, gam=gam, bet=bet, p=p):
+            y = torch.empty_like(x)  # the one-pass kernel alone; the split path is 3 launches
+            return lambda: norms._launch_one_pass(x, y, gam, bet, 32, 1e-6, "silu", p)
+
+        for act in ("silu", None):
+            cases.append(_case(
+                "group_norm", f"R{R} S{S} C{C} {act or 'no act'} [{path}]",
+                lambda x=x, gam=gam, bet=bet, act=act:
+                norms.group_norm(x, gam, bet, 32, 1e-6, act=act),
+                lambda x=x, gam=gam, bet=bet, act=act:
+                norms._reference(x, gam, bet, 32, 1e-6, act), timed and act == "silu",
+                launch=gn_launch if p.one_pass else None, library=gn_library, library_call="2 calls: group_norm + silu on [R, C, S]",
+                work=(*work.group_norm(R, S, C, size), "float32")))
     for T, C, Ks in ((65536, 320, (2560,)), (65536, 320, (320, 320, 320)), (16384, 640, (5120,)),
                      (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320))):
         x = randn(T, C)
@@ -282,11 +305,12 @@ def _cases(torch, dtype, g):
 
 
 def _grads(torch, fn, xs, dout):
-    """dq/dk/dv of fn through autograd, flattened into one f32 vector."""
+    """(dq, dk, dv) of fn through autograd: each is held against its own
+    plain version and its own limit (dk and dv sum over every query, so their
+    scale would hide a wrong dq)."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in xs]
-        return torch.cat([t.float().flatten()
-                          for t in torch.autograd.grad(fn(*leaves), leaves, dout)])
+        return torch.autograd.grad(fn(*leaves), leaves, dout)
 
 
 def _backward_only(torch, fn, xs, dout):
@@ -297,12 +321,25 @@ def _backward_only(torch, fn, xs, dout):
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
+def _random_geometry(torch, g, B, Lq, Lk):
+    """Epipolar geometry off any pixel grid: unit-normal lines through a 256 px
+    frame [B, Lq, 3], key pixels anywhere in it [2, Lk], band and alpha [B]."""
+    ang = torch.rand(B, Lq, generator=g, device="cuda") * (2 * math.pi)
+    off = torch.rand(B, Lq, generator=g, device="cuda") * 256
+    lines = torch.stack([torch.cos(ang), torch.sin(ang),
+                         -off * (torch.cos(ang) + torch.sin(ang))], -1).contiguous()
+    return (lines, torch.rand(2, Lk, generator=g, device="cuda") * 256,
+            torch.rand(B, generator=g, device="cuda") * 8 + 2,
+            torch.rand(B, generator=g, device="cuda") * 0.5 + 0.1)
+
+
 def _bwd_cases(torch, dtype, g):
     """K6 / K7 at the training shapes (256 px, 16 frames, 1 folded pair = 32
-    frame rows, no CFG): autograd through the kernels (forward kernel + the
-    backward kernel) against autograd of the plain version. The timed pair
-    is the backward alone: the K6/K7 wrapper from the saved forward, and
-    the plain version's backward from its recorded graph; the library
+    frame rows, no CFG) and at K6's edges: autograd through the kernels
+    (forward kernel + the backward kernel) against autograd of the plain
+    version. The timed entries are the backward alone: K6's device kernels on
+    prepared inputs and buffers, the K6/K7 wrapper from the saved forward,
+    and the plain version's backward from its recorded graph; the library
     yardstick is the backward alone of the scaled_dot_product_attention
     graph."""
     import torch.nn.functional as F
@@ -316,22 +353,35 @@ def _bwd_cases(torch, dtype, g):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    def case(name, label, fwd, plain, xs, dout, timed, kernel_timer, library, library_call, wk):
+    def case(name, label, fwd, plain, xs, dout, timed, kernel_timer, library, library_call, wk,
+             wrapper=None):
         return _case(name, label, lambda: _grads(torch, fwd, xs, dout),
                      lambda: _grads(torch, plain, xs, dout), timed, launch=kernel_timer,
                      plain_timer=lambda: _backward_only(torch, plain, xs, dout),
-                     library=library, library_call=library_call, work=wk)
+                     library=library, library_call=library_call, work=wk, wrapper=wrapper)
 
-    def epi_case(name, label, xs, dout, gm, rt, timed):
+    def epi_case(name, label, xs, dout, gm, rt, timed=False):
         def fwd(a, b, c):
             if gm is None:
                 return epi_flash.flash_attention(a, b, c, heads=8)
             return epi_flash.epi_flash_attention(a, b, c, *gm, heads=8, kv_index=rt)
 
+        saved = []  # the prepared inputs and the forward's out and lse, made once
+
+        def forward():
+            if not saved:
+                prep = epi_flash._prepare(*xs, gm, rt, 8)
+                saved.extend((prep, *epi_flash._launch(*prep, 8)))
+            return saved
+
         def kernel_timer():
-            prep = epi_flash._prepare(*xs, gm, rt, 8)
-            out, lse = epi_flash._launch(*prep, 8)
-            return lambda: getattr(epi_flash, name)(*prep, 8, out, lse, dout)
+            prep, out, lse = forward()
+            bufs = epi_flash._bwd_buffers(prep[0], prep[1], 8)
+            return lambda: epi_flash._launch_bwd_kernels(*prep, 8, out, lse, dout, *bufs)
+
+        def wrapper():
+            prep, out, lse = forward()
+            return getattr(epi_flash, name)(*prep, 8, out, lse, dout)
 
         def library():
             q, k, v = xs
@@ -340,14 +390,14 @@ def _bwd_cases(torch, dtype, g):
             return _backward_only(torch, lambda a, b, c: sdpa(a, b, c, attn_mask=mask), hs,
                                   _heads(dout, 8))
 
-        B, N, C = xs[0].shape
+        (B, Lq, C), Lk = xs[0].shape, xs[1].shape[1]
         return case(name, label, fwd, lambda a, b, c: epi_flash._plain(a, b, c, gm, rt, 8),
                     xs, dout, timed, kernel_timer, library,
                     "backward of scaled_dot_product_attention" + (
                         "" if gm is None else ", attn_mask = the bias; excludes the bias, the "
                         "k/v gather and the scatter of dk/dv"),
-                    (*work.attention_bwd(B, 8, N, N, C // 8, size, gm is not None,
-                                         rt is not None), "bfloat16"))
+                    (*work.attention_bwd(B, 8, Lq, Lk, C // 8, size, gm is not None,
+                                         rt is not None), "bfloat16"), wrapper)
 
     def temporal_case(label, xs, dout, mask, timed):
         def library():
@@ -378,13 +428,30 @@ def _bwd_cases(torch, dtype, g):
         causal = torch.triu(torch.full((16, 16), -math.inf, device=dev), 1)
         cases.append(temporal_case(f"B2 N{N} F16 C{C} h8", xt, dot, None, feat == 32))
         cases.append(temporal_case(f"B2 N{N} F16 C{C} h8 causal", xt, dot, causal, False))
+    # K6's edges. Res 8 is 64 tokens at head_dim 160 in bf16; the f32 kernels hold a
+    # padded head_dim up to 96 in shared memory, so f32 takes 64 tokens at head_dim 80
+    C8 = 1280 if dtype == torch.bfloat16 else 640
+    shared = (torch.arange(4, device=dev) // 2 * 2).to(torch.int32)  # rows 0, 0, 2, 2
+    for label, (B, Lq, Lk, C), bias, rt in (
+            (f"B4 N64 C{C8} h8 routed", (4, 64, 64, C8), True, "swap"),
+            (f"B4 N64 C{C8} h8", (4, 64, 64, C8), False, None),
+            ("B4 Lq200 Lk150 C320 h8 ragged, 2 rows to 1", (4, 200, 150, 320), True, shared),
+            ("B4 Lq200 Lk150 C320 h8 ragged", (4, 200, 150, 320), False, None),
+            ("B4 N256 C320 h8, 2 rows to 1", (4, 256, 256, 320), True, shared)):
+        xs, do = (randn(B, Lq, C), randn(B, Lk, C), randn(B, Lk, C)), randn(B, Lq, C)
+        if isinstance(rt, str):
+            rt = torch.tensor([2, 3, 0, 1], device=dev, dtype=torch.int32)
+        geom = _random_geometry(torch, g, B, Lq, Lk) if bias else None
+        cases.append(epi_case("epi_flash_attention_bwd" if bias else "flash_attention_bwd",
+                              label, xs, do, geom, rt))
     return cases
 
 
 def _time_case(torch, case):
     """The timings of one bf16 case, taken in turns inside this one call:
     plain, kernel, kernel, library, then the whole wrapper where the kernel
-    was timed alone. -> the record's entries."""
+    was timed alone (``wrapper``, or the public function of a forward case).
+    -> the record's entries."""
     from cvd_tpu_torch.ops import work
 
     launch = case.get("launch")
@@ -395,9 +462,11 @@ def _time_case(torch, case):
         p_ms = _time_ms(torch, p_fn)
         k_ms = [_time_ms(torch, k_fn), _time_ms(torch, k_fn)]
         l_ms = _time_ms(torch, l_fn)
-        # backward cases time their wrapper already (``launch`` is its timer)
-        alone = launch is not None and not case.get("plain_timer")
-        w_ms = _time_ms(torch, case.get("wrapper", case["kernel"])) if alone else sum(k_ms) / 2
+        # a backward case's ``kernel`` is autograd through forward and backward: its
+        # wrapper is timed only where the case names it (K7's ``launch`` is its wrapper)
+        w_fn = case.get("wrapper") or (
+            case["kernel"] if launch and not case.get("plain_timer") else None)
+        w_ms = _time_ms(torch, w_fn) if w_fn else sum(k_ms) / 2
     flops, moved, arith = case["work"]
     bound, by = work.bound_ms(flops, moved, arith)
     return dict(ms=sum(k_ms) / 2, ms_runs=k_ms, plain_ms=p_ms, library_ms=l_ms,
@@ -408,22 +477,30 @@ def _time_case(torch, case):
 def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {name: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0} for name in KERNELS}
+    report = {name: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "err_over_limit": 0.0,
+                     "err_over_limit_f32": 0.0} for name in KERNELS}
     failures = []
-    for dtype, tol, key in ((torch.float32, TOL_F32, "max_abs_err_f32"),
-                            (torch.bfloat16, TOL_BF16, "max_abs_err")):
+    for dtype, tol, key in ((torch.float32, TOL_F32, "_f32"), (torch.bfloat16, TOL_BF16, "")):
         g = torch.Generator(device="cuda").manual_seed(0)
         for case in _cases(torch, dtype, g):
             name, label = case["name"], case["label"]
             with torch.no_grad():
-                got, want = case["kernel"]().float(), case["plain"]().float()
+                got, want = case["kernel"](), case["plain"]()
                 torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                ref = max(1.0, float(want.abs().max()))
-            ok = math.isfinite(err) and err <= tol * ref
-            report[name][key] = max(report[name][key], err)
-            line = (f"[kernel] {name:28s} {str(dtype)[6:]:8s} {label:30s} "
-                    f"max_abs_err {err:.3e} (limit {tol * ref:.3e})")
+                if not isinstance(got, tuple):  # a backward case gives (dq, dk, dv)
+                    got, want = (got,), (want,)
+                errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+                limits = [tol * max(1.0, float(b.float().abs().max())) for b in want]
+            ok = len(got) == len(want) and all(
+                a.shape == b.shape and math.isfinite(e) and e <= lim
+                for a, b, e, lim in zip(got, want, errs, limits))
+            report[name]["max_abs_err" + key] = max(report[name]["max_abs_err" + key], *errs)
+            report[name]["err_over_limit" + key] = max(
+                report[name]["err_over_limit" + key], *(e / lim for e, lim in zip(errs, limits)))
+            line = (f"[kernel] {name:28s} {str(dtype)[6:]:8s} {label:42s} "
+                    f"{'dq/dk/dv ' if len(errs) == 3 else ''}max_abs_err "
+                    f"{' '.join(f'{e:.3e}' for e in errs)} "
+                    f"(limit {' '.join(f'{lim:.3e}' for lim in limits)})")
             if case["timed"] and dtype == torch.bfloat16:
                 t = _time_case(torch, case)
                 if "ms" not in report[name]:  # the record keeps the first timed shape
@@ -744,6 +821,12 @@ def _report_profile(prof, wall, steps, what, path):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         log(f"[profile] {e.self_device_time_total / 1e3 / steps:9.2f} ms  "
             f"x{e.count / steps:<7.1f} {e.key[:90]}")
+    # the port's own kernels, summed over their instantiations
+    for family in PORT_KERNELS:
+        own = [e for e in kernels if family in e.key]
+        if own:
+            log(f"[profile] {sum(e.self_device_time_total for e in own) / 1e3 / steps:9.2f} ms  "
+                f"x{sum(e.count for e in own) / steps:<7.1f} every {family}*")
 
 
 def _profile_sampler(torch):
@@ -816,7 +899,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     t_all = time.perf_counter()
     smi = phase_device(torch)
-    phase_build(torch)
+    t_nvcc, t_build = phase_build(torch)
     report = phase_kernels(torch)
     phase_reference(torch)
     phase_train_reference(torch)
@@ -835,12 +918,15 @@ def main() -> int:
                         "launches_per_unet_step": sampler[name] / unet_steps,
                         "launches_per_train_step": launches[name] / train_steps,
                         "max_abs_err": r["max_abs_err"],
-                        "max_abs_err_f32": r["max_abs_err_f32"], "ms": r["ms"],
+                        "max_abs_err_f32": r["max_abs_err_f32"],
+                        "err_over_limit": r["err_over_limit"],
+                        "err_over_limit_f32": r["err_over_limit_f32"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "library_call": r["library_call"], "wrapper_ms": r["wrapper_ms"],
                         "timed_shape": r["timed_shape"]})
-    log(f"[total] {time.perf_counter() - t_all:.1f} s")
+    log(f"[total] {time.perf_counter() - t_all:.1f} s (building the kernels {t_build:.1f} s, "
+        f"nvcc {t_nvcc:.1f} s of it)")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

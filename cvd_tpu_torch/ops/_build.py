@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ctypes. The build runs
 at first use, from the sources in the checkout only, into
 ``<repo>/build/kernels/<name>-<hash>/`` (git-ignored), keyed on a hash of
-the source and the flags, so an edited kernel is rebuilt and an unchanged
-one is loaded as it is. Nothing here runs at import time.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel is rebuilt and an unchanged one is loaded as it is. Nothing here runs
+at import time.
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 

@@ -32,18 +32,26 @@ _SIGNATURE = {"epi_flash_fwd": [
     _build.P, _build.L, _build.L, _build.P,
     _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
 ]}
-_BWD_SIGNATURE = {"epi_flash_bwd": [
-    _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
-    _build.L, _build.L, _build.L, _build.L, _build.L, _build.L, _build.L, _build.L,
-    _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.P, _build.P, _build.P,
-    _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
-]}
+_BWD_SIGNATURE = {
+    "epi_flash_bwd": [
+        _build.I, _build.I, _build.P, _build.P, _build.P, _build.P,
+        _build.L, _build.L, _build.L, _build.L, _build.L, _build.L, _build.L, _build.L,
+        _build.P, _build.P, _build.P, _build.P, _build.P, _build.P, _build.P,
+        _build.P, _build.P, _build.P,
+        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.F, _build.P,
+    ],
+    "epi_flash_bwd_delta": [
+        _build.I, _build.P, _build.P, _build.L, _build.L, _build.L, _build.L, _build.P,
+        _build.I, _build.I, _build.I, _build.I, _build.P,
+    ],
+}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# widest padded head_dim the backward's shared memory holds, per dtype
-_BWD_MAX_DP = {torch.float32: 96, torch.bfloat16: 160}
-# head_dims the bf16 forward kernel is instantiated for (SD1.5: 40, 80, 160)
+# widest head_dim, padded to a multiple of 16, whose f32 backward tiles
+# (S, dP and the dK / dV sums in f32) fit the 227 KB of shared memory
+_BWD_MAX_DP = {torch.float32: 96}
+# head_dims the bf16 kernels are instantiated for (SD1.5: 40, 80, 160)
 _FWD_BF16_HEAD_DIMS = (8, 16, 32, 40, 48, 64, 80, 96, 128, 160)
+_BWD_BF16_HEAD_DIMS = _FWD_BF16_HEAD_DIMS
 
 
 def bias_from_geometry(norm_lines: torch.Tensor, coords: torch.Tensor,
@@ -134,42 +142,58 @@ def _launch(q, k, v, geom, kv_index, heads) -> Tuple[torch.Tensor, torch.Tensor]
     return out, lse
 
 
-def _launch_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
-    """K6 on prepared inputs -> (dq, dk, dv) in the input dtype, dk/dv
-    scatter-added back to the source rows of k/v."""
+def _check_bwd(dtype: torch.dtype, D: int) -> None:
+    """Raise on a head_dim the backward kernels are not built for."""
+    if dtype == torch.bfloat16:
+        if D not in _BWD_BF16_HEAD_DIMS:
+            raise ValueError(f"head_dim {D}: the bf16 backward kernel takes one of "
+                             f"{_BWD_BF16_HEAD_DIMS}")
+    elif (D + 15) // 16 * 16 > _BWD_MAX_DP[dtype]:
+        raise ValueError(f"head_dim {D}: the {dtype} backward kernel holds its tiles in "
+                         f"shared memory up to a padded head_dim of {_BWD_MAX_DP[dtype]}")
+
+
+def _bwd_buffers(q, k, heads):
+    """-> (delta [B, H, Lq] f32, dq, dk, dv), uninitialised, as K6 writes them:
+    in the input type, dk/dv per SOURCE row of k/v."""
+    B, Lq, C = q.shape
+    delta = torch.empty((B, heads, Lq), device=q.device, dtype=torch.float32)
+    dq = torch.empty((B, Lq, C), device=q.device, dtype=q.dtype)
+    dk = torch.empty((k.shape[0], k.shape[1], C), device=q.device, dtype=q.dtype)
+    return delta, dq, dk, torch.empty_like(dk)
+
+
+def _launch_bwd_kernels(q, k, v, geom, kv_index, heads, out, lse, g, delta, dq, dk, dv):
+    """The device kernels of K6 on prepared inputs and buffers: delta =
+    rowsum(dO * O) per head (epi_flash.py:296-301), then dkdv and dq."""
     B, Lq, C = q.shape
     Lk = k.shape[1]
     D = C // heads
-    if (D + 15) // 16 * 16 > _BWD_MAX_DP[q.dtype]:
-        raise ValueError(f"head_dim {D}: the {q.dtype} backward kernel takes up to "
-                         f"{_BWD_MAX_DP[q.dtype]}")
-    g = _check_rows(g.to(q.dtype), "grad")
-    # delta[b, h, n] = rowsum(dO * O) per head (epi_flash.py:296-301)
-    delta = torch.einsum("bnhd,bnhd->bhn", g.float().reshape(B, Lq, heads, D),
-                         out.float().reshape(B, Lq, heads, D)).contiguous()
-    dq = torch.empty((B, Lq, C), device=q.device, dtype=torch.float32)
-    dk = torch.empty((B, Lk, C), device=q.device, dtype=torch.float32)
-    dv = torch.empty((B, Lk, C), device=q.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _build.library("epi_flash_bwd", _BWD_SIGNATURE)
+    err = lib.epi_flash_bwd_delta(
+        _DTYPES[q.dtype], g.data_ptr(), out.data_ptr(), g.stride(0), g.stride(1),
+        out.stride(0), out.stride(1), delta.data_ptr(), B, heads, Lq, D, stream)
+    _build.check(err, "epi_flash_bwd_delta")
     err = lib.epi_flash_bwd(
         _DTYPES[q.dtype], int(geom is not None), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         g.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), g.stride(0), g.stride(1),
         None if kv_index is None else kv_index.data_ptr(), *_geom_ptrs(geom),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, heads, Lq, Lk, D, 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+        B, k.shape[0], heads, Lq, Lk, D, 1.0 / math.sqrt(D), stream)
     _build.check(err, "epi_flash_bwd")
-    if kv_index is not None:
-        # dk/dv come out per QUERY row; add them into the source rows
-        # (epi_flash.py:356-367). A row may be routed to more than once.
-        idx = kv_index.long()
-        dk = torch.zeros((k.shape[0], Lk, C), device=q.device,
-                         dtype=torch.float32).index_add_(0, idx, dk)
-        dv = torch.zeros((v.shape[0], Lk, C), device=q.device,
-                         dtype=torch.float32).index_add_(0, idx, dv)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
+    """K6 on prepared inputs -> (dq, dk, dv) in the input dtype, dk/dv of the
+    source rows of k/v (a row may be routed to more than once, or never)."""
+    _check_bwd(q.dtype, q.shape[2] // heads)
+    g = _check_rows(g.to(q.dtype), "grad")
+    out = _check_rows(out, "out")
+    delta, dq, dk, dv = _bwd_buffers(q, k, heads)
+    _launch_bwd_kernels(q, k, v, geom, kv_index, heads, out, lse, g, delta, dq, dk, dv)
+    return dq, dk, dv
 
 
 class _FlashFn(torch.autograd.Function):

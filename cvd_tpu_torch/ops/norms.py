@@ -9,28 +9,39 @@ has no GroupNorm backward kernel either.
 
 Kernel K4 replaces cvd_tpu/ops/norms.py:_gn_kernel (the Pallas TPU kernel
 behind group_norm). What bounds it on the H100 is memory bandwidth: ~10
-flops per element against one read for the statistics and one read and
-write for the normalization. A TPU block holds a whole [S, C] row in VMEM;
-here a VAE row (S*C ~ 8.4 M elements) is far larger than a Triton block,
-so the reduction is split across blocks:
+flops per element against, at best, one read and one write of x. A TPU
+block holds a whole [S, C] row in VMEM and reads x once; here the unit that
+fits a block is the slab of one (row, group), [S, C/G], and two paths
+follow, chosen by ``plan`` from the shape alone:
 
-  1. ``_gn_partial``: grid (row x group, split); each program sums one
-     slice of the group's [S, C/G] elements into a scratch buffer;
-  2. ``_gn_finalize``: grid (row x group); merges the partial sums into
-     mean and 1/std per (row, group);
-  3. ``_gn_apply``: grid (row, pixel tile); normalizes, applies the affine
-     and the SiLU, and stores in the input type.
+  * one pass, for slabs that fit a block (every GroupNorm of the SD1.5 UNet
+    at 256 px: 20 to 60 KB in bf16). ``_gn_one_pass``: one launch, grid
+    (row x bundle of neighbouring groups). A program loads its
+    [S, bundle x C/G] slab once and holds it in registers (up to 32 K
+    elements over 16 warps), takes the sums per group, normalizes, applies
+    the affine and the SiLU from the values it holds and stores in the
+    input type: x is read once and written once. Groups are bundled while
+    a pixel's contiguous piece is under 128 bytes, the slab still fits and
+    the grid still has a program for every SM; programs of neighbouring
+    bundles run side by side, so the sectors they share are fetched from
+    device memory once.
+  * split, for rows no block can hold (the VAE: S x C ~ 8.4 M elements a
+    row), three launches and two reads of x: ``_gn_partial``, grid (row x
+    group, split), sums one slice of the group's elements into a scratch
+    buffer; ``_gn_finalize``, grid (row x group), merges the partial sums
+    into mean and 1/std; ``_gn_apply``, grid (row, pixel tile), normalizes,
+    applies the affine and the SiLU.
 
 Statistics stay in f32. For a steadier variance than E[x^2] - E[x]^2 (the
-TPU kernel's form, norms.py:64-66) the partial sums are taken of
-x - x0, with x0 the group's first element, which removes the cancellation
-when |mean| is large against the spread. ``triton`` is imported inside the
-launcher: a machine without it can import this module.
+TPU kernel's form, norms.py:64-66) the sums are taken of x - x0, with x0
+the group's first element, which removes the cancellation when |mean| is
+large against the spread. ``triton`` is imported inside the launcher: a
+machine without it can import this module, and ``plan`` is plain arithmetic.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -125,39 +136,140 @@ def _kernels():
             y = y * tl.sigmoid(y)
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=m)
 
-    return triton, _gn_partial, _gn_finalize, _gn_apply
+    @triton.jit
+    def _gn_one_pass(x_ptr, y_ptr, gamma_ptr, beta_ptr, S, C, cg, G, inv_n, eps,
+                     BUNDLE: tl.constexpr, SILU: tl.constexpr,
+                     BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+        pid = tl.program_id(0)
+        bundles = G // BUNDLE
+        r = pid // bundles
+        c0 = (pid % bundles) * BUNDLE * cg
+        offs_s = tl.arange(0, BLOCK_S)
+        offs_c = tl.arange(0, BLOCK_C)
+        cmask = offs_c < BUNDLE * cg
+        grp = offs_c // cg  # the column's group within the bundle
+        base = r.to(tl.int64) * S * C + c0
+        m = (offs_s[:, None] < S) & cmask[None, :]
+        offs = offs_s[:, None] * C + offs_c[None, :]
+        xv = tl.load(x_ptr + base + offs, mask=m, other=0.0).to(tl.float32)
+        shift = tl.load(x_ptr + base + grp * cg, mask=cmask, other=0.0).to(tl.float32)
+        d = tl.where(m, xv - shift[None, :], 0.0)
+        col1 = tl.sum(d, axis=0)
+        col2 = tl.sum(d * d, axis=0)
+        mean_d = tl.zeros([BLOCK_C], tl.float32)
+        rstd = tl.zeros([BLOCK_C], tl.float32)
+        for gi in tl.static_range(BUNDLE):
+            gm = cmask & (grp == gi)
+            m1 = tl.sum(tl.where(gm, col1, 0.0), axis=0) * inv_n
+            var = tl.maximum(tl.sum(tl.where(gm, col2, 0.0), axis=0) * inv_n - m1 * m1, 0.0)
+            mean_d = tl.where(gm, m1, mean_d)
+            rstd = tl.where(gm, 1.0 / tl.sqrt(var + eps), rstd)
+        gamma = tl.load(gamma_ptr + c0 + offs_c, mask=cmask, other=0.0).to(tl.float32)
+        beta = tl.load(beta_ptr + c0 + offs_c, mask=cmask, other=0.0).to(tl.float32)
+        y = (d - mean_d[None, :]) * (gamma * rstd)[None, :] + beta[None, :]
+        if SILU:
+            y = y * tl.sigmoid(y)
+        tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=m)
+
+    return _gn_partial, _gn_finalize, _gn_apply, _gn_one_pass
 
 
 def _next_pow2(n: int, floor: int = 2) -> int:
     return max(floor, 1 << max(n - 1, 0).bit_length())
 
 
+# the most elements (padded to powers of two) a one-pass block holds in
+# registers: 64 f32 values a thread over 16 warps
+ONE_PASS_MAX_BLOCK = 32768
+# a pixel's contiguous piece of a bundle is grown towards this many bytes (a
+# cache line)
+PIECE_BYTES = 128
+
+
+class Plan(NamedTuple):
+    """How K4 runs a shape. ``one_pass``: grid R * groups / bundle, a block of
+    [block_s, block_c] over ``num_warps`` warps holds the slab. Split path:
+    ``_gn_partial`` over [block_s, block_c] tiles of a group's channels,
+    ``nsplit`` programs of ``s_per_split`` pixels a (row, group); ``_gn_apply``
+    over [apply_block_s, apply_block_c] tiles of whole rows of pixels."""
+    one_pass: bool
+    bundle: int
+    block_s: int
+    block_c: int
+    num_warps: int = 0
+    nsplit: int = 0
+    s_per_split: int = 0
+    apply_block_s: int = 0
+    apply_block_c: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(R: int, S: int, C: int, groups: int, itemsize: int, sm_count: int) -> Plan:
+    """The path and block sizes of K4 for x [R, S, C] in ``groups`` groups,
+    from the shape alone (``itemsize`` bytes an element, ``sm_count`` SMs)."""
+    cg = C // groups
+    block_s = _next_pow2(S)
+
+    def fits(bundle):
+        return block_s * _next_pow2(bundle * cg) <= ONE_PASS_MAX_BLOCK
+
+    if fits(1):
+        bundle = 1
+        while (bundle * cg * itemsize < PIECE_BYTES and groups % (2 * bundle) == 0
+               and fits(2 * bundle) and R * groups // (2 * bundle) >= sm_count):
+            bundle *= 2
+        block_c = _next_pow2(bundle * cg)
+        # 64 values a thread; small slabs take fewer warps
+        return Plan(True, bundle, block_s, block_c, max(1, min(16, block_s * block_c // 2048)))
+    block_cg = _next_pow2(cg)
+    block_s = max(16, 4096 // block_cg)
+    # enough programs to fill the card: about 8 per SM in the stats pass
+    nsplit = max(1, min(_cdiv(S, block_s), (8 * sm_count) // (R * groups) or 1))
+    s_per_split = _cdiv(_cdiv(S, nsplit), block_s) * block_s
+    block_c = _next_pow2(C)
+    return Plan(False, 1, block_s, block_cg, 0, _cdiv(S, s_per_split), s_per_split,
+                max(1, 8192 // block_c), block_c)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_one_pass(x3, y, gamma, beta, groups, eps, act, p: Plan):
+    """The one-pass kernel on contiguous inputs -> Triton's compiled kernel."""
+    R, S, C = x3.shape
+    cg = C // groups
+    *_, one_pass = _kernels()
+    return one_pass[(R * groups // p.bundle,)](
+        x3, y, gamma, beta, S, C, cg, groups, 1.0 / (S * cg), eps, BUNDLE=p.bundle,
+        SILU=act == "silu", BLOCK_S=p.block_s, BLOCK_C=p.block_c, num_warps=p.num_warps)
+
+
 def _launch(x3, gamma, beta, groups, eps, act):
-    triton, partial, finalize, apply = _kernels()
+    partial, finalize, apply, _ = _kernels()
     R, S, C = x3.shape
     cg = C // groups
     x3 = x3.contiguous()
     gamma = gamma.contiguous()
     beta = beta.contiguous()
-    block_cg = _next_pow2(cg)
-    block_s = max(16, 4096 // block_cg)
-    # enough programs to fill the card: about 8 per SM in the stats pass
-    sms = torch.cuda.get_device_properties(x3.device).multi_processor_count
-    nsplit = max(1, min(triton.cdiv(S, block_s), (8 * sms) // (R * groups) or 1))
-    s_per_split = triton.cdiv(triton.cdiv(S, nsplit), block_s) * block_s
-    nsplit = triton.cdiv(S, s_per_split)
-    part = torch.empty((R * groups, nsplit, 2), device=x3.device, dtype=torch.float32)
-    stats = torch.empty((R * groups, 2), device=x3.device, dtype=torch.float32)
+    p = plan(R, S, C, groups, x3.element_size(), _sm_count(x3.device))
     y = torch.empty_like(x3)
-    partial[(R * groups, nsplit)](x3, part, S, C, cg, groups, nsplit, s_per_split,
-                                  BLOCK_S=block_s, BLOCK_CG=block_cg, num_warps=4)
-    finalize[(R * groups,)](x3, part, stats, S, C, cg, groups, nsplit, 1.0 / (S * cg), eps,
-                            BLOCK_SPLIT=_next_pow2(nsplit), num_warps=1)
-    block_c = _next_pow2(C)
-    block_s2 = max(1, 8192 // block_c)
-    apply[(R, triton.cdiv(S, block_s2))](x3, y, stats, gamma, beta, S, C, cg, groups,
-                                         SILU=act == "silu", BLOCK_S=block_s2,
-                                         BLOCK_C=block_c, num_warps=8)
+    if p.one_pass:
+        _launch_one_pass(x3, y, gamma, beta, groups, eps, act, p)
+        return y
+    part = torch.empty((R * groups, p.nsplit, 2), device=x3.device, dtype=torch.float32)
+    stats = torch.empty((R * groups, 2), device=x3.device, dtype=torch.float32)
+    partial[(R * groups, p.nsplit)](x3, part, S, C, cg, groups, p.nsplit, p.s_per_split,
+                                    BLOCK_S=p.block_s, BLOCK_CG=p.block_c, num_warps=4)
+    finalize[(R * groups,)](x3, part, stats, S, C, cg, groups, p.nsplit, 1.0 / (S * cg), eps,
+                            BLOCK_SPLIT=_next_pow2(p.nsplit), num_warps=1)
+    apply[(R, _cdiv(S, p.apply_block_s))](x3, y, stats, gamma, beta, S, C, cg, groups,
+                                          SILU=act == "silu", BLOCK_S=p.apply_block_s,
+                                          BLOCK_C=p.apply_block_c, num_warps=8)
     return y
 
 

@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
 """Short check of the redesigned bf16 kernels (K1/K2 ``epi_flash_fwd``, K5
-``ln_matmul_fwd``) on one NVIDIA GPU: the first thing to run after editing
-either source, before the longer ``chip_smoke.py``.
+``ln_matmul_fwd``, K6 ``epi_flash_bwd``, K4 ``group_norm``) on one NVIDIA
+GPU: the first thing to run after editing a source, before the longer
+``chip_smoke.py``.
 
-    python3 scripts/kernel_check.py [epi_flash_fwd] [ln_matmul_fwd] [--phases]
+    python3 scripts/kernel_check.py [epi_flash_fwd] [ln_matmul_fwd]
+        [epi_flash_bwd] [group_norm] [--phases] [--root DIR]
 
-For each named source (default: both) it
-1. compiles it with ``-Xptxas -v`` and prints, per bf16 kernel, registers
-   and spills, and any ptxas remark (C7517 / C7518 say that wgmma was
-   serialized); the full output goes to ``chiprun_out/ptxas_<name>.txt``;
+For each named kernel (default: all) it
+1. compiles a CUDA source with ``-Xptxas -v`` and prints, per bf16 kernel,
+   registers and spills, and any ptxas remark (C7514 / C7517 / C7518 say
+   that wgmma was serialized); the full output goes to
+   ``chiprun_out/ptxas_<name>.txt``. For K4 (Triton) it prints the registers
+   and spills that Triton reports for the one-pass kernel;
 2. holds the kernel against its plain version at the edges (64 tokens,
-   head_dim 8 to 160, ragged lengths, strided q/k/v views, C 32 to 1280) with
-   the limit of ``chip_smoke.py`` (2e-2 x max(1, max|plain|)), and K1/K2's
-   lse against f32 logits;
-3. times it (CUDA events, after warm-up, twice) at the sampler's shapes
+   head_dim 8 to 160, ragged lengths, strided q/k/v views, a row routed to
+   twice and a row never routed to, C 32 to 1280; for K4 every slab of the
+   SD1.5 UNet, C/G not a power of two, S off the block) with the limit of
+   ``chip_smoke.py`` (2e-2 x max(1, max|plain|)), and K1/K2's lse against
+   f32 logits;
+3. times it (CUDA events, after warm-up, twice) at the main paths' shapes
    beside one PyTorch library call for the same function.
 ``--phases`` also builds K5 with ``-DLNMM_PROF`` and prints the clock cycles a
 block spends per phase (panel copy, standardization, product loop; inside
 the loop: epilogue, waits for copies, waits for wgmma), as warpgroup 0's
-thread 0 sees them. Exits non-zero if anything disagrees.
+thread 0 sees them. ``--root DIR`` only times K6's and K4's wrappers, at the
+same shapes, as another checkout of the repository has them (the parent
+commit unpacked into a git-ignored directory), so that two versions are
+compared inside one call on one card. Exits non-zero if anything disagrees.
 """
 from __future__ import annotations
 
@@ -32,7 +41,10 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+from chip_smoke import _random_geometry  # noqa: E402  (imports no torch itself)
+
 TOL = 2e-2
+CUDA_SOURCES = ("epi_flash_fwd", "ln_matmul_fwd", "epi_flash_bwd")
 
 
 def _time_ms(torch, fn, iters=20):
@@ -71,7 +83,8 @@ def ptxas_report(_build, names):
                 print("  " + line[:160])
             if "Compiling entry function" in line and "bf16" in line:
                 # the mangled name holds the template arguments: ...kernelILb1ELi5EE...
-                name = re.search(r"((?:epi_flash_fwd|ln_matmul)_bf16_kernelI(?:L[bi]\d+E)+)", line)
+                name = re.search(r"((?:epi_flash_fwd|epi_flash_bwd_dq|epi_flash_bwd_dkdv|ln_matmul)"
+                                 r"_bf16_kernelI(?:L[bi]\d+E)+)", line)
                 print("  " + (name.group(1) if name else line), "|", lines[i + 2].strip(), "|",
                       lines[i + 3].strip())
 
@@ -209,26 +222,204 @@ def check_ln_matmul(torch, g, _build, phases):
     return bad
 
 
+def _routes(torch, B, kind):
+    """kv_index of B query rows: None, the sampler's swap of the two halves,
+    or pairs of rows sharing one source row (odd source rows get no query)."""
+    if kind == "swap":
+        idx = torch.cat([torch.arange(B // 2, B), torch.arange(0, B // 2)])
+    elif kind == "shared":
+        idx = torch.arange(B) // 2 * 2
+    else:
+        return None
+    return idx.to("cuda", torch.int32)
+
+
+def _bwd_inputs(torch, g, B, Lq, Lk, C, h, bias, route, strided, dtype=None):
+    from cvd_tpu_torch.ops import epi_flash
+
+    def randn(*s):
+        return torch.randn(*s, generator=g, device="cuda").to(dtype or torch.bfloat16)
+
+    if strided:
+        q, k, v = randn(B, Lq, 3 * C).split(C, -1)
+    else:
+        q, k, v = randn(B, Lq, C), randn(B, Lk, C), randn(B, Lk, C)
+    geom = _random_geometry(torch, g, B, Lq, Lk) if bias else None
+    prep = epi_flash._prepare(q, k, v, geom, _routes(torch, B, route), h)
+    out, lse = epi_flash._launch(*prep, h)
+    return prep, out, lse, randn(B, Lq, C)
+
+
+K6_TIMED = [(32, 1024, 320), (32, 256, 640), (32, 64, 1280)]  # (B, N, C): res 32, 16, 8
+# (R, S, C): the UNet at res 32 and 16, the VAE, and few rows (one clip of 2 frames)
+K4_TIMED = [(64, 1024, 320), (64, 256, 1920), (32, 65536, 128), (2, 1024, 320)]
+
+
+def time_wrappers(torch, g):
+    """K6's and K4's whole wrappers at the training / sampling shapes."""
+    from cvd_tpu_torch.ops import epi_flash, norms
+
+    for B, N, C in K6_TIMED:
+        for bias in (True, False):
+            prep, out, lse, do = _bwd_inputs(torch, g, B, N, N, C, 8, bias,
+                                             "swap" if bias else None, False)
+            ms = [_time_ms(torch, lambda: epi_flash._launch_bwd(*prep, 8, out, lse, do))
+                  for _ in range(2)]
+            print(f"time K6 wrapper B{B} N{N} C{C} h8 bias={bias}: {ms[0]:.3f} {ms[1]:.3f} ms")
+    for R, S, C in K4_TIMED:
+        x = (torch.randn(R, S, C, generator=g, device="cuda") * 2 + 3).to(torch.bfloat16)
+        gam = torch.ones(C, device="cuda", dtype=torch.bfloat16)
+        bet = torch.zeros(C, device="cuda", dtype=torch.bfloat16)
+        ms = [_time_ms(torch, lambda: norms.group_norm(x, gam, bet, 32, 1e-6, act="silu"))
+              for _ in range(2)]
+        print(f"time K4 wrapper R{R} S{S} C{C} silu: {ms[0]:.3f} {ms[1]:.3f} ms")
+
+
+def check_epi_flash_bwd(torch, g):
+    import torch.nn.functional as F
+
+    from cvd_tpu_torch.ops import epi_flash
+
+    bad = 0
+    # (B, Lq, Lk, C, heads, bias, routing, q/k/v as views of one fused projection)
+    for B, Lq, Lk, C, h, bias, route, strided, *dtype in [
+            (8, 1024, 1024, 320, 8, True, "swap", True), (8, 1024, 1024, 320, 8, False, None, True),
+            (4, 256, 256, 640, 8, True, "swap", True), (4, 256, 256, 640, 8, False, None, False),
+            (4, 64, 64, 1280, 8, True, "swap", False), (4, 64, 64, 1280, 8, False, None, True),
+            (4, 200, 150, 320, 8, True, "shared", False), (4, 200, 150, 320, 8, False, None, False),
+            (6, 256, 256, 320, 8, True, "shared", True), (2, 256, 256, 64, 4, False, None, False),
+            (2, 256, 256, 32, 4, True, None, False), (2, 130, 130, 384, 8, False, "swap", False),
+            (2, 130, 70, 768, 8, True, "shared", False), (2, 64, 300, 1024, 8, False, None, False),
+            # the f32 kernels (TF32 off in the plain version), limit 1e-4
+            (4, 256, 256, 640, 8, True, "swap", True, torch.float32),
+            (2, 130, 70, 320, 8, False, None, False, torch.float32),
+            (4, 200, 150, 320, 8, True, "shared", False, torch.float32)]:
+        prep, out, lse, do = _bwd_inputs(torch, g, B, Lq, Lk, C, h, bias, route, strided, *dtype)
+        got = epi_flash._launch_bwd(*prep, h, out, lse, do)
+        torch.cuda.synchronize()
+        q, k, v, geom, idx = prep
+        want = epi_flash._plain_bwd(q.float(), k.float(), v.float(), geom, idx, h, do.float())
+        tol = 1e-4 if dtype else TOL
+        errs, ok = [], True
+        for gi, wi in zip(got, want):
+            err = float((gi.float() - wi).abs().max())
+            errs.append(err)
+            ok = ok and gi.dtype == q.dtype and gi.shape == wi.shape and math.isfinite(err) \
+                and err <= tol * max(1.0, float(wi.abs().max()))
+        bad += not ok
+        print(f"K6 {str(q.dtype)[6:]} B{B} Lq{Lq} Lk{Lk} C{C} h{h} bias={bias} route={route} "
+              f"strided={strided}: "
+              f"dq/dk/dv err {errs[0]:.3e} {errs[1]:.3e} {errs[2]:.3e} {'ok' if ok else 'FAILED'}")
+    again = epi_flash._launch_bwd(*prep, h, out, lse, do)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    bad += not same
+    print(f"K6 twice on the same inputs, bit-identical: {same}")
+    for B, N, C in K6_TIMED:
+        for bias in (True, False):
+            prep, out, lse, do = _bwd_inputs(torch, g, B, N, N, C, 8, bias,
+                                             "swap" if bias else None, False)
+            q, k, v, geom, idx = prep
+            bufs = epi_flash._bwd_buffers(q, k, 8)
+            heads = [t.reshape(B, N, 8, C // 8).transpose(1, 2).detach().requires_grad_()
+                     for t in (q, k if idx is None else k[idx.long()],
+                               v if idx is None else v[idx.long()])]
+            mask = None if geom is None else \
+                epi_flash.bias_from_geometry(*geom)[:, None].to(q.dtype)
+            sdpa_out = F.scaled_dot_product_attention(*heads, attn_mask=mask)
+            dh = do.reshape(B, N, 8, C // 8).transpose(1, 2)
+            for _ in range(2):
+                t_k = _time_ms(torch, lambda: epi_flash._launch_bwd_kernels(
+                    *prep, 8, out, lse, do, *bufs))
+                t_w = _time_ms(torch, lambda: epi_flash._launch_bwd(*prep, 8, out, lse, do))
+                t_l = _time_ms(torch, lambda: torch.autograd.grad(sdpa_out, heads, dh,
+                                                                  retain_graph=True))
+                print(f"time K6 B{B} N{N} C{C} h8 bias={bias}: kernels {t_k:.3f} ms  wrapper "
+                      f"{t_w:.3f} ms  backward of scaled_dot_product_attention {t_l:.3f} ms")
+    return bad
+
+
+def check_group_norm(torch, g):
+    import torch.nn.functional as F
+
+    from cvd_tpu_torch.ops import norms
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bad = 0
+    shapes = [(64, 1024, 320), (64, 1024, 640), (64, 1024, 960), (64, 256, 640), (64, 256, 1280),
+              (64, 256, 1920), (64, 64, 1280), (64, 64, 2560), (64, 16, 1280), (64, 16, 2560),
+              (3, 1000, 96), (5, 200, 1344), (2, 64, 64), (8, 16384, 256), (32, 65536, 128)]
+    for R, S, C in shapes:
+        for dtype, act in ((torch.bfloat16, "silu"), (torch.bfloat16, None),
+                           (torch.float32, "silu")):
+            x = (torch.randn(R, S, C, generator=g, device="cuda") * 2 + 3).to(dtype)
+            gam = (torch.randn(C, generator=g, device="cuda") * 0.5 + 1).to(dtype)
+            bet = (torch.randn(C, generator=g, device="cuda") * 0.1).to(dtype)
+            got = norms.group_norm(x, gam, bet, 32, 1e-6, act=act)
+            torch.cuda.synchronize()
+            want = norms._reference(x.float(), gam.float(), bet.float(), 32, 1e-6, act)
+            err = float((got.float() - want).abs().max())
+            limit = (TOL if dtype == torch.bfloat16 else 1e-4) * max(1.0, float(want.abs().max()))
+            ok = math.isfinite(err) and err <= limit
+            bad += not ok
+            p = norms.plan(R, S, C, 32, x.element_size(), sms)
+            path = (f"one pass, bundle {p.bundle}, block {p.block_s}x{p.block_c}, "
+                    f"{p.num_warps} warps" if p.one_pass else f"split x{p.nsplit}")
+            print(f"K4 R{R} S{S} C{C} {str(dtype)[6:]} act={act} [{path}]: err {err:.3e} "
+                  f"(limit {limit:.3e}) {'ok' if ok else 'FAILED'}")
+    for R, S, C in K4_TIMED:
+        x = (torch.randn(R, S, C, generator=g, device="cuda") * 2 + 3).to(torch.bfloat16)
+        gam = torch.ones(C, device="cuda", dtype=torch.bfloat16)
+        bet = torch.zeros(C, device="cuda", dtype=torch.bfloat16)
+        p = norms.plan(R, S, C, 32, 2, sms)
+        if p.one_pass:
+            h = norms._launch_one_pass(x, torch.empty_like(x), gam, bet, 32, 1e-6, "silu", p)
+            print(f"K4 one-pass kernel R{R} S{S} C{C}: registers "
+                  f"{getattr(h, 'n_regs', 'not reported')}, spills "
+                  f"{getattr(h, 'n_spills', 'not reported')}")
+        xc = x.transpose(1, 2).contiguous()
+        for _ in range(2):
+            print(f"time K4 R{R} S{S} C{C} silu: "
+                  f"{_time_ms(torch, lambda: norms.group_norm(x, gam, bet, 32, 1e-6, act='silu')):.3f}"
+                  f" ms  F.group_norm + F.silu on [R, C, S] "
+                  f"{_time_ms(torch, lambda: F.silu(F.group_norm(xc, 32, gam, bet, 1e-6))):.3f} ms")
+    return bad
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_check: no CUDA device", file=sys.stderr)
         return 1
-    from cvd_tpu_torch.ops import _build
-
     args = sys.argv[1:]
-    names = [a for a in args if not a.startswith("--")] or ["epi_flash_fwd", "ln_matmul_fwd"]
+    root = args.pop(args.index("--root") + 1) if "--root" in args else None
+    if root is not None:  # the package of that checkout, under the same module names
+        sys.path.insert(0, os.path.abspath(root))
+    names = [a for a in args if not a.startswith("--")] or [*CUDA_SOURCES, "group_norm"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    ptxas_report(_build, names)
-    _build.build(names)
     g = torch.Generator(device="cuda").manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if root is not None:
+        print(f"the wrappers of the checkout at {root}")
+        time_wrappers(torch, g)
+        return 0
+    from cvd_tpu_torch.ops import _build
+
+    sources = [n for n in names if n in CUDA_SOURCES]
+    ptxas_report(_build, sources)
+    _build.build(sources)
     bad = 0
     if "epi_flash_fwd" in names:
         bad += check_epi_flash(torch, g)
     if "ln_matmul_fwd" in names:
         bad += check_ln_matmul(torch, g, _build, "--phases" in args)
+    if "epi_flash_bwd" in names:
+        bad += check_epi_flash_bwd(torch, g)
+    if "group_norm" in names:
+        bad += check_group_norm(torch, g)
+    if "epi_flash_bwd" in names and "group_norm" in names:
+        time_wrappers(torch, g)
     print("FAILED" if bad else "ALL OK")
     return 1 if bad else 0
 

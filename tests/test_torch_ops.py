@@ -258,3 +258,78 @@ def test_folded_product_matches_jax_layer_norm_matmul(n_proj):
         x_hat = torch.nn.functional.layer_norm(t(x), (128,), eps=1e-5)
         got = (x_hat @ w_f.T + b_f).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+# every GroupNorm input of the SD1.5 UNet at 256 px (64 frame rows): (S, C) of
+# the down path, the mid block and the up path's concatenations
+UNET_GN_SHAPES = [(1024, 320), (1024, 640), (1024, 960), (256, 320), (256, 640), (256, 960),
+                  (256, 1280), (256, 1920), (64, 640), (64, 1280), (64, 1920), (64, 2560),
+                  (16, 1280), (16, 2560)]
+
+
+@pytest.mark.parametrize("S, C", UNET_GN_SHAPES)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_group_norm_plan_takes_one_pass_for_every_unet_slab(S, C, itemsize):
+    """K4's path function on an H100 (132 SMs): one launch, the padded slab
+    within the block limit, the bundle a divisor of the groups, a program for
+    every SM, and a pixel's piece at least 64 bytes unless a wider bundle
+    would no longer fit."""
+    from cvd_tpu_torch.ops.norms import ONE_PASS_MAX_BLOCK, _next_pow2, plan
+
+    R, G = 64, 32
+    p = plan(R, S, C, G, itemsize, 132)
+    cg = C // G
+    assert p.one_pass and G % p.bundle == 0
+    assert p.block_s >= S and p.block_c >= p.bundle * cg
+    assert p.block_s * p.block_c <= ONE_PASS_MAX_BLOCK
+    assert R * G // p.bundle >= 132
+    assert 1 <= p.num_warps <= 16 and p.num_warps & (p.num_warps - 1) == 0
+    wider_fits = p.block_s * _next_pow2(2 * p.bundle * cg) <= ONE_PASS_MAX_BLOCK
+    assert p.bundle * cg * itemsize >= 64 or not wider_fits
+
+
+@pytest.mark.parametrize("R, S, C, block_s, nsplit, s_per_split, apply_block_s", [
+    (32, 65536, 128, 1024, 1, 65536, 64), (8, 65536, 128, 1024, 4, 16384, 64),
+    (32, 16384, 256, 512, 1, 16384, 32), (32, 4096, 512, 256, 1, 4096, 16),
+    (1, 262144, 128, 1024, 32, 8192, 64)])
+def test_group_norm_plan_splits_the_vae_rows_as_before(R, S, C, block_s, nsplit, s_per_split,
+                                                       apply_block_s):
+    """Rows no block can hold keep the three-launch path with the split it had
+    before there was a one-pass path, written out for 132 SMs: [block_s, C/G]
+    tiles of 4096 elements, about 8 programs an SM."""
+    from cvd_tpu_torch.ops.norms import plan
+
+    p = plan(R, S, C, 32, 2, 132)
+    assert not p.one_pass
+    assert (p.block_s, p.block_c) == (block_s, C // 32)
+    assert (p.nsplit, p.s_per_split) == (nsplit, s_per_split)
+    assert (p.apply_block_s, p.apply_block_c) == (apply_block_s, C)
+
+
+def test_group_norm_plan_keeps_a_program_for_every_sm():
+    """Few rows: the bundle stops growing when the grid would fall under the
+    SM count, whatever the piece size."""
+    from cvd_tpu_torch.ops.norms import plan
+
+    assert plan(64, 1024, 320, 32, 2, 132).bundle == 2
+    assert plan(4, 1024, 320, 32, 2, 132).bundle == 1
+    assert plan(64, 1024, 320, 32, 2, 2048).bundle == 1
+
+
+@pytest.mark.parametrize("cg, S", [(10, 200), (30, 72)])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_matches_jax_off_powers_of_two(cg, S, act):
+    """C/G = 10 and 30 (C 320 and 960) with a pixel count that is no power of
+    two: the plain version vs the JAX group_norm through its kernel."""
+    from cvd_tpu.ops.norms import group_norm as jax_gn
+    from cvd_tpu_torch.ops.norms import group_norm
+
+    rng = np.random.default_rng(21)
+    C = 32 * cg
+    x = (rng.standard_normal((3, S, C)) * 2 + 3).astype(np.float32)
+    gam, bet = (rng.standard_normal(C).astype(np.float32) for _ in range(2))
+    want = jax_gn(jnp.asarray(x), jnp.asarray(gam), jnp.asarray(bet), 32, eps=1e-6, act=act,
+                  force_kernel=True)
+    got = group_norm(t(x), t(gam), t(bet), 32, eps=1e-6, act=act)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())

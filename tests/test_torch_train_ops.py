@@ -62,6 +62,75 @@ def test_epi_flash_attention_backward_matches_jax(routed):
         close(gi.numpy(), wi)
 
 
+def _ragged_inputs(seed, B=4, Lq=200, Lk=150, heads=2, dim=40):
+    """q [B, Lq, C], k/v [B, Lk, C] at head_dim 40 with lengths that fill no
+    64-row tile, and epipolar geometry off any pixel grid."""
+    rng = np.random.default_rng(seed)
+    C = heads * dim
+    q, g = (rng.standard_normal((B, Lq, C)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, Lk, C)).astype(np.float32) for _ in range(2))
+    ang = rng.uniform(0, 2 * np.pi, (B, Lq))
+    off = rng.uniform(0, 256, (B, Lq))
+    lines = np.stack([np.cos(ang), np.sin(ang), -off * (np.cos(ang) + np.sin(ang))],
+                     -1).astype(np.float32)
+    geom = (lines, rng.uniform(0, 256, (2, Lk)).astype(np.float32),
+            rng.uniform(2, 10, B).astype(np.float32), rng.uniform(0.1, 0.6, B).astype(np.float32))
+    return q, k, v, g, geom
+
+
+@pytest.mark.parametrize("route", [None, [0, 0, 2, 2], [3, 3, 3, 1]])
+def test_epi_flash_backward_plain_matches_jax_ragged_and_shared_rows(route):
+    """K6's plain version (``_plain_bwd``, what the CUDA kernel is held
+    against on the card) vs ``jax.vjp`` of the JAX op at head_dim 40, Lq 200 /
+    Lk 150, with a kv_index that routes several query rows to one source row
+    and none to others: those rows' dk/dv are sums, and zeros."""
+    from cvd_tpu.ops.epi_flash import epi_flash_attention as jax_epi
+    from cvd_tpu_torch.ops.epi_flash import _plain_bwd
+
+    q, k, v, g, geom = _ragged_inputs(seed=19)
+    jroute = None if route is None else jnp.asarray(route, jnp.int32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_epi(a, b, c, *(jnp.asarray(x) for x in geom),
+                                             heads=2, kv_index=jroute),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    idx = None if route is None else t(np.array(route, np.int32))
+    got = _plain_bwd(t(q), t(k), t(v), tuple(t(x) for x in geom), idx, 2, t(g))
+    for gi, wi in zip(got, want):
+        close(gi.numpy(), wi)
+    if route is not None:
+        unrouted = sorted(set(range(4)) - set(route))
+        assert not got[1][unrouted].any() and not got[2][unrouted].any()
+
+
+def test_flash_backward_plain_matches_jax_ragged():
+    """K6 without bias at head_dim 40, Lq 200 / Lk 150."""
+    from cvd_tpu.ops.epi_flash import flash_attention as jax_flash
+    from cvd_tpu_torch.ops.epi_flash import _plain_bwd
+
+    q, k, v, g, _ = _ragged_inputs(seed=20)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, heads=2),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    got = _plain_bwd(t(q), t(k), t(v), None, None, 2, t(g))
+    for gi, wi in zip(got, want):
+        close(gi.numpy(), wi)
+
+
+@pytest.mark.parametrize("dtype, dim", [(torch.bfloat16, 24), (torch.bfloat16, 72),
+                                        (torch.float32, 100)])
+def test_backward_kernel_refuses_a_head_dim_it_is_not_built_for(dtype, dim):
+    """``_launch_bwd`` raises on a head_dim outside the bf16 kernels'
+    instantiations, or wider than the f32 kernels' shared memory holds, before
+    it builds or launches anything (so it raises here, without nvcc)."""
+    from cvd_tpu_torch.ops import epi_flash
+
+    x = torch.zeros(1, 64, 2 * dim, dtype=dtype)
+    with pytest.raises(ValueError, match=f"head_dim {dim}"):
+        epi_flash._launch_bwd(x, x, x, None, None, 2, x, torch.zeros(1, 2, 64), x)
+    assert 40 in epi_flash._BWD_BF16_HEAD_DIMS and 160 in epi_flash._BWD_BF16_HEAD_DIMS
+    epi_flash._check_bwd(torch.float32, 96)
+
+
 def test_flash_attention_backward_matches_jax():
     """K2 + K6 without bias."""
     from cvd_tpu.ops.epi_flash import flash_attention as jax_flash
