@@ -19,11 +19,15 @@ Phases (any failure raises and exits non-zero):
    takes), and each backward kernel (K6, K7: autograd through the kernels
    against autograd of the plain versions) at the training shapes and at
    K6's edges (ragged lengths, 64 tokens, two query rows routed to one
-   source row), in f32 (TF32 off) and in bf16; max |error| against the
+   source row); K3 and K7 on contiguous q/k/v and on the ``split`` views of
+   one fused projection that the motion module hands over (K7 also with a
+   strided dO), and at ``TEMPORAL_EDGES``; all in f32 (TF32 off) and in
+   bf16; max |error| against the
    stated tolerance, dq, dk and dv each against its own plain version. For
    the timed bf16 shapes, in turns inside the one call (CUDA events, after
    warm-up): the plain version, the kernels alone
-   on prepared inputs and buffers (twice), one PyTorch library call for the
+   on prepared inputs and buffers (twice; K3 and K7, whose time is below the
+   host's cost of a launch, from a replayed CUDA graph of 20 launches), one PyTorch library call for the
    same function as a yardstick (never used by the package), and the whole
    wrapper; beside them the roofline bound of the case from
    ``cvd_tpu_torch.ops.work`` (H100 SXM peaks).
@@ -84,11 +88,26 @@ KERNELS = {
                                      "cvd_tpu/ops/temporal_attn.py:77"),
 }
 # device-kernel name stems of the port's kernels, for the profile's sums
-PORT_KERNELS = ("epi_flash_fwd_bf16", "ln_matmul_bf16", "temporal_attn_fwd", "temporal_attn_bwd",
+PORT_KERNELS = ("epi_flash_fwd_bf16", "ln_matmul_bf16", "temporal_attn_fwd_mma",
+                "temporal_attn_bwd_mma", "temporal_attn_fwd_kernel", "temporal_attn_bwd_kernel",
                 "epi_flash_bwd_dkdv", "epi_flash_bwd_dq", "epi_flash_bwd_delta", "_gn_one_pass",
                 "_gn_partial", "_gn_finalize", "_gn_apply")
 FORWARD = ("epi_flash_attention", "flash_attention", "temporal_flash_attention",
            "group_norm", "layer_norm_matmul")
+# K3 / K7 off the main path, (B, N, F, G, C, heads, mask, q/k/v as split views):
+# frames below the 16-row tile of the bf16 kernels and ragged against each
+# other, frames above it and a head_dim of 24 (the route to the f32-product
+# kernels), head_dim 8 and 16 (the smoke widths, 4 heads) and 160, the causal
+# mask, the "0" mask (one allowed key a row) and an arbitrary one
+TEMPORAL_EDGES = (
+    (2, 128, 12, 12, 320, 8, None, True), (2, 128, 12, 12, 320, 8, "causal", False),
+    (2, 128, 16, 9, 320, 8, None, False), (2, 128, 7, 16, 320, 8, "random", False),
+    (2, 128, 16, 24, 320, 8, "random", False), (2, 128, 24, 24, 320, 8, "causal", True),
+    (3, 130, 16, 16, 192, 8, None, False),
+    (2, 256, 16, 16, 32, 4, None, True), (2, 256, 16, 16, 64, 4, "causal", True),
+    (2, 64, 16, 16, 1280, 8, None, True),
+    (2, 256, 16, 16, 320, 8, "causal", True), (2, 128, 16, 16, 320, 8, "0", True),
+)
 
 
 def log(msg: str) -> None:
@@ -142,11 +161,25 @@ def _time_ms(torch, fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def _time_captured_ms(torch, fn, iters=20):
+    """The device time of ``fn``: ``iters`` calls captured into one CUDA graph
+    and replayed between two events, so that the host's cost of a launch,
+    which exceeds the time of the smallest kernels (K3, K7), stays out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return _time_ms(torch, graph.replay, iters=1) / iters
+
+
 def _case(name, label, kernel, plain, timed=False, **timing):
     """One comparison of phase 3. ``kernel`` / ``plain``: the wrapper and its
     plain version on the same inputs. For a timed case ``timing`` holds
     factories, called only in bf16, each -> the function to time:
-    ``launch`` the kernel alone on prepared inputs (default: the wrapper);
+    ``launch`` the kernel alone on prepared inputs (default: the wrapper),
+    timed from a replayed CUDA graph where ``captured`` is set;
     ``wrapper``, not a factory, the public function where ``kernel`` does
     more than call it;
     ``plain_timer`` (default: ``plain``), ``library`` the PyTorch yardstick
@@ -159,6 +192,36 @@ def _heads(x, heads):
     """[B, L, C] -> [B, heads, L, D], the layout of scaled_dot_product_attention."""
     B, L, C = x.shape
     return x.reshape(B, L, heads, C // heads).transpose(1, 2)
+
+
+def _layout(split):
+    return "split views" if split else "contiguous"
+
+
+def _temporal_inputs(randn, B, N, Fr, G, C, split, grad=False):
+    """q [B, N, Fr, C], k, v [B, N, G, C] (and, with ``grad``, dO like q) from
+    ``randn(*shape)``: contiguous tensors or, with ``split``, what the motion
+    module hands over: three views of one fused [B, N, Fr, 3C] projection
+    (and dO a view of a wider tensor)."""
+    if split:
+        qkv = list(randn(B, N, Fr, 3 * C).split(C, -1))
+    else:
+        qkv = [randn(B, N, Fr, C), randn(B, N, G, C), randn(B, N, G, C)]
+    if grad:
+        qkv.append(randn(B, N, Fr, 2 * C)[..., C:] if split else randn(B, N, Fr, C))
+    return qkv
+
+
+def _temporal_mask(torch, g, kind, Fr, G):
+    """None, a mask of ``causal_temporal_mask`` ("causal", "0") or, for
+    "random", an arbitrary finite [Fr, G] mask."""
+    from cvd_tpu_torch.models.motion import causal_temporal_mask
+
+    if kind is None:
+        return None
+    if kind == "random":
+        return torch.randn(Fr, G, generator=g, device="cuda")
+    return causal_temporal_mask(kind, Fr).to("cuda")
 
 
 def _epi_inputs(torch, g, B, feat, randn):
@@ -199,6 +262,24 @@ def _cases(torch, dtype, g):
         mask = None if geom is None else epi_flash.bias_from_geometry(*geom)[:, None].to(q.dtype)
         return lambda: sdpa(qh, kh, vh, attn_mask=mask)
 
+    def temporal_case(label, xs, mask, heads, timed=False):
+        def launch():
+            prep = temporal_attn._prepare(*xs, mask, heads)
+            return lambda: temporal_attn._launch(*prep, heads)
+
+        def library():
+            qh, kh, vh = (_heads(x.reshape(-1, x.shape[2], x.shape[-1]), heads) for x in xs)
+            return lambda: sdpa(qh, kh, vh, attn_mask=mask)
+
+        B, N, Fr, C = xs[0].shape
+        return _case(
+            "temporal_flash_attention", label,
+            lambda: temporal_attn.temporal_flash_attention(*xs, mask, heads=heads),
+            lambda: temporal_attn.temporal_attention_plain(*xs, mask, heads), timed,
+            launch=launch, captured=True, library=library,
+            library_call="scaled_dot_product_attention on [B*N, h, F, D]",
+            work=(*work.temporal_fwd(B, N, Fr, C, size, mask is not None), str(dtype)[6:]))
+
     cases = []
     for feat, C in ((32, 320), (16, 640), (8, 1280)):
         N, B = feat * feat, 64
@@ -227,21 +308,15 @@ def _cases(torch, dtype, g):
             work=(*work.attention_fwd(B, 8, N, N, D, size), "bfloat16")))
         if feat == 8:
             continue  # the temporal kernel's shapes stay those of the main path
-        qt, kt, vt = randn(4, N, 16, C), randn(4, N, 16, C), randn(4, N, 16, C)
-
-        def temporal_library(q=qt, k=kt, v=vt):
-            qh, kh, vh = (_heads(x.reshape(-1, 16, x.shape[-1]), 8) for x in (q, k, v))
-            return lambda: sdpa(qh, kh, vh)
-
-        cases.append(_case(
-            "temporal_flash_attention", f"B4 N{N} F16 C{C} h8",
-            lambda q=qt, k=kt, v=vt:
-            temporal_attn.temporal_flash_attention(q, k, v, None, heads=8),
-            lambda q=qt, k=kt, v=vt:
-            temporal_attn.temporal_attention_plain(q, k, v, None, 8), feat == 32,
-            library=temporal_library,
-            library_call="scaled_dot_product_attention on [B*N, h, F, D]",
-            work=(*work.temporal_fwd(4, N, 16, C, size), "float32")))
+        for split in (True, False):  # the main path's layout first: the record's row
+            cases.append(temporal_case(f"B4 N{N} F16 C{C} h8 {_layout(split)}",
+                                       _temporal_inputs(randn, 4, N, 16, 16, C, split), None, 8,
+                                       feat == 32))
+    for B, N, Fr, G, C, h, kind, split in TEMPORAL_EDGES:
+        cases.append(temporal_case(
+            f"B{B} N{N} F{Fr} G{G} C{C} h{h} {kind or 'no'} mask {_layout(split)}",
+            _temporal_inputs(randn, B, N, Fr, G, C, split),
+            _temporal_mask(torch, g, kind, Fr, G), h))
     # a ragged key length and a query length that fills no tile
     q, k, v = randn(4, 200, 320), randn(4, 150, 320), randn(4, 150, 320)
     cases.append(_case("flash_attention", "B4 Lq200 Lk150 C320 h8 ragged",
@@ -337,9 +412,10 @@ def _bwd_cases(torch, dtype, g):
     """K6 / K7 at the training shapes (256 px, 16 frames, 1 folded pair = 32
     frame rows, no CFG) and at K6's edges: autograd through the kernels
     (forward kernel + the backward kernel) against autograd of the plain
-    version. The timed entries are the backward alone: K6's device kernels on
-    prepared inputs and buffers, the K6/K7 wrapper from the saved forward,
-    and the plain version's backward from its recorded graph; the library
+    version. The timed entries are the backward alone: the K6 / K7 device
+    kernels on prepared inputs (and, for K6, buffers), the K6 / K7 wrapper
+    from the saved forward, and the plain version's backward from its
+    recorded graph; the library
     yardstick is the backward alone of the scaled_dot_product_attention
     graph."""
     import torch.nn.functional as F
@@ -354,11 +430,12 @@ def _bwd_cases(torch, dtype, g):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
     def case(name, label, fwd, plain, xs, dout, timed, kernel_timer, library, library_call, wk,
-             wrapper=None):
+             wrapper=None, captured=False):
         return _case(name, label, lambda: _grads(torch, fwd, xs, dout),
                      lambda: _grads(torch, plain, xs, dout), timed, launch=kernel_timer,
                      plain_timer=lambda: _backward_only(torch, plain, xs, dout),
-                     library=library, library_call=library_call, work=wk, wrapper=wrapper)
+                     library=library, library_call=library_call, work=wk, wrapper=wrapper,
+                     captured=captured)
 
     def epi_case(name, label, xs, dout, gm, rt, timed=False):
         def fwd(a, b, c):
@@ -399,21 +476,25 @@ def _bwd_cases(torch, dtype, g):
                     (*work.attention_bwd(B, 8, Lq, Lk, C // 8, size, gm is not None,
                                          rt is not None), "bfloat16"), wrapper)
 
-    def temporal_case(label, xs, dout, mask, timed):
+    def temporal_case(label, xs, dout, mask, heads, timed=False):
         def library():
-            hs = [_heads(x.reshape(-1, 16, x.shape[-1]), 8) for x in xs]
+            hs = [_heads(x.reshape(-1, x.shape[2], x.shape[-1]), heads) for x in xs]
             return _backward_only(torch, lambda a, b, c: sdpa(a, b, c, attn_mask=mask), hs,
-                                  _heads(dout.reshape(-1, 16, dout.shape[-1]), 8))
+                                  _heads(dout.reshape(-1, dout.shape[2], dout.shape[-1]), heads))
+
+        def kernel_timer():
+            prep = temporal_attn._prepare(*xs, mask, heads)
+            return lambda: temporal_attn._launch_bwd(*prep, heads, dout)
 
         B, N, Fr, C = xs[0].shape
         return case("temporal_flash_attention_bwd", label,
-                    lambda a, b, c: temporal_attn.temporal_flash_attention(a, b, c, mask, 8),
-                    lambda a, b, c: temporal_attn.temporal_attention_plain(a, b, c, mask, 8),
-                    xs, dout, timed,
-                    lambda: lambda: temporal_attn.temporal_flash_attention_bwd(
-                        *xs, mask, 8, dout),
-                    library, "backward of scaled_dot_product_attention on [B*N, h, F, D]",
-                    (*work.temporal_bwd(B, N, Fr, C, size, mask is not None), "float32"))
+                    lambda a, b, c: temporal_attn.temporal_flash_attention(a, b, c, mask, heads),
+                    lambda a, b, c: temporal_attn.temporal_attention_plain(a, b, c, mask, heads),
+                    xs, dout, timed, kernel_timer, library,
+                    "backward of scaled_dot_product_attention on [B*N, h, F, D]",
+                    (*work.temporal_bwd(B, N, Fr, C, size, mask is not None), str(dtype)[6:]),
+                    lambda: temporal_attn.temporal_flash_attention_bwd(*xs, mask, heads, dout),
+                    captured=True)
 
     cases = []
     for feat, C in ((32, 320), (16, 640)):
@@ -424,10 +505,13 @@ def _bwd_cases(torch, dtype, g):
                               xs, do, geom, route, feat == 32))
         cases.append(epi_case("flash_attention_bwd", f"B{B} N{N} C{C} h8",
                               xs, do, None, None, feat == 32))
-        xt, dot = tuple(randn(2, N, 16, C) for _ in range(3)), randn(2, N, 16, C)
-        causal = torch.triu(torch.full((16, 16), -math.inf, device=dev), 1)
-        cases.append(temporal_case(f"B2 N{N} F16 C{C} h8", xt, dot, None, feat == 32))
-        cases.append(temporal_case(f"B2 N{N} F16 C{C} h8 causal", xt, dot, causal, False))
+        causal = _temporal_mask(torch, g, "causal", 16, 16)
+        for split in (True, False):  # the main path's layout first: the record's row
+            *xt, dot = _temporal_inputs(randn, 2, N, 16, 16, C, split, grad=True)
+            cases.append(temporal_case(f"B2 N{N} F16 C{C} h8 {_layout(split)}", xt, dot, None, 8,
+                                       feat == 32))
+        cases.append(temporal_case(f"B2 N{N} F16 C{C} h8 causal {_layout(False)}", xt, dot,
+                                   causal, 8, feat == 32))
     # K6's edges. Res 8 is 64 tokens at head_dim 160 in bf16; the f32 kernels hold a
     # padded head_dim up to 96 in shared memory, so f32 takes 64 tokens at head_dim 80
     C8 = 1280 if dtype == torch.bfloat16 else 640
@@ -444,6 +528,11 @@ def _bwd_cases(torch, dtype, g):
         geom = _random_geometry(torch, g, B, Lq, Lk) if bias else None
         cases.append(epi_case("epi_flash_attention_bwd" if bias else "flash_attention_bwd",
                               label, xs, do, geom, rt))
+    for B, N, Fr, G, C, h, kind, split in TEMPORAL_EDGES:
+        *xs, do = _temporal_inputs(randn, B, N, Fr, G, C, split, grad=True)
+        cases.append(temporal_case(
+            f"B{B} N{N} F{Fr} G{G} C{C} h{h} {kind or 'no'} mask {_layout(split)}",
+            xs, do, _temporal_mask(torch, g, kind, Fr, G), h))
     return cases
 
 
@@ -460,10 +549,11 @@ def _time_case(torch, case):
     l_fn = case["library"]()
     with torch.no_grad():
         p_ms = _time_ms(torch, p_fn)
-        k_ms = [_time_ms(torch, k_fn), _time_ms(torch, k_fn)]
+        time_kernel = _time_captured_ms if case.get("captured") else _time_ms
+        k_ms = [time_kernel(torch, k_fn), time_kernel(torch, k_fn)]
         l_ms = _time_ms(torch, l_fn)
         # a backward case's ``kernel`` is autograd through forward and backward: its
-        # wrapper is timed only where the case names it (K7's ``launch`` is its wrapper)
+        # wrapper is timed only where the case names it
         w_fn = case.get("wrapper") or (
             case["kernel"] if launch and not case.get("plain_timer") else None)
         w_ms = _time_ms(torch, w_fn) if w_fn else sum(k_ms) / 2
@@ -503,7 +593,8 @@ def phase_kernels(torch):
                     f"(limit {' '.join(f'{lim:.3e}' for lim in limits)})")
             if case["timed"] and dtype == torch.bfloat16:
                 t = _time_case(torch, case)
-                if "ms" not in report[name]:  # the record keeps the first timed shape
+                report[name].setdefault("timings", []).append(t)
+                if "ms" not in report[name]:  # the record's row is the first timed shape
                     report[name].update(t)
                 line += (f"  kernel {t['ms']:.3f} ms ({t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f})"
                          f"  wrapper {t['wrapper_ms']:.3f} ms  plain {t['plain_ms']:.3f} ms"
@@ -924,7 +1015,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "library_call": r["library_call"], "wrapper_ms": r["wrapper_ms"],
-                        "timed_shape": r["timed_shape"]})
+                        "timed_shape": r["timed_shape"], "timings": r["timings"]})
     log(f"[total] {time.perf_counter() - t_all:.1f} s (building the kernels {t_build:.1f} s, "
         f"nvcc {t_nvcc:.1f} s of it)")
     log(smi)

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Short check of the redesigned bf16 kernels (K1/K2 ``epi_flash_fwd``, K5
-``ln_matmul_fwd``, K6 ``epi_flash_bwd``, K4 ``group_norm``) on one NVIDIA
-GPU: the first thing to run after editing a source, before the longer
+``ln_matmul_fwd``, K6 ``epi_flash_bwd``, K4 ``group_norm``, K3
+``temporal_attn_fwd``, K7 ``temporal_attn_bwd``) on one NVIDIA GPU: the
+first thing to run after editing a source, before the longer
 ``chip_smoke.py``.
 
     python3 scripts/kernel_check.py [epi_flash_fwd] [ln_matmul_fwd]
-        [epi_flash_bwd] [group_norm] [--phases] [--root DIR]
+        [epi_flash_bwd] [group_norm] [temporal_attn_fwd] [temporal_attn_bwd]
+        [--phases] [--root DIR]
 
 For each named kernel (default: all) it
 1. compiles a CUDA source with ``-Xptxas -v`` and prints, per bf16 kernel,
@@ -16,18 +18,25 @@ For each named kernel (default: all) it
 2. holds the kernel against its plain version at the edges (64 tokens,
    head_dim 8 to 160, ragged lengths, strided q/k/v views, a row routed to
    twice and a row never routed to, C 32 to 1280; for K4 every slab of the
-   SD1.5 UNet, C/G not a power of two, S off the block) with the limit of
-   ``chip_smoke.py`` (2e-2 x max(1, max|plain|)), and K1/K2's lse against
-   f32 logits;
+   SD1.5 UNet, C/G not a power of two, S off the block; for K3 / K7 frames
+   below and above the 16-row tile, head_dim 8 to 160, masks, q/k/v as
+   ``split`` views of one fused projection, a strided dO, and the f32
+   kernels) with the limit of ``chip_smoke.py`` (2e-2 x max(1, max|plain|),
+   1e-4 in f32), and K1/K2's lse against f32 logits;
 3. times it (CUDA events, after warm-up, twice) at the main paths' shapes
-   beside one PyTorch library call for the same function.
+   beside one PyTorch library call for the same function (K3 / K7: on
+   contiguous q/k/v and on the split views the motion module hands over,
+   the kernel from a replayed CUDA graph of 20 launches, because the host's
+   cost of a launch exceeds their time; then the same kernel with 2, 4 or 8
+   heads a block, which is what chose ``head_group``'s cap of 640 bytes).
 ``--phases`` also builds K5 with ``-DLNMM_PROF`` and prints the clock cycles a
 block spends per phase (panel copy, standardization, product loop; inside
 the loop: epilogue, waits for copies, waits for wgmma), as warpgroup 0's
-thread 0 sees them. ``--root DIR`` only times K6's and K4's wrappers, at the
-same shapes, as another checkout of the repository has them (the parent
-commit unpacked into a git-ignored directory), so that two versions are
-compared inside one call on one card. Exits non-zero if anything disagrees.
+thread 0 sees them. ``--root DIR`` only times the wrappers of K6, K4, K3 and
+K7 (those named, default all four), at the same shapes, as another checkout
+of the repository has them (the parent commit unpacked into a git-ignored
+directory), so that two versions are compared inside one call on one card.
+Exits non-zero if anything disagrees.
 """
 from __future__ import annotations
 
@@ -41,10 +50,14 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-from chip_smoke import _random_geometry  # noqa: E402  (imports no torch itself)
+from chip_smoke import (  # noqa: E402  (imports no torch itself)
+    TEMPORAL_EDGES, _layout, _random_geometry, _temporal_inputs, _temporal_mask,
+    _time_captured_ms,
+)
 
 TOL = 2e-2
-CUDA_SOURCES = ("epi_flash_fwd", "ln_matmul_fwd", "epi_flash_bwd")
+CUDA_SOURCES = ("epi_flash_fwd", "ln_matmul_fwd", "epi_flash_bwd", "temporal_attn_fwd",
+                "temporal_attn_bwd")
 
 
 def _time_ms(torch, fn, iters=20):
@@ -81,10 +94,11 @@ def ptxas_report(_build, names):
         for i, line in enumerate(lines):
             if "(C75" in line:
                 print("  " + line[:160])
-            if "Compiling entry function" in line and "bf16" in line:
+            if "Compiling entry function" in line and ("bf16" in line or "_mma_" in line):
                 # the mangled name holds the template arguments: ...kernelILb1ELi5EE...
-                name = re.search(r"((?:epi_flash_fwd|epi_flash_bwd_dq|epi_flash_bwd_dkdv|ln_matmul)"
-                                 r"_bf16_kernelI(?:L[bi]\d+E)+)", line)
+                name = re.search(r"((?:epi_flash_fwd|epi_flash_bwd_dq|epi_flash_bwd_dkdv|ln_matmul|"
+                                 r"temporal_attn_fwd|temporal_attn_bwd)"
+                                 r"_(?:bf16|mma)_kernelI(?:L[bi]\d+E)+)", line)
                 print("  " + (name.group(1) if name else line), "|", lines[i + 2].strip(), "|",
                       lines[i + 3].strip())
 
@@ -251,22 +265,42 @@ def _bwd_inputs(torch, g, B, Lq, Lk, C, h, bias, route, strided, dtype=None):
 
 
 K6_TIMED = [(32, 1024, 320), (32, 256, 640), (32, 64, 1280)]  # (B, N, C): res 32, 16, 8
+# (B, N, C) at 16 frames, 8 heads, res 32 and 16: the sampler's 4 CFG rows, one folded pair
+K3_TIMED = [(4, 1024, 320), (4, 256, 640)]
+K7_TIMED = [(2, 1024, 320), (2, 256, 640)]
 # (R, S, C): the UNet at res 32 and 16, the VAE, and few rows (one clip of 2 frames)
 K4_TIMED = [(64, 1024, 320), (64, 256, 1920), (32, 65536, 128), (2, 1024, 320)]
 
 
-def time_wrappers(torch, g):
-    """K6's and K4's whole wrappers at the training / sampling shapes."""
-    from cvd_tpu_torch.ops import epi_flash, norms
+def time_wrappers(torch, g, names):
+    """The whole wrappers of the named kernels (K6, K4, K3, K7) at the
+    training / sampling shapes."""
+    from cvd_tpu_torch.ops import epi_flash, norms, temporal_attn
 
-    for B, N, C in K6_TIMED:
+    for B, N, C in K3_TIMED if "temporal_attn_fwd" in names else ():
+        for split in (False, True):
+            q, k, v = _temporal_inputs(_randn(torch, g, torch.bfloat16), B, N, 16, 16, C, split)
+            ms = [_time_ms(torch, lambda: temporal_attn.temporal_flash_attention(q, k, v, None, 8))
+                  for _ in range(2)]
+            print(f"time K3 wrapper B{B} N{N} F16 C{C} h8 {_layout(split)}: "
+                  f"{ms[0]:.3f} {ms[1]:.3f} ms")
+    for B, N, C in K7_TIMED if "temporal_attn_bwd" in names else ():
+        for split in (False, True):
+            q, k, v, do = _temporal_inputs(_randn(torch, g, torch.bfloat16), B, N, 16, 16, C,
+                                           split, grad=True)
+            for mask in (None, _temporal_mask(torch, g, "causal", 16, 16)):
+                ms = [_time_ms(torch, lambda: temporal_attn.temporal_flash_attention_bwd(
+                    q, k, v, mask, 8, do)) for _ in range(2)]
+                print(f"time K7 wrapper B{B} N{N} F16 C{C} h8 {_layout(split)}"
+                      f"{'' if mask is None else ' causal'}: {ms[0]:.3f} {ms[1]:.3f} ms")
+    for B, N, C in K6_TIMED if "epi_flash_bwd" in names else ():
         for bias in (True, False):
             prep, out, lse, do = _bwd_inputs(torch, g, B, N, N, C, 8, bias,
                                              "swap" if bias else None, False)
             ms = [_time_ms(torch, lambda: epi_flash._launch_bwd(*prep, 8, out, lse, do))
                   for _ in range(2)]
             print(f"time K6 wrapper B{B} N{N} C{C} h8 bias={bias}: {ms[0]:.3f} {ms[1]:.3f} ms")
-    for R, S, C in K4_TIMED:
+    for R, S, C in K4_TIMED if "group_norm" in names else ():
         x = (torch.randn(R, S, C, generator=g, device="cuda") * 2 + 3).to(torch.bfloat16)
         gam = torch.ones(C, device="cuda", dtype=torch.bfloat16)
         bet = torch.zeros(C, device="cuda", dtype=torch.bfloat16)
@@ -385,6 +419,89 @@ def check_group_norm(torch, g):
     return bad
 
 
+def _randn(torch, g, dtype):
+    return lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+
+
+def check_temporal(torch, g, backward):
+    """K3 (or, with ``backward``, K7) against the plain version in f32 on the
+    same inputs, then its time beside scaled_dot_product_attention on
+    [B*N, h, F, D]."""
+    import torch.nn.functional as F
+
+    from cvd_tpu_torch.ops import temporal_attn as ta
+
+    tag = "K7" if backward else "K3"
+    bad = 0
+    main_path = ((4, 1024, 16, 16, 320, 8, None, True), (4, 1024, 16, 16, 320, 8, None, False),
+                 (2, 256, 16, 16, 640, 8, "causal", True))
+    for dt, (B, N, Fr, G, C, h, kind, split) in [
+            (dt, c) for dt in (torch.bfloat16, torch.float32)
+            for c in (*main_path, *TEMPORAL_EDGES)]:
+        q, k, v, do = _temporal_inputs(_randn(torch, g, dt), B, N, Fr, G, C, split, grad=True)
+        mask = _temporal_mask(torch, g, kind, Fr, G)
+        route = ta.kernel_route(Fr, G, C // h, str(dt)[6:])
+        if backward:
+            got = ta.temporal_flash_attention_bwd(q, k, v, mask, h, do)
+            leaves = [x.float().requires_grad_() for x in (q, k, v)]
+            want = torch.autograd.grad(ta.temporal_attention_plain(*leaves, mask, h), leaves,
+                                       do.float())
+        else:
+            got = (ta.temporal_flash_attention(q, k, v, mask, h),)
+            want = (ta.temporal_attention_plain(q.float(), k.float(), v.float(), mask, h),)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dt == torch.float32 else TOL
+        errs, ok = [], True
+        for gi, wi in zip(got, want):
+            err = float((gi.float() - wi).abs().max())
+            errs.append(err)
+            ok = ok and gi.dtype == dt and gi.shape == wi.shape and math.isfinite(err) \
+                and err <= tol * max(1.0, float(wi.abs().max()))
+        bad += not ok
+        print(f"{tag} {str(dt)[6:]} B{B} N{N} F{Fr} G{G} C{C} h{h} mask={kind} "
+              f"{_layout(split)} [{route}]: err {' '.join(f'{e:.3e}' for e in errs)} "
+              f"{'ok' if ok else 'FAILED'}")
+    for B, N, C in K7_TIMED if backward else K3_TIMED:
+        for split in (False, True):
+            q, k, v, do = _temporal_inputs(_randn(torch, g, torch.bfloat16), B, N, 16, 16, C,
+                                           split, grad=True)
+            heads = [t.reshape(B * N, 16, 8, C // 8).transpose(1, 2) for t in (q, k, v, do)]
+            for mask in (None, _temporal_mask(torch, g, "causal", 16, 16)) if backward else (None,):
+                prep = ta._prepare(q, k, v, mask, 8)
+                if backward:
+                    hs = [t.detach().requires_grad_() for t in heads[:3]]
+                    sdpa_out = F.scaled_dot_product_attention(*hs, attn_mask=mask)
+                    kernel = lambda: ta._launch_bwd(*prep, 8, do)  # noqa: E731
+                    library = lambda: torch.autograd.grad(  # noqa: E731
+                        sdpa_out, hs, heads[3], retain_graph=True)
+                else:
+                    kernel = lambda: ta._launch(*prep, 8)  # noqa: E731
+                    library = lambda: F.scaled_dot_product_attention(*heads[:3])  # noqa: E731
+                for _ in range(2):  # the kernel from a replayed CUDA graph: device time
+                    print(f"time {tag} B{B} N{N} F16 C{C} h8 {_layout(split)}"
+                          f"{'' if mask is None else ' causal'}: kernel "
+                          f"{_time_captured_ms(torch, kernel):.4f} ms  "
+                          f"{'backward of ' if backward else ''}scaled_dot_product_attention "
+                          f"on [B*N, h, F, D] {_time_ms(torch, library):.3f} ms")
+    # what chose head_group's cap of 640 bytes a row: the kernel under other caps
+    cap = ta._MMA_ROW_BYTES
+    try:
+        for B, N, C in K7_TIMED if backward else K3_TIMED:
+            q, k, v, do = _temporal_inputs(_randn(torch, g, torch.bfloat16), B, N, 16, 16, C,
+                                           True, grad=True)
+            prep = ta._prepare(q, k, v, None, 8)
+            for ta._MMA_ROW_BYTES in (160, 320, 640, 1280):
+                kernel = (lambda: ta._launch_bwd(*prep, 8, do)) if backward else (
+                    lambda: ta._launch(*prep, 8))
+                ms = [_time_captured_ms(torch, kernel) for _ in range(2)]
+                print(f"time {tag} B{B} N{N} F16 C{C} h8, rows of at most {ta._MMA_ROW_BYTES} "
+                      f"bytes ({ta.head_group(8, C // 8)} heads a block): kernel {ms[0]:.4f} "
+                      f"{ms[1]:.4f} ms")
+    finally:
+        ta._MMA_ROW_BYTES = cap
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -396,13 +513,17 @@ def main() -> int:
     if root is not None:  # the package of that checkout, under the same module names
         sys.path.insert(0, os.path.abspath(root))
     names = [a for a in args if not a.startswith("--")] or [*CUDA_SOURCES, "group_norm"]
+    unknown = [n for n in names if n not in (*CUDA_SOURCES, "group_norm")]
+    if unknown:
+        print(f"kernel_check: no kernel named {unknown}", file=sys.stderr)
+        return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     g = torch.Generator(device="cuda").manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     if root is not None:
         print(f"the wrappers of the checkout at {root}")
-        time_wrappers(torch, g)
+        time_wrappers(torch, g, names)
         return 0
     from cvd_tpu_torch.ops import _build
 
@@ -418,8 +539,11 @@ def main() -> int:
         bad += check_epi_flash_bwd(torch, g)
     if "group_norm" in names:
         bad += check_group_norm(torch, g)
-    if "epi_flash_bwd" in names and "group_norm" in names:
-        time_wrappers(torch, g)
+    if "temporal_attn_fwd" in names:
+        bad += check_temporal(torch, g, backward=False)
+    if "temporal_attn_bwd" in names:
+        bad += check_temporal(torch, g, backward=True)
+    time_wrappers(torch, g, names)
     print("FAILED" if bad else "ALL OK")
     return 1 if bad else 0
 

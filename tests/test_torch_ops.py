@@ -83,6 +83,186 @@ def test_temporal_attention_plain_matches_jax(mask_kind):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _temporal_case(case, seed):
+    """Seeded q [2, 16, F, 32], k, v [2, 16, G, 32] (4 heads) and a mask, as
+    numpy, off the kernel's 16-frame tile: (q, k, v, mask or None, split)."""
+    from cvd_tpu.models.motion import causal_temporal_mask as jax_mask
+
+    rng = np.random.default_rng(seed)
+    Fr, G = {"F12": (12, 12), "F16 G24": (16, 24)}.get(case, (16, 16))
+    if case == "split views":  # q, k, v as the motion module gets them: one fused projection
+        qkv = rng.standard_normal((2, 16, Fr, 96)).astype(np.float32)
+        return qkv[..., :32], qkv[..., 32:64], qkv[..., 64:], None, qkv
+    q = rng.standard_normal((2, 16, Fr, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 16, G, 32)).astype(np.float32) for _ in range(2))
+    mask = {"F16 G24": rng.standard_normal((Fr, G)).astype(np.float32),
+            "0 mask": np.asarray(jax_mask("0", Fr))}.get(case)
+    return q, k, v, mask, None
+
+
+TEMPORAL_CASES = ["F12", "F16 G24", "0 mask", "split views"]
+
+
+@pytest.mark.parametrize("case", TEMPORAL_CASES)
+def test_temporal_attention_plain_matches_jax_off_the_tile(case):
+    """K3 away from 16 x 16 frames and contiguous inputs: 12 frames, 24 key
+    frames under an arbitrary mask, the one-key "0" mask, and q/k/v as
+    ``split`` views of one fused tensor; 1e-4 x max |ref|."""
+    from cvd_tpu.ops.temporal_attn import temporal_flash_attention as jax_temporal
+    from cvd_tpu_torch.models.motion import causal_temporal_mask
+    from cvd_tpu_torch.ops.temporal_attn import temporal_flash_attention
+
+    q, k, v, mask, fused = _temporal_case(case, seed=40)
+    want = np.asarray(jax_temporal(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   None if mask is None else jnp.asarray(mask), heads=4))
+    if fused is not None:
+        xs = t(fused).split(32, -1)
+        assert not xs[1].is_contiguous()
+    else:
+        xs = (t(q), t(k), t(v))
+    pmask = causal_temporal_mask("0", 16) if case == "0 mask" else (
+        None if mask is None else t(mask))
+    got = temporal_flash_attention(*xs, pmask, heads=4)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+    if case == "0 mask":  # one allowed key: every frame's output is v's frame 0
+        np.testing.assert_allclose(got.numpy(), np.broadcast_to(v[:, :, :1], v.shape), atol=1e-6)
+
+
+def _temporal_main_path_shapes():
+    """(frames, head_dim, dtype, kernel) of every temporal attention the port
+    reaches on a card: the SD1.5 UNet and its pose encoder in bf16 (sampling,
+    training) and the smoke widths in f32 (the card-vs-CPU checks; their pose
+    encoder keeps 8 heads) and bf16."""
+    from cvd_tpu_torch.cli.build import SMOKE_UNET
+    from cvd_tpu_torch.models.pose_encoder import CameraPoseEncoder
+    from cvd_tpu_torch.models.unet import UNetConfig
+
+    rows = set()
+    for cfg, dtypes in ((UNetConfig(), ("bfloat16",)), (SMOKE_UNET, ("float32", "bfloat16"))):
+        pose = CameraPoseEncoder(channels=cfg.block_out_channels)
+        pose_heads = pose.encoder_down_attention_blocks[0][0].attention_blocks[0].heads
+        for ch in cfg.block_out_channels:
+            for dt in dtypes:
+                rows.add((16, ch // cfg.attention_heads, dt))
+                if dt == "float32":
+                    rows.add((2, ch // pose_heads, dt))
+    return sorted(rows)
+
+
+@pytest.mark.parametrize("frames,D,dtype", _temporal_main_path_shapes())
+def test_temporal_kernel_route_on_the_main_paths(frames, D, dtype):
+    """bf16 at every head_dim of the UNet, the pose encoder and the smoke
+    widths takes the tensor-core kernels; f32 keeps the f32-product ones."""
+    from cvd_tpu_torch.ops.temporal_attn import MMA_HEAD_DIMS, kernel_route
+
+    assert D in (4, 8, 16, 40, 80, 160)
+    assert kernel_route(frames, frames, D, dtype) == ("mma" if dtype == "bfloat16" else "fma")
+    if dtype == "bfloat16":
+        assert D in MMA_HEAD_DIMS
+
+
+@pytest.mark.parametrize("F,G,D,dtype,want", [
+    (12, 12, 40, "bfloat16", "mma"), (1, 1, 8, "bfloat16", "mma"), (16, 9, 160, "bfloat16", "mma"),
+    (7, 16, 32, "bfloat16", "mma"), (16, 16, 64, "bfloat16", "mma"), (16, 16, 128, "bfloat16", "mma"),
+    (16, 24, 40, "bfloat16", "fma"), (24, 24, 40, "bfloat16", "fma"), (17, 16, 40, "bfloat16", "fma"),
+    (16, 17, 40, "bfloat16", "fma"), (32, 32, 80, "bfloat16", "fma"),
+    (16, 16, 24, "bfloat16", "fma"), (16, 16, 48, "bfloat16", "fma"), (16, 16, 72, "bfloat16", "fma"),
+    (16, 16, 96, "bfloat16", "fma"), (16, 16, 168, "bfloat16", "fma"),
+    (16, 16, 40, "float32", "fma"), (12, 12, 4, "float32", "fma"), (32, 32, 160, "float32", "fma"),
+])
+def test_temporal_kernel_route_at_the_edges(F, G, D, dtype, want):
+    """The one rule: bf16 with F, G <= 16 and a head_dim of MMA_HEAD_DIMS
+    takes the tensor-core kernels, all else the wrapper accepts the kept ones."""
+    from cvd_tpu_torch.ops.temporal_attn import kernel_route
+
+    assert kernel_route(F, G, D, dtype) == want
+
+
+@pytest.mark.parametrize("F,G,D,dtype,error", [
+    (33, 16, 40, "bfloat16", ValueError), (16, 33, 40, "float32", ValueError),
+    (0, 16, 40, "bfloat16", ValueError), (16, 16, 4, "bfloat16", ValueError),
+    (16, 16, 36, "bfloat16", ValueError), (16, 16, 6, "float32", ValueError),
+    (16, 16, 0, "float32", ValueError), (16, 16, 40, "float16", TypeError),
+    (16, 16, 40, "float64", TypeError),
+])
+def test_temporal_kernel_route_raises(F, G, D, dtype, error):
+    from cvd_tpu_torch.ops.temporal_attn import kernel_route
+
+    with pytest.raises(error):
+        kernel_route(F, G, D, dtype)
+
+
+@pytest.mark.parametrize("heads,D,want", [
+    (8, 40, 8), (8, 80, 4), (8, 160, 2), (4, 8, 4), (4, 16, 4), (8, 8, 8), (8, 128, 2),
+    (16, 8, 8), (6, 40, 6), (1, 160, 1), (3, 160, 1), (5, 64, 5),
+])
+def test_temporal_head_group(heads, D, want):
+    """Heads a block takes: a divisor of heads, at most 8 warps, at most 640
+    bytes of a row (res 32, 16 and 8 of SD1.5: 8, 4 and 2)."""
+    from cvd_tpu_torch.ops.temporal_attn import head_group
+
+    got = head_group(heads, D)
+    assert got == want and heads % got == 0 and got <= 8
+    assert got == 1 or got * D * 2 <= 640
+
+
+def test_temporal_route_constants_match_the_cuda_header():
+    """``kernel_route`` and ``head_group`` promise the tensor-core kernels only
+    what ``csrc/temporal_mma.cuh`` instantiates and checks: its head_dim
+    dispatch, its 16-row tile and its 8 warps a block."""
+    import re
+    from pathlib import Path
+
+    from cvd_tpu_torch.ops import _build, temporal_attn
+
+    header = Path(_build.CSRC / "temporal_mma.cuh").read_text()
+    dims = tuple(int(d) for d in re.findall(r"case (\d+): return fn\(", header))
+    assert dims == temporal_attn.MMA_HEAD_DIMS
+    assert all(f"integral_constant<int, {d // 8}>" in header for d in dims)
+    assert f"constexpr int ROWS = {temporal_attn.MMA_MAX_FRAMES};" in header
+    assert f"constexpr int MAX_WARPS = {temporal_attn._MMA_MAX_WARPS};" in header
+
+
+def test_temporal_prepare_keeps_split_views_and_refuses_early():
+    """``_prepare``: the split views of a fused bf16 projection go to the
+    kernel uncopied (same storage, frame stride 3C); what no kernel takes
+    raises before any build."""
+    from cvd_tpu_torch.ops import temporal_attn
+
+    fused = torch.zeros(2, 8, 16, 3 * 320, dtype=torch.bfloat16)
+    q, k, v = fused.split(320, -1)
+    mask = torch.zeros(16, 16)
+    pq, pk, pv, pm = temporal_attn._prepare(q, k, v, mask, 8)
+    for got, view in ((pq, q), (pk, k), (pv, v)):
+        assert got.data_ptr() == view.data_ptr() and got.stride() == view.stride()
+        assert got.stride(2) == 960
+    assert pm.dtype == torch.float32 and pm.shape == (16, 16)
+    with pytest.raises(ValueError):
+        temporal_attn._prepare(q, k, v, torch.zeros(16, 8), 8)
+    wide = torch.zeros(2, 8, 33, 320, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        temporal_attn._prepare(wide, wide, wide, None, 8)
+    with pytest.raises(ValueError):  # head_dim 4 in bf16 is 8 bytes
+        temporal_attn._prepare(q[..., :32], k[..., :32], v[..., :32], None, 8)
+    with pytest.raises(TypeError):
+        temporal_attn._prepare(q.half(), k.half(), v.half(), None, 8)
+    assert temporal_attn.temporal_flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("arithmetic", ["bfloat16", "float32"])
+def test_temporal_forward_bound_at_the_timed_shape(arithmetic):
+    """K3 at B4 N1024 F16 C320 in bf16: 168 MB, 0.050 ms by bytes whichever
+    unit does the products; a mask adds its F x F floats."""
+    from cvd_tpu_torch.ops import work
+
+    flops, moved = work.temporal_fwd(4, 1024, 16, 320, 2)
+    assert moved == 4 * 4 * 1024 * 16 * 320 * 2
+    bound, by = work.bound_ms(flops, moved, arithmetic)
+    assert by == "bytes" and bound == pytest.approx(0.0501, rel=5e-3)
+    assert work.temporal_fwd(4, 1024, 16, 320, 2, has_mask=True) == (flops, moved + 16 * 16 * 4)
+
+
 @pytest.mark.parametrize("act", [None, "silu"])
 def test_group_norm_plain_matches_jax(act):
     """K4: GroupNorm with f32 stats, with and without the fused SiLU."""

@@ -168,6 +168,70 @@ def test_temporal_attention_backward_matches_jax(mask_kind):
         close(gi.numpy(), wi)
 
 
+@pytest.mark.parametrize("case", ["F12", "F16 G24", "0 mask", "split views"])
+def test_temporal_attention_backward_matches_jax_off_the_tile(case):
+    """K3 + K7 away from 16 x 16 frames and contiguous inputs (the cases of
+    ``test_torch_ops._temporal_case``): 12 frames, 24 key frames under an
+    arbitrary mask, the one-key "0" mask, q/k/v as ``split`` views of one
+    fused leaf (its gradient is the three gradients side by side)."""
+    from cvd_tpu.ops.temporal_attn import temporal_flash_attention as jax_temporal
+    from cvd_tpu_torch.ops.temporal_attn import temporal_flash_attention
+    from test_torch_ops import _temporal_case
+
+    q, k, v, mask, fused = _temporal_case(case, seed=41)
+    g = np.random.default_rng(42).standard_normal(q.shape).astype(np.float32)
+    jmask = None if mask is None else jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda a, b, c: jax_temporal(a, b, c, jmask, heads=4),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    pmask = None if mask is None else t(mask)
+    if fused is not None:
+        leaf = t(fused, True)
+        out = temporal_flash_attention(*leaf.split(32, -1), pmask, heads=4)
+        got = torch.autograd.grad(out, leaf, t(g))[0].split(32, -1)
+    else:
+        xs = [t(a, True) for a in (q, k, v)]
+        got = torch.autograd.grad(temporal_flash_attention(*xs, pmask, heads=4), xs, t(g))
+    for gi, wi in zip(got, want):
+        assert gi.shape == wi.shape
+        close(gi.numpy(), wi)
+    if case == "0 mask":  # only key frame 0 is attended: dq is zero, dk too
+        assert not got[0].any() and not got[1].any() and not got[2][:, :, 1:].any()
+
+
+def test_temporal_backward_wrapper_takes_views_on_the_cpu():
+    """``temporal_flash_attention_bwd`` with q/k/v as split views and a
+    strided dO (a view of a wider tensor) equals autograd of the forward
+    wrapper on contiguous copies."""
+    from cvd_tpu_torch.ops import temporal_attn
+
+    rng = np.random.default_rng(43)
+    fused = t(rng.standard_normal((2, 8, 12, 96)).astype(np.float32))
+    g = t(rng.standard_normal((2, 8, 12, 64)).astype(np.float32))[..., 32:]
+    assert not g.is_contiguous()
+    mask = t(rng.standard_normal((12, 12)).astype(np.float32))
+    got = temporal_attn.temporal_flash_attention_bwd(*fused.split(32, -1), mask, 4, g)
+    xs = [x.contiguous().requires_grad_() for x in fused.split(32, -1)]
+    want = torch.autograd.grad(temporal_attn.temporal_flash_attention(*xs, mask, 4), xs,
+                               g.contiguous())
+    for gi, wi in zip(got, want):
+        torch.testing.assert_close(gi, wi)
+    assert temporal_attn.temporal_flash_attention_bwd.launches == 0
+
+
+@pytest.mark.parametrize("arithmetic", ["bfloat16", "float32"])
+def test_temporal_backward_bound_at_the_timed_shape(arithmetic):
+    """K7 at B2 N1024 F16 C320 in bf16: 4 reads and 3 writes, 147 MB, 0.044
+    ms by bytes whichever unit does the products."""
+    from cvd_tpu_torch.ops import work
+
+    flops, moved = work.temporal_bwd(2, 1024, 16, 320, 2)
+    assert moved == 7 * 2 * 1024 * 16 * 320 * 2
+    bound, by = work.bound_ms(flops, moved, arithmetic)
+    assert by == "bytes" and bound == pytest.approx(0.0438, rel=5e-3)
+    assert work.temporal_bwd(2, 1024, 16, 320, 2, has_mask=True) == (flops, moved + 16 * 16 * 4)
+
+
 @pytest.mark.parametrize("act", [None, "silu"])
 def test_group_norm_backward_matches_jax(act):
     """K4: gradients of x, gamma and beta."""

@@ -14,7 +14,7 @@ TABLE = [
     ("K2", work.attention_fwd, (64, 8, 1024, 1024, 40, BF16), {},
      "bfloat16", 85.90, 169.9, 0.0869, "operations"),
     ("K3", work.temporal_fwd, (4, 1024, 16, 320, BF16), {},
-     "float32", 1.342, 167.8, 0.0501, "bytes"),
+     "bfloat16", 1.342, 167.8, 0.0501, "bytes"),
     ("K4 UNet", work.group_norm, (64, 1024, 320, BF16), {},
      "float32", 0.2726, 83.89, 0.0250, "bytes"),
     ("K4 VAE", work.group_norm, (32, 65536, 128, BF16), {},
@@ -26,7 +26,7 @@ TABLE = [
     ("K6 no bias", work.attention_bwd, (32, 8, 1024, 1024, 40, BF16), {},
      "bfloat16", 107.4, 168.8, 0.1086, "operations"),
     ("K7", work.temporal_bwd, (2, 1024, 16, 320, BF16), {},
-     "float32", 1.678, 146.8, 0.0438, "bytes"),
+     "bfloat16", 1.678, 146.8, 0.0438, "bytes"),
 ]
 
 
