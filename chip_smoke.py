@@ -13,7 +13,10 @@ Phases (any failure raises and exits non-zero):
    sm_90a, all sources at once) and the Triton GroupNorm, and prints the
    seconds taken.
 3. kernels: each forward kernel against its plain PyTorch version at the
-   sampler's shapes and at the kernels' edges (64 tokens, head_dim 160, a
+   2-view sampler's shapes, at the N-view sampler's (128, 192 and 256 frame
+   rows; K1 routed by a random perfect matching of 4 and of 6 views over
+   interleaved CFG rows, and by the two offset groups of
+   ``accumulate_batched``) and at the kernels' edges (64 tokens, head_dim 160, a
    ragged key length, a ragged token count; for GroupNorm every kind of
    slab of the UNet, C/G off a power of two, and which path each shape
    takes), and each backward kernel (K6, K7: autograd through the kernels
@@ -34,7 +37,10 @@ Phases (any failure raises and exits non-zero):
 4. reference: a narrow UNet (the smoke widths) at 256 px runs the sampler
    on the card, through the kernels, and on the CPU, through the plain
    versions, from the same weights and latents; final latents must agree
-   at >= 60 dB SNR. Then one train step of it, card against CPU, from the
+   at >= 60 dB SNR. The same for the 4-view sampler (2 steps, multistep 2,
+   accumulate_step 2, pairings and re-noise drawn on the CPU from one
+   seed), on the card as a loop of UNet calls and with
+   ``accumulate_batched``. Then one train step of it, card against CPU, from the
    same weights, batch, noise, timesteps and slope (remat on): loss to
    1e-5 relative, trainable gradients at >= 60 dB SNR, and every trainable
    tensor with a nonzero gradient on the card.
@@ -42,18 +48,26 @@ Phases (any failure raises and exits non-zero):
    bf16, 256 px, 16 frames, 2 views, 3 DDIM steps) answers the two prompts
    of assets/example_prompts.json. Launch counts are reset just before
    and read just after: every forward kernel must have run.
-6. train: ``cvd_tpu_torch.cli.train.run`` at SD1.5 width (bf16 frozen
+6. nview: ``cvd_tpu_torch.cli.inference_advanced`` at SD1.5 width (random
+   weights, bf16, 256 px, 16 frames, 4 views on the ``circle`` pattern, 3
+   DDIM steps, multistep 2, accumulate_step 2, the first prompt): 10 UNet
+   calls at 8 CFG rows, then the same with ``accumulate_batched`` (5 calls
+   at 16 rows). Finite [4, 16, 256, 256, 3] videos, K1-K5 all launched, K1
+   handed a route other than the 2-view half swap; ms per UNet call, s per
+   request, peak memory and launches per call of both variants.
+7. train: ``cvd_tpu_torch.cli.train.run`` at SD1.5 width (bf16 frozen
    weights, f32 masters, 256 px, 16 frames, 1 folded pair, 4 steps, remat
    on, sanity dump on) on seeded pixels with the camera geometry of
    assets/pose_files: finite losses, trainable weights moved, frozen ones
    bit-identical, every kernel K1-K7 launched. Then one step with remat
    off for its peak memory. With ``--profile``, torch.profiler tables of
-   three sampler UNet steps and of one training step (kernel time by name,
-   idle share; chiprun_out/{sampler,train}_step_profile.txt).
+   three sampler UNet steps, of the N-view sampler's UNet calls at 8 and at
+   16 CFG rows and of one training step (kernel time by name, idle share;
+   chiprun_out/{sampler_step,nview_8rows,nview_16rows,train_step}_profile.txt).
 
 The second-to-last line is the per-kernel JSON record (times, bound,
-library yardstick, launches per UNet step of the sampler and per training
-step); the last line is ``{"ok": true, "device": {...}}``.
+library yardstick, launches summed over the main paths and per UNet step or
+call of each sampler and per training step); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -224,8 +238,9 @@ def _temporal_mask(torch, g, kind, Fr, G):
     return causal_temporal_mask(kind, Fr).to("cuda")
 
 
-def _epi_inputs(torch, g, B, feat, randn):
-    """The epipolar geometry and routing of B frame rows at a feat x feat grid."""
+def _epi_inputs(torch, g, B, feat, route=None):
+    """The epipolar geometry and routing (default: the 2-view half swap) of B
+    frame rows at a feat x feat grid."""
     from cvd_tpu_torch.geometry.epipolar_mask import (
         epipolar_lines, lines_and_band, pixel_grid_coords,
     )
@@ -233,8 +248,21 @@ def _epi_inputs(torch, g, B, feat, randn):
     F_mats = torch.randn(B, 3, 3, generator=g, device="cuda") * 1e-3
     coords = pixel_grid_coords(feat, 256, "cuda")
     lines, band, alpha = lines_and_band(epipolar_lines(F_mats, coords), feat, 256)
-    route = torch.cat([torch.arange(B // 2, B), torch.arange(0, B // 2)]).to("cuda", torch.int32)
-    return (lines, coords[:, :2].T.contiguous(), band, alpha), route
+    if route is None:
+        route = torch.cat([torch.arange(B // 2, B), torch.arange(0, B // 2)])
+    return (lines, coords[:, :2].T.contiguous(), band, alpha), route.to("cuda", torch.int32)
+
+
+def _nview_route(torch, g, views, groups, frames=16):
+    """kv_index as ``AdvancedPipeline`` builds it: a random perfect matching
+    of the views over interleaved CFG rows (2 * views * frames rows), and for
+    ``accumulate_batched`` one matching a group, each offset into its own
+    row block."""
+    from cvd_tpu_torch.pipelines.advanced import partner_rows, random_pairing
+
+    rows = 2 * views * frames
+    return torch.cat([partner_rows(random_pairing(g, views), frames) + i * rows
+                      for i in range(groups)])
 
 
 def _cases(torch, dtype, g):
@@ -280,38 +308,51 @@ def _cases(torch, dtype, g):
             library_call="scaled_dot_product_attention on [B*N, h, F, D]",
             work=(*work.temporal_fwd(B, N, Fr, C, size, mask is not None), str(dtype)[6:]))
 
-    cases = []
-    for feat, C in ((32, 320), (16, 640), (8, 1280)):
-        N, B = feat * feat, 64
+    def attention_cases(B, feat, C, route, what, timed):
+        """K1 (bias, routed by ``route``; None: the half swap) and K2 on B frame
+        rows of a feat x feat grid."""
+        N, D = feat * feat, C // 8
         q, k, v = randn(B, N, C), randn(B, N, C), randn(B, N, C)
-        geom, route = _epi_inputs(torch, g, B, feat, randn)
-        D = C // 8
-        cases.append(_case(
-            "epi_flash_attention", f"B{B} N{N} C{C} h8 routed",
-            lambda q=q, k=k, v=v, geom=geom, route=route:
-            epi_flash.epi_flash_attention(q, k, v, *geom, heads=8, kv_index=route),
-            lambda q=q, k=k, v=v, geom=geom, route=route:
-            epi_flash._plain(q, k, v, geom, route, 8), feat == 32,
-            launch=lambda q=q, k=k, v=v, geom=geom, route=route: epi_launch(q, k, v, geom, route),
-            library=lambda q=q, k=k, v=v, geom=geom, route=route:
-            epi_library(q, k, v, geom, route),
+        geom, route = _epi_inputs(torch, g, B, feat, route)
+        return [_case(
+            "epi_flash_attention", f"B{B} N{N} C{C} h8 {what}",
+            lambda: epi_flash.epi_flash_attention(q, k, v, *geom, heads=8, kv_index=route),
+            lambda: epi_flash._plain(q, k, v, geom, route, 8), timed,
+            launch=lambda: epi_launch(q, k, v, geom, route),
+            library=lambda: epi_library(q, k, v, geom, route),
             library_call="scaled_dot_product_attention, attn_mask = the bias; excludes "
                          "materialising the bias and gathering k/v by kv_index",
-            work=(*work.attention_fwd(B, 8, N, N, D, size, True, True), "bfloat16")))
-        cases.append(_case(
+            work=(*work.attention_fwd(B, 8, N, N, D, size, True, True), "bfloat16")), _case(
             "flash_attention", f"B{B} N{N} C{C} h8",
-            lambda q=q, k=k, v=v: epi_flash.flash_attention(q, k, v, heads=8),
-            lambda q=q, k=k, v=v: epi_flash._plain(q, k, v, None, None, 8), feat == 32,
-            launch=lambda q=q, k=k, v=v: epi_launch(q, k, v, None, None),
-            library=lambda q=q, k=k, v=v: epi_library(q, k, v, None, None),
+            lambda: epi_flash.flash_attention(q, k, v, heads=8),
+            lambda: epi_flash._plain(q, k, v, None, None, 8), timed,
+            launch=lambda: epi_launch(q, k, v, None, None),
+            library=lambda: epi_library(q, k, v, None, None),
             library_call="scaled_dot_product_attention",
-            work=(*work.attention_fwd(B, 8, N, N, D, size), "bfloat16")))
+            work=(*work.attention_fwd(B, 8, N, N, D, size), "bfloat16"))]
+
+    cases = []
+    for feat, C in ((32, 320), (16, 640), (8, 1280)):
+        N = feat * feat
+        cases += attention_cases(64, feat, C, None, "routed", feat == 32)
         if feat == 8:
             continue  # the temporal kernel's shapes stay those of the main path
         for split in (True, False):  # the main path's layout first: the record's row
             cases.append(temporal_case(f"B4 N{N} F16 C{C} h8 {_layout(split)}",
                                        _temporal_inputs(randn, 4, N, 16, 16, C, split), None, 8,
                                        feat == 32))
+    # the N-view sampler's rows: V views x 2 CFG rows x 16 frames, routed by a
+    # random perfect matching of the views; with accumulate_batched, 2 groups
+    for views, groups, feat, C, timed in ((4, 1, 32, 320, True), (4, 1, 16, 640, False),
+                                          (4, 1, 8, 1280, False), (6, 1, 32, 320, False),
+                                          (4, 2, 32, 320, True)):
+        what = f"matching of {views} views" + (f" x{groups} groups" if groups > 1 else "")
+        cases += attention_cases(2 * views * 16 * groups, feat, C,
+                                 _nview_route(torch, g, views, groups), what, timed)
+    for B in (8, 16):
+        cases.append(temporal_case(f"B{B} N1024 F16 C320 h8 {_layout(True)}",
+                                   _temporal_inputs(randn, B, 1024, 16, 16, 320, True), None, 8,
+                                   True))
     for B, N, Fr, G, C, h, kind, split in TEMPORAL_EDGES:
         cases.append(temporal_case(
             f"B{B} N{N} F{Fr} G{G} C{C} h{h} {kind or 'no'} mask {_layout(split)}",
@@ -325,8 +366,10 @@ def _cases(torch, dtype, g):
     sms = norms._sm_count(torch.device("cuda", 0))
     # the UNet's slabs (res 32 in, res 32 / 16 / 8 up-path concatenations), a
     # C/G off a power of two with S off the block, and the VAE's full-size rows
+    # ... and the N-view sampler's 128 and 256 frame rows
     for R, S, C, timed in ((64, 1024, 320, True), (64, 1024, 960, False), (64, 256, 1920, False),
-                           (64, 64, 2560, False), (5, 200, 1344, False), (32, 65536, 128, True)):
+                           (64, 64, 2560, False), (5, 200, 1344, False), (32, 65536, 128, True),
+                           (128, 1024, 320, True), (256, 1024, 320, True)):
         x = randn(R, S, C, scale=2.0, shift=3.0)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         p = norms.plan(R, S, C, 32, size, sms)
@@ -349,8 +392,11 @@ def _cases(torch, dtype, g):
                 norms._reference(x, gam, bet, 32, 1e-6, act), timed and act == "silu",
                 launch=gn_launch if p.one_pass else None, library=gn_library, library_call="2 calls: group_norm + silu on [R, C, S]",
                 work=(*work.group_norm(R, S, C, size), "float32")))
+    # T = 131072 and 262144 tokens: the N-view sampler's 128 and 256 frame rows at res 32
     for T, C, Ks in ((65536, 320, (2560,)), (65536, 320, (320, 320, 320)), (16384, 640, (5120,)),
-                     (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320))):
+                     (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320)),
+                     (131072, 320, (2560,)), (262144, 320, (2560,)),
+                     (8192, 1280, (1280, 1280, 1280))):
         x = randn(T, C)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         ws = [randn(K, C, scale=1.0 / math.sqrt(C)) for K in Ks]
@@ -370,7 +416,7 @@ def _cases(torch, dtype, g):
             lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
             torch.cat(ln_matmul.layer_norm_matmul(x, gam, bet, ws, bs), -1),
             lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
-            ln_matmul._reference(x, gam, bet, ws, bs, 1e-5), T == 65536,
+            ln_matmul._reference(x, gam, bet, ws, bs, 1e-5), T >= 65536,
             launch=lnmm_launch, library=lnmm_library,
             wrapper=lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
             ln_matmul.layer_norm_matmul(x, gam, bet, ws, bs),
@@ -500,7 +546,7 @@ def _bwd_cases(torch, dtype, g):
     for feat, C in ((32, 320), (16, 640)):
         N, B = feat * feat, 32
         xs, do = (randn(B, N, C), randn(B, N, C), randn(B, N, C)), randn(B, N, C)
-        geom, route = _epi_inputs(torch, g, B, feat, randn)
+        geom, route = _epi_inputs(torch, g, B, feat)
         cases.append(epi_case("epi_flash_attention_bwd", f"B{B} N{N} C{C} h8 routed",
                               xs, do, geom, route, feat == 32))
         cases.append(epi_case("flash_attention_bwd", f"B{B} N{N} C{C} h8",
@@ -620,8 +666,10 @@ def phase_reference(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every tensor drawn: the default initialization would leave the epi
+    # modules the identity, and K1 out of what is compared
     cpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cpu",
-                                 generator=torch.Generator().manual_seed(0))
+                                 generator=torch.Generator().manual_seed(0), random_full=True)
     gpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cuda")
     for name in ("unet", "vae", "clip", "pose_encoder"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
@@ -646,6 +694,56 @@ def phase_reference(torch):
         f"(kernels used: {', '.join(used)})")
     if not snr >= 60.0:
         raise RuntimeError(f"card vs CPU SNR {snr:.1f} dB < 60 dB")
+    _reference_nview(torch, np, cpu, gpu, wrappers)
+
+
+def _nview_cameras(np, torch, views, frames, size):
+    """Plücker maps [V, F, S, S, 6], poses [V*F, 4, 4] and intrinsics [V*F, 3, 3]
+    of the ``circle`` pattern, as ``cli.inference_advanced`` makes them."""
+    from cvd_tpu_torch.geometry.plucker import ray_condition
+    from cvd_tpu_torch.geometry.trajectories import circle_trajectory, default_intrinsics
+
+    c2w = circle_trajectory(views, frames).astype(np.float32)
+    K = default_intrinsics(views, frames, size, size).astype(np.float32)
+    intr = np.stack([K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2]], -1)
+    plucker = ray_condition(intr[None], c2w[None], size, size)[0]
+    return (torch.from_numpy(plucker).reshape(views, frames, size, size, 6),
+            torch.from_numpy(c2w), torch.from_numpy(K))
+
+
+def _reference_nview(torch, np, cpu, gpu, wrappers):
+    """The 4-view sampler of the narrow UNet at 256 px, 2 steps, multistep 2,
+    accumulate_step 2: on the CPU, and on the card as a loop of UNet calls and
+    as batched calls, every draw from a CPU generator of one seed (so the
+    pairings and the re-noise agree); final latents at >= 60 dB, the 2-view
+    check's limit."""
+    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+
+    V, Fr, S = 4, 2, 256
+    rng = np.random.default_rng(1)
+    plucker, c2w, K = _nview_cameras(np, torch, V, Fr, S)
+    inputs = dict(
+        prompt_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+        negative_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+        plucker=plucker, c2w=c2w, K_mats=K, num_inference_steps=2, multistep=2,
+        accumulate_step=2, decode=False)
+
+    def run(modules, batched):
+        pipe = AdvancedPipeline(modules, F_mat_size=S, rand_slope_ff=False,
+                                accumulate_batched=batched)
+        return pipe(**inputs, generator=torch.Generator().manual_seed(7)).cpu().numpy()
+
+    want = run(cpu, False)
+    for batched in (False, True):
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        got = run(gpu, batched)
+        used = sorted(n for n, fn in wrappers.items() if fn.launches > before[n])
+        snr = 10 * np.log10(np.mean(want ** 2) / max(np.mean((got - want) ** 2), 1e-30))
+        log(f"[reference] narrow UNet 256 px f32, 4 views, "
+            f"{'batched accumulate' if batched else 'accumulate loop'}: card vs CPU "
+            f"final-latent SNR {snr:.1f} dB (kernels used: {', '.join(used)})")
+        if not snr >= 60.0 or "epi_flash_attention" not in used:
+            raise RuntimeError(f"4-view card vs CPU SNR {snr:.1f} dB (kernels used: {used})")
 
 
 def _train_batch(torch, np, Fr, S, seed):
@@ -674,7 +772,7 @@ def phase_train_reference(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cpu",
-                                 generator=torch.Generator().manual_seed(1))
+                                 generator=torch.Generator().manual_seed(1), random_full=True)
     gpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cuda")
     for name in ("unet", "clip", "pose_encoder"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
@@ -768,6 +866,125 @@ def phase_slice(torch):
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
     unet_steps = sum(len(rec["unet_step_ms"]) for rec in records)
     return launches, unet_steps
+
+
+def phase_nview(torch):
+    """``cvd_tpu_torch.cli.inference_advanced`` at SD1.5 width: 4 views, 256 px,
+    16 frames, bf16, 3 DDIM steps, multistep 2, accumulate_step 2, the first
+    prompt of assets/example_prompts.json; as a loop (10 UNet calls at 8 CFG
+    rows), then with ``accumulate_batched`` (5 calls at 16 rows).
+    -> {variant: (launches, UNet calls)}."""
+    import numpy as np
+
+    from cvd_tpu_torch.cli import inference_advanced
+    from cvd_tpu_torch.models import epi
+
+    out_root = os.path.join(HERE, "build", "chip_smoke_nview")
+    os.makedirs(out_root, exist_ok=True)
+    with open(os.path.join(HERE, "assets", "example_prompts.json")) as f:
+        prompts = json.load(f)
+    one_prompt = os.path.join(out_root, "prompt.json")
+    with open(one_prompt, "w") as f:
+        json.dump({"captions": prompts["captions"][:1],
+                   "negative_prompts": prompts["negative_prompts"][:1]}, f)
+    args = inference_advanced.build_parser().parse_args([
+        "--random-weights-full", "--bf16", "--image_height", "256", "--image_width", "256",
+        "--video_length", "16", "--view_num", "4", "--cam_pattern", "circle",
+        "--num_inference_steps", "3", "--multistep", "2", "--accumulate_step", "2",
+        "--caption_file", one_prompt, "--use_negative_prompt", "--out_root", out_root])
+
+    # what K1 is handed: count the calls whose route is not the 2-view half swap
+    kernel, other_routes = epi.epi_flash_attention, []
+
+    def watched(q, k, v, *geom, heads, kv_index):
+        B = q.shape[0]
+        half_swap = (torch.arange(B, device=q.device, dtype=torch.int32) + B // 2) % B
+        other_routes.append((kv_index != half_swap).any())
+        return kernel(q, k, v, *geom, heads=heads, kv_index=kv_index)
+
+    wrappers = _wrappers()
+    results = {}
+    epi.epi_flash_attention = watched
+    try:
+        for variant, batched, calls, rows in (("loop", False, 10, 8), ("batched", True, 5, 16)):
+            other_routes.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            (rec,) = inference_advanced.main(args, accumulate_batched=batched)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated()
+            v, ms = rec["videos"], rec["unet_step_ms"]
+            routed = int(torch.stack(other_routes).sum()) if other_routes else 0
+            log(f"[nview] {variant}: 4 views, {len(ms)} UNet calls at {rows} CFG rows x 16 frames: "
+                f"{rec['seconds']:.2f} s the request ({seconds:.2f} s with the module build), "
+                f"UNet calls [{', '.join(f'{x:.1f}' for x in ms)}] ms, steady "
+                f"{sorted(ms[1:])[len(ms[1:]) // 2]:.1f} ms (median after the first), "
+                f"peak allocated {peak / 2**30:.2f} GiB, video std {float(v.std()):.4f}")
+            log(f"[nview] {variant}: launches {launches}; per UNet call "
+                f"{ {n: round(launches[n] / len(ms), 1) for n in FORWARD} } (K4 includes the pose "
+                f"encoder and the VAE decode); K1 calls with a route other than the half swap "
+                f"{routed}/{len(other_routes)}")
+            missing = [n for n in FORWARD if launches[n] == 0]
+            if (v.shape != (4, 16, 256, 256, 3) or not np.isfinite(v).all() or len(ms) != calls
+                    or missing or routed == 0):
+                raise RuntimeError(f"N-view {variant}: videos {v.shape}, finite "
+                                   f"{np.isfinite(v).all()}, {len(ms)} UNet calls (want {calls}), "
+                                   f"kernels not launched {missing}, K1 calls off the half swap "
+                                   f"{routed}")
+            results[variant] = (launches, len(ms))
+    finally:
+        epi.epi_flash_attention = kernel
+    return results
+
+
+def _profile_nview(torch):
+    """torch.profiler over the N-view sampler's UNet calls at SD1.5 width in
+    bf16 (4 views, 16 frames, 256 px, accumulate_step 2, no decode), after a
+    warm-up run: 4 calls at 8 CFG rows (the loop), then 2 at 16 (batched)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvd_tpu_torch.models.clip_text import CLIPTextConfig
+    from cvd_tpu_torch.models.unet import UNetConfig
+    from cvd_tpu_torch.models.vae import VAEConfig
+    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    modules = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cuda",
+                                     dtype=torch.bfloat16, random_full=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    plucker, c2w, K = _nview_cameras(np, torch, 4, 16, 256)
+    inputs = dict(
+        prompt_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+        negative_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+        plucker=plucker, c2w=c2w, K_mats=K, num_inference_steps=2, multistep=1,
+        accumulate_step=2, decode=False, generator=torch.Generator(device="cuda").manual_seed(0))
+    for batched, calls, rows in ((False, 4, 8), (True, 2, 16)):
+        pipe = AdvancedPipeline(modules, accumulate_batched=batched)
+        pipe(**inputs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe(**inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if len(pipe.unet_step_ms) != calls:
+            raise RuntimeError(f"{len(pipe.unet_step_ms)} UNet calls profiled, expected {calls}")
+        log(f"[profile] N-view sampler at {rows} CFG rows, no decode: peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        _report_profile(prof, wall, calls, f"N-view sampler, bf16 UNet calls at {rows} CFG rows "
+                        "(text and pose encoders included once)",
+                        f"nview_{rows}rows_profile.txt")
+    del modules, pipe
+    torch.cuda.empty_cache()
 
 
 class _SeededPairs:
@@ -933,7 +1150,7 @@ def _profile_sampler(torch):
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
 
     modules = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cuda",
-                                     dtype=torch.bfloat16,
+                                     dtype=torch.bfloat16, random_full=True,
                                      generator=torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
     Fr, S, steps = 16, 256, 3
@@ -989,25 +1206,44 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     t_all = time.perf_counter()
+    profile = "--profile" in sys.argv[1:]
+
+    def timed(phase, *args, **kw):
+        t0 = time.perf_counter()
+        out = phase(torch, *args, **kw)
+        log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     smi = phase_device(torch)
     t_nvcc, t_build = phase_build(torch)
-    report = phase_kernels(torch)
-    phase_reference(torch)
-    phase_train_reference(torch)
-    sampler, unet_steps = phase_slice(torch)
-    if "--profile" in sys.argv[1:]:
-        _profile_sampler(torch)
-    launches, train_steps = phase_train(torch, profile="--profile" in sys.argv[1:])
+    report = timed(phase_kernels)
+    timed(phase_reference)
+    timed(phase_train_reference)
+    sampler, unet_steps = timed(phase_slice)
+    nview = timed(phase_nview)
+    if profile:
+        timed(_profile_sampler)
+        timed(_profile_nview)
+    train, train_steps = timed(phase_train, profile=profile)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
-        # launches: the training slice (the later slice's main path); the
-        # sampler's run is kept beside it. Per step: the run's count over
-        # the steps it took (the sampler's K4 count includes the VAE decode)
+        # launches: the sum over the main paths driven above, each with the
+        # counts set to 0 just before it and read just after (2-view sampler,
+        # N-view sampler as a loop and batched, training); each path's own
+        # count is beside it. Per step or call: a run's count over the UNet
+        # calls or steps it took (a sampler's K4 count includes its VAE decode)
+        (nview_loop, loop_calls), (nview_batched, batched_calls) = nview["loop"], nview["batched"]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], "launches_sampler": sampler[name],
+                        "launches": (sampler[name] + nview_loop[name] + nview_batched[name]
+                                     + train[name]),
+                        "launches_sampler": sampler[name], "launches_nview": nview_loop[name],
+                        "launches_nview_batched": nview_batched[name],
+                        "launches_train": train[name],
                         "launches_per_unet_step": sampler[name] / unet_steps,
-                        "launches_per_train_step": launches[name] / train_steps,
+                        "launches_per_nview_call": nview_loop[name] / loop_calls,
+                        "launches_per_nview_batched_call": nview_batched[name] / batched_calls,
+                        "launches_per_train_step": train[name] / train_steps,
                         "max_abs_err": r["max_abs_err"],
                         "max_abs_err_f32": r["max_abs_err_f32"],
                         "err_over_limit": r["err_over_limit"],

@@ -1,6 +1,8 @@
 """Pipeline assembly for the CLIs (port of ``cvd_tpu/cli/build.py``, the
-random-weights branch). Checkpoint import is not ported yet: it waits for
-the SD1.5 / AnimateDiff / CameraCtrl / CVD files to be in the repository.
+random-weights branch) of the 2-view and the N-view sampler. ``--random-weights``
+builds the tiny model from the default initialization (epi modules start as
+the identity), ``--random-weights-full`` the SD1.5 widths with every tensor
+drawn. Checkpoint import is not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -69,5 +71,6 @@ def build_modules(args, device: torch.device) -> Tuple[PipelineModules, HashToke
         device=device,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         generator=generator,
+        random_full=full,
     )
     return modules, HashTokenizer()

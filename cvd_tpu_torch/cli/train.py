@@ -8,15 +8,17 @@ pairs: null-text dropout, periodic logging and checkpoints (the port's
 ``save`` file and the reference-format ``.ckpt``), ``resume_from`` and a
 first-step sanity dump; ``remat: true`` recomputes each UNet block in the
 backward (off by default: PERF.md). ``run(cfg)`` takes the config as a
-dict, so a caller without PyYAML can drive it; ``sources`` replaces the
-on-disk dataset with in-memory ones.
+dict and leaves a ``config.yaml`` snapshot of it in ``output_dir``;
+``sources`` replaces the on-disk dataset with in-memory ones.
 
-Weights: ``random_weights: true`` builds the tiny smoke model and
-``random_weights_full: true`` the SD1.5 widths, drawn on the device from a
-fixed seed. Not ported yet, and raising NotImplementedError (ROADMAP
+Weights: ``random_weights: true`` builds the tiny smoke model from the
+default initialization (the epi modules start as the identity) and
+``random_weights_full: true`` the SD1.5 widths with every tensor drawn, on
+the device from a fixed seed. Not ported yet, and raising NotImplementedError (ROADMAP
 queue 1, training): checkpoint import, datasets other than RealEstate10K,
-``cache_latents``, ``validation_steps > 0``, ``--multihost``,
-``sync_lora_rank > 0``, remat policies other than ``""``, process workers.
+``cache_latents``, ``validation_steps > 0`` / ``validation_data``,
+``--multihost``, ``sync_lora_rank > 0`` / ``sync_lora_scale``, ``lora_rank``,
+``epi_loss_weight``, remat policies other than ``""``, process workers.
 """
 from __future__ import annotations
 
@@ -51,6 +53,11 @@ def _refuse_unported(cfg: dict) -> None:
         (cfg.get("cache_latents", False), "cache_latents: the latents cache"),
         ((cfg.get("validation_steps") or 0) > 0, "validation_steps > 0: validation sampling"),
         ((cfg.get("sync_lora_rank") or 0) > 0, "sync_lora_rank > 0: sync-LoRA"),
+        ((cfg.get("sync_lora_scale") or 1.0) != 1.0, "sync_lora_scale != 1: sync-LoRA"),
+        ((cfg.get("lora_rank") or 0) != 0, "lora_rank != 0: the image LoRA"),
+        ((cfg.get("epi_loss_weight") or 0.0) != 0.0,
+         "epi_loss_weight != 0: the auxiliary q/k head and its epipolar loss"),
+        (bool(cfg.get("validation_data")), "validation_data: validation sampling"),
         (cfg.get("remat_policy", "") != "", f"remat_policy {cfg.get('remat_policy')!r}: "
                                            "the 'dots'/'layer' remat policies"),
         (any(cfg.get(k) for k in _CHECKPOINT_KEYS), "checkpoint import"),
@@ -81,7 +88,8 @@ def build_training_modules(cfg: dict, device):
         vae_config=VAEConfig() if full else SMOKE_VAE,
         clip_config=CLIPTextConfig() if full else SMOKE_CLIP,
         device=device, dtype=torch.float32,
-        generator=torch.Generator(device=device).manual_seed(0), vae_encoder=True)
+        generator=torch.Generator(device=device).manual_seed(0), vae_encoder=True,
+        random_full=full)
     if cfg.get("bf16", False):
         for m in (modules.vae, modules.clip, modules.pose_encoder):
             m.to(torch.bfloat16)
@@ -89,8 +97,10 @@ def build_training_modules(cfg: dict, device):
 
 
 def _frozen_dtype(cfg: dict) -> Optional[torch.dtype]:
-    """The frozen UNet weights' dtype, which the UNet computes in."""
-    name = cfg.get("frozen_weights_dtype", "bfloat16" if cfg.get("bf16") else "float32")
+    """The frozen UNet weights' dtype, which the UNet computes in: bfloat16
+    unless ``frozen_weights_dtype`` says otherwise, whatever ``bf16`` says
+    (that key is for the VAE, CLIP and the pose encoder)."""
+    name = cfg.get("frozen_weights_dtype", "bfloat16")
     return {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
             "float32": torch.float32, "f32": torch.float32}[name]
 
@@ -114,6 +124,10 @@ def run(cfg: dict, sources: Optional[Sequence] = None) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     logger = setup_logger(out_dir)
     metrics_log = MetricsLogger(out_dir)
+    import yaml
+
+    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)   # the snapshot of what this run was asked for
     n_frames = cfg.get("sample_n_frames", 16)
     sample_size = cfg.get("sample_size", 256)
     seed = cfg.get("global_seed", 42)

@@ -10,9 +10,11 @@ from cvd_tpu_torch.geometry.epipolar import (
     fundamental_from_transform,
     relative_transform,
     fundamental_between_views,
+    fundamental_between_views_torch,
 )
 from cvd_tpu_torch.geometry.epipolar_mask import (
     epipolar_lines,
+    homography_lines,
     pseudo_lines,
     epipolar_attn_bias_from_lines,
     lines_and_band,

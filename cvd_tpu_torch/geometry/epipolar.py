@@ -1,8 +1,11 @@
-"""Two-view epipolar geometry as batch-first numpy functions (host side).
+"""Two-view epipolar geometry as batch-first functions: numpy on the host,
+and ``fundamental_between_views_torch`` on device tensors.
 
-Port of ``cvd_tpu/geometry/epipolar.py`` without its jnp/numpy dispatch:
-the 2-view sampler computes its fundamental matrices once per request on
-the host, so numpy is the only backend here.
+Port of ``cvd_tpu/geometry/epipolar.py`` without its jnp/numpy dispatch.
+The 2-view sampler computes its fundamental matrices once per request on
+the host (numpy); the N-view sampler draws a fresh pairing of views at
+every UNet call and computes their matrices where the poses live, on the
+device, with no host round trip (torch).
 
 Conventions
 -----------
@@ -14,6 +17,7 @@ Conventions
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def rigid_inverse(T: np.ndarray) -> np.ndarray:
@@ -76,3 +80,39 @@ def fundamental_between_views(src_c2w, dst_c2w, K_src, K_dst) -> np.ndarray:
     """F mapping src-view pixels to epipolar lines in the dst view, batched."""
     T = relative_transform(src_c2w, dst_c2w)
     return fundamental_from_transform(T, K_src, K_dst)
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., i, j] @ [..., j, k] as a broadcast product and a sum: exact f32
+    on every device (no library product, so TF32 never applies to the 3x3
+    and 4x4 matrices the epipolar band of a few pixels hangs on)."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
+def fundamental_between_views_torch(src_c2w: torch.Tensor, dst_c2w: torch.Tensor,
+                                    K_src: torch.Tensor, K_dst: torch.Tensor) -> torch.Tensor:
+    """``fundamental_between_views`` on tensors, on their device, in f32:
+    [..., 4, 4] poses and [..., 3, 3] intrinsics -> [..., 3, 3]."""
+    src_c2w, dst_c2w, K_src, K_dst = (x.float() for x in (src_c2w, dst_c2w, K_src, K_dst))
+    # T = inv(dst_c2w) @ src_c2w with the rigid inverse [R^T, -R^T t]
+    Rd_t = dst_c2w[..., :3, :3].transpose(-1, -2)
+    R = _matmul_f32(Rd_t, src_c2w[..., :3, :3])
+    t = _matmul_f32(Rd_t, (src_c2w[..., :3, 3] - dst_c2w[..., :3, 3])[..., None])[..., 0]
+    # E = R [t_ess]x with t_ess = -R^T t
+    e = -_matmul_f32(R.transpose(-1, -2), t[..., None])[..., 0]
+    zero = torch.zeros_like(e[..., 0])
+    cross = torch.stack([torch.stack([zero, -e[..., 2], e[..., 1]], -1),
+                         torch.stack([e[..., 2], zero, -e[..., 0]], -1),
+                         torch.stack([-e[..., 1], e[..., 0], zero], -1)], -2)
+    E = _matmul_f32(R, cross)
+
+    def k_inv(K):
+        fx, s, cx = K[..., 0, 0], K[..., 0, 1], K[..., 0, 2]
+        fy, cy = K[..., 1, 1], K[..., 1, 2]
+        one = torch.ones_like(fx)
+        return torch.stack([
+            torch.stack([1.0 / fx, -s / (fx * fy), (s * cy - cx * fy) / (fx * fy)], -1),
+            torch.stack([zero, 1.0 / fy, -cy / fy], -1),
+            torch.stack([zero, zero, one], -1)], -2)
+
+    return _matmul_f32(_matmul_f32(k_inv(K_dst).transpose(-1, -2), E), k_inv(K_src))

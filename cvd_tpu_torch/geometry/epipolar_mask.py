@@ -59,6 +59,21 @@ def pseudo_lines(coords: torch.Tensor,
     return torch.stack([a, b, c], dim=-1)
 
 
+def homography_lines(H_mats: torch.Tensor, coords: torch.Tensor, F_mat_size: int,
+                     slope: torch.Tensor) -> torch.Tensor:
+    """Pseudo-epipolar lines through a homography (the pose-free data path):
+    centre the pixel coords, apply H, dehomogenise, un-centre, then draw a
+    line of the given slope through the mapped point.
+    H_mats [B, 3, 3], coords [Q, 3], slope [B] radians -> [B, Q, 3]."""
+    half = (F_mat_size - 1) / 2.0
+    centred = coords.clone()
+    centred[:, :2] -= half
+    mapped = torch.einsum("bij,qj->bqi", H_mats, centred)
+    mapped = mapped / (mapped[..., 2:] + _EPS)
+    mapped = torch.cat([mapped[..., :2] + half, mapped[..., 2:]], dim=-1)
+    return pseudo_lines(mapped, slope=slope)
+
+
 def _corner_coords(feat_size: int, F_mat_size: int, device,
                    dtype) -> torch.Tensor:
     """The 4 corner pixel coords of the rescaled grid, [4, 3]."""

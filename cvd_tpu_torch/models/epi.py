@@ -9,10 +9,15 @@ kernel K1 through ``kv_index``, with the bias evaluated per tile from the
 factored line geometry; on smaller grids the partner rows are gathered and
 the bias materialized (plain attention).
 
-The 2-view route only: the partner of row b is row (b + B/2) mod B (the
-half swap). Left out of this port so far: homography (H_mats) and
-pose-free pseudo lines, explicit / multi-group kv routing (the N-view
-sampler's ``kv_index``), ``fix_firstframe``.
+Routing: without ``kv_index`` the partner of row b is row (b + B/2) mod B
+(the 2-view half swap); the N-view sampler passes ``kv_index`` (a fresh
+pairing of views at every UNet call), and a ``kv_index`` of m * B rows
+gives every query row m partners whose tokens are concatenated
+(multi-group; the plain path, as in the JAX package). Lines come from
+fundamental matrices, from homographies (``H_mats``, the pose-free data
+path) or, with neither, are pseudo lines through each pixel.
+``fix_firstframe`` replaces the first frame's output by its values
+averaged over the views.
 
 The epi modules are what training updates: their weights may be f32
 masters under bf16 activations, so every projection casts its weights at
@@ -28,7 +33,7 @@ import torch
 from torch import nn
 
 from cvd_tpu_torch.geometry.epipolar_mask import (
-    epipolar_attn_bias_from_lines, epipolar_lines, lines_and_band,
+    epipolar_attn_bias_from_lines, epipolar_lines, homography_lines, lines_and_band,
     pixel_grid_coords, pseudo_lines,
 )
 from cvd_tpu_torch.models.layers import (
@@ -47,16 +52,35 @@ class EpiConditioning:
     """Per-UNet-call epipolar conditioning carried to every epi attention.
     Batch-major over (video * cfg, frame), like the hidden states there."""
 
-    F_mats: Optional[torch.Tensor] = None    # [B, 3, 3] f32
+    F_mats: Optional[torch.Tensor] = None    # [m*B, 3, 3] or [B, 3, 3] f32
+    H_mats: Optional[torch.Tensor] = None    # [B, 3, 3] f32
+    kv_index: Optional[torch.Tensor] = None  # [m*B] int partner rows
     F_mat_size: int = 256
     video_length: int = 16
     rand_slope_ff: bool = True
     mono_direction: bool = False
-    # draws the first-frame pseudo-line slope of every epi attention
+    fix_firstframe: bool = False
+    cfg_factor: int = 2
+    # draws the pseudo-line slopes of every epi attention
     generator: Optional[torch.Generator] = None
-    # or one slope [1] for every epi attention of the call, drawn beforehand
-    # (training: a remat replay must see the lines the loss saw)
+    # or the slope(s), [1] or one per row, for every epi attention of the call,
+    # drawn beforehand (training: a remat replay must see the lines the loss saw)
     slope: Optional[torch.Tensor] = None
+    _route: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+
+    def route(self, batch: int, device) -> torch.Tensor:
+        """The partner row of every query row, int32 [batch] on ``device``:
+        ``kv_index`` or the half swap. Built at the first epi attention of a
+        UNet call and kept for the others."""
+        r = self._route
+        if r is None or r.shape[0] != batch or r.device != torch.device(device):
+            if self.kv_index is not None:
+                r = self.kv_index.to(device=device, dtype=torch.int32)
+            else:
+                r = (torch.arange(batch, device=device, dtype=torch.int32)
+                     + batch // 2) % batch
+            self._route = r
+        return r
 
 
 def _uniform_slope(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
@@ -69,29 +93,60 @@ def _uniform_slope(generator: Optional[torch.Generator], shape, device) -> torch
     return (u * math.pi).to(device)
 
 
-def _epi_lines(cond: EpiConditioning, feat_size: int, device) -> torch.Tensor:
-    """Per-query epipolar line coefficients [B, Q, 3], every
-    ``video_length``-th row replaced by first-frame pseudo lines with one
-    shared slope (or horizontal lines without rand_slope_ff)."""
-    if cond.F_mats is None:
-        raise NotImplementedError("pose-free / homography epi lines are not ported yet")
+def _slope(cond: EpiConditioning, shape, device) -> torch.Tensor:
+    if cond.slope is not None:
+        return cond.slope.to(device).expand(shape)
+    return _uniform_slope(cond.generator, shape, device)
+
+
+def _epi_lines(cond: EpiConditioning, batch: int, feat_size: int, device) -> torch.Tensor:
+    """Per-query epipolar (or pseudo) line coefficients [B or m*B, Q, 3], by
+    the three paths of the reference's ``EpiEncoding.get_attn_map``
+    (epi_module.py:301-320): homographies with a slope per row; fundamental
+    matrices, every ``video_length``-th row replaced by first-frame pseudo
+    lines with one shared slope (or horizontal lines without
+    rand_slope_ff); neither: pseudo lines with a slope per row."""
     coords = pixel_grid_coords(feat_size, cond.F_mat_size, device)
-    F_mats = cond.F_mats.to(device=device, dtype=torch.float32)
-    B = F_mats.shape[0]
-    lines = epipolar_lines(F_mats, coords)
-    slope = None
-    if cond.rand_slope_ff:
-        slope = (cond.slope.to(device) if cond.slope is not None
-                 else _uniform_slope(cond.generator, (1,), device))
-    ff_lines = pseudo_lines(coords[None], slope=slope)
-    is_ff = (torch.arange(B, device=device) % cond.video_length) == 0
-    return torch.where(is_ff[:, None, None], ff_lines, lines)
+    if cond.H_mats is not None:
+        H_mats = cond.H_mats.to(device=device, dtype=torch.float32)
+        return homography_lines(H_mats, coords, cond.F_mat_size,
+                                _slope(cond, (H_mats.shape[0],), device))
+    if cond.F_mats is not None:
+        F_mats = cond.F_mats.to(device=device, dtype=torch.float32)
+        B = F_mats.shape[0]
+        lines = epipolar_lines(F_mats, coords)
+        slope = _slope(cond, (1,), device) if cond.rand_slope_ff else None
+        ff_lines = pseudo_lines(coords[None], slope=slope)
+        is_ff = (torch.arange(B, device=device) % cond.video_length) == 0
+        return torch.where(is_ff[:, None, None], ff_lines, lines)
+    return pseudo_lines(coords[None].expand(batch, *coords.shape),
+                        slope=_slope(cond, (batch,), device))
 
 
-def gather_partner_tokens(hidden: torch.Tensor) -> torch.Tensor:
-    """Key/value source rows: the 2-view half swap."""
-    half = hidden.shape[0] // 2
-    return torch.cat([hidden[half:], hidden[:half]], dim=0)
+def gather_partner_tokens(hidden: torch.Tensor,
+                          kv_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Key/value source rows: the 2-view half swap without ``kv_index``
+    (attention_processor.py:575-576), else the rows it names; m * B of them
+    are m groups whose tokens are concatenated: [B, m * N, C] (:577-583)."""
+    B, N, C = hidden.shape
+    if kv_index is None:
+        half = B // 2
+        return torch.cat([hidden[half:], hidden[:half]], dim=0)
+    enc = hidden[kv_index.to(hidden.device).long()]
+    if kv_index.shape[0] != B:
+        m = kv_index.shape[0] // B
+        enc = enc.reshape(m, B, N, C).permute(1, 2, 0, 3).reshape(B, N * m, C)
+    return enc
+
+
+def regroup_bias(bias: torch.Tensor, batch: int) -> torch.Tensor:
+    """[m*B, N, N] bias -> [B, N, m*N], aligned with multi-group kv tokens
+    (epi_module.py:398-402)."""
+    mB, N, _ = bias.shape
+    if mB == batch:
+        return bias
+    m = mB // batch
+    return bias.reshape(m, batch, N, N).permute(1, 2, 3, 0).reshape(batch, N, N * m)
 
 
 class EpiSelfAttention(nn.Module):
@@ -117,30 +172,42 @@ class EpiSelfAttention(nn.Module):
         if cond.mono_direction:
             # the reference rejects this path too (attention_processor.py:622)
             raise NotImplementedError("mono_direction is not supported")
-        lines = _epi_lines(cond, feat_size, x.device)
+        lines = _epi_lines(cond, B, feat_size, x.device)
         weights = (self.to_q.weight, self.to_k.weight, self.to_v.weight)
+        multi_group = cond.kv_index is not None and cond.kv_index.shape[0] != B
 
         def project(tokens, ws):
             return layer_norm_matmul(tokens, pre_ln.weight, pre_ln.bias, list(ws),
                                      [None] * len(ws), eps=pre_ln.eps)
 
-        if feat_size >= EPI_KERNEL_MIN_FEAT:
-            half = B // 2
-            route = torch.cat([torch.arange(half, B), torch.arange(0, half)])
-            route = route.to(device=x.device, dtype=torch.int32)
+        if feat_size >= EPI_KERNEL_MIN_FEAT and not multi_group:
             q, k, v = project(x, weights)
             coords_xy = pixel_grid_coords(feat_size, cond.F_mat_size, x.device)[:, :2].T
             norm_lines, band, alpha = lines_and_band(lines, feat_size, cond.F_mat_size)
             out = epi_flash_attention(q, k, v, norm_lines, coords_xy.contiguous(), band,
-                                      alpha, heads=self.heads, kv_index=route)
+                                      alpha, heads=self.heads,
+                                      kv_index=cond.route(B, x.device))
+            v_self = v
         else:
             (q,) = project(x, weights[:1])
-            k, v = project(gather_partner_tokens(x), weights[1:])
+            k, v = project(gather_partner_tokens(x, cond.kv_index), weights[1:])
             coords = pixel_grid_coords(feat_size, cond.F_mat_size, x.device)
-            bias = epipolar_attn_bias_from_lines(lines, coords, feat_size, cond.F_mat_size)
+            bias = regroup_bias(epipolar_attn_bias_from_lines(
+                lines, coords, feat_size, cond.F_mat_size), B)
             out = merge_heads(attention_with_bias(
                 split_heads(q, self.heads), split_heads(k, self.heads),
                 split_heads(v, self.heads), bias))
+            v_self = None
+        if cond.fix_firstframe:
+            # the first frame's output becomes its own V averaged over the views,
+            # per CFG row (attention_processor.py:629-635)
+            if v_self is None:
+                (v_self,) = project(x, weights[2:])
+            f, t = cond.video_length, cond.cfg_factor
+            views = B // (t * f)
+            ff = v_self.reshape(views, t, f, N, C)[:, :, :1].mean(0, keepdim=True)
+            out = torch.cat([ff.expand(views, t, 1, N, C),
+                             out.reshape(views, t, f, N, C)[:, :, 1:]], dim=2).reshape(B, N, C)
         return linear(self.to_out[0], out)
 
 

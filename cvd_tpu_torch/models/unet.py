@@ -50,6 +50,10 @@ class UNetConfig:
     # (default 32), NOT from norm_num_groups (docs/PARITY.md:105-108)
     motion_norm_groups: int = 32
     epi_norm_groups: int = 32
+    # which output projections a fresh model starts at zero (an untrained
+    # module is then the identity): ``zero_initialized`` below
+    motion_zero_initialize: bool = False
+    epi_zero_initialize: bool = True
     pose_cond_attn_indices: Tuple[int, ...] = (0,)
     pose_scale: float = 1.0
     use_epi_module: bool = True
@@ -201,6 +205,18 @@ class UNet3DConditionModel(nn.Module):
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = FusedGroupNorm(ch[0], cfg.norm_num_groups, 1e-5, act="silu")
         self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, 1, 1)
+
+    def zero_initialized(self) -> List[str]:
+        """Names of the parameters a fresh model starts at zero: the pose
+        merge layers (``qkv_merge``; biases start at zero anyway), the epi
+        modules' ``proj_out`` with ``epi_zero_initialize`` and the motion
+        modules' with ``motion_zero_initialize``."""
+        ends = ["qkv_merge.weight"]
+        if self.config.epi_zero_initialize:
+            ends.append("epi_transformer.proj_out.weight")
+        if self.config.motion_zero_initialize:
+            ends.append("temporal_transformer.proj_out.weight")
+        return [n for n, _ in self.named_parameters() if n.endswith(tuple(ends))]
 
     def forward(
         self,

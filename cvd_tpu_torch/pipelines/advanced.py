@@ -1,0 +1,202 @@
+"""Advanced N-view pipeline (port of ``cvd_tpu/pipelines/advanced.py``, the
+reference's ``pipeline_animation_epi_advanced.py``):
+
+* interleaved CFG rows [v0-uncond, v0-cond, v1-uncond, ...]
+  (``repeat_interleave(2)``), recombined by [0::2] / [1::2] (:672-691);
+* a random perfect matching of the views at every UNet call; ``kv_index``
+  routes each row to its partner's row, and the fundamental matrices of
+  the sampled pairs are computed on the device (:621-647);
+* multistep recurrent denoising: every timestep but the last is taken
+  ``multistep`` times, re-noised in between (:601-705);
+* ``accumulate_step`` pairings averaged into one noise prediction (:605,
+  :699), as a loop of UNet calls or, with ``accumulate_batched``, as ONE
+  call at batch 2V * accumulate_step with each group's routing offset into
+  its own row block;
+* the fixed 2-view path (``F_mats``) and the homography path (``H_mats``).
+
+A Python loop over timesteps, one or more UNet calls each. Every random
+draw (initial latents, pairings, re-noise, epi slopes) comes from the one
+``generator`` the caller passes. Not ported yet: Pyramid Attention
+Broadcast and meshes (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from cvd_tpu_torch.geometry.epipolar import fundamental_between_views_torch
+from cvd_tpu_torch.models.epi import EpiConditioning
+from cvd_tpu_torch.pipelines.common import (
+    PipelineModules, SpanTimer, decode_latents, encode_prompt,
+)
+
+
+def random_pairing(generator: Optional[torch.Generator], num_views: int) -> torch.Tensor:
+    """partner[v] of a random perfect matching of the views (:625-629),
+    int64 [num_views] on the generator's device."""
+    device = generator.device if generator is not None else "cpu"
+    perm = torch.randperm(num_views, generator=generator, device=device)
+    a, b = perm[:num_views // 2], perm[num_views // 2:]
+    partner = torch.empty_like(perm)
+    partner[a] = b
+    partner[b] = a
+    return partner
+
+
+def partner_rows(partner: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """The routing of a pairing over the interleaved CFG rows: partner [V] ->
+    kv_index [2 * V * F], where row r of view v reads the row of the same CFG
+    half and frame of view partner[v]: r + (partner[v] - v) * 2F."""
+    two_f = 2 * num_frames
+    row = torch.arange(partner.shape[0] * two_f, device=partner.device)
+    row_v = row // two_f
+    return row + (partner[row_v] - row_v) * two_f
+
+
+def interleave_cfg(x: torch.Tensor) -> torch.Tensor:
+    """[V, ...] -> [2V, ...], each row twice in place (uncond, cond)."""
+    return x.repeat_interleave(2, dim=0)
+
+
+class AdvancedPipeline:
+    """N-view generation with a fresh pairing of views at every UNet call."""
+
+    def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
+                 rand_slope_ff: bool = True, fix_firstframe: bool = False,
+                 accumulate_batched: bool = False):
+        self.m = modules
+        self.F_mat_size = F_mat_size
+        self.rand_slope_ff = rand_slope_ff
+        self.fix_firstframe = fix_firstframe
+        self.accumulate_batched = accumulate_batched
+        # wall time of each UNet call of the last run, in ms (CUDA events on
+        # the card, the host clock on the CPU)
+        self.unet_step_ms: List[float] = []
+
+    # the two draws between UNet calls, apart so that a test can replay another
+    # program's pairings and noise
+
+    def draw_pairing(self, generator: Optional[torch.Generator], num_views: int) -> torch.Tensor:
+        return random_pairing(generator, num_views)
+
+    def draw_noise(self, generator: Optional[torch.Generator], shape) -> torch.Tensor:
+        return torch.randn(shape, generator=generator,
+                           device=generator.device if generator is not None else "cpu")
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        prompt_ids: torch.Tensor,                # [1, 77] int
+        negative_ids: torch.Tensor,              # [1, 77] int
+        plucker: torch.Tensor,                   # [V, F, H, W, 6]
+        c2w: Optional[torch.Tensor] = None,      # [V*F, 4, 4] camera poses (N-view path)
+        K_mats: Optional[torch.Tensor] = None,   # [V*F, 3, 3]
+        F_mats: Optional[torch.Tensor] = None,   # [2, F, 3, 3] fixed pair mats (V == 2)
+        H_mats: Optional[torch.Tensor] = None,   # [V, F, 3, 3] homographies (pose-free)
+        num_inference_steps: int = 25,
+        guidance_scale: float = 8.5,
+        multistep: int = 1,
+        accumulate_step: int = 1,
+        generator: Optional[torch.Generator] = None,
+        latents: Optional[torch.Tensor] = None,
+        decode: bool = True,
+        pab_config=None,
+    ) -> torch.Tensor:
+        """Returns images [V, F, H, W, 3] in [0, 1] (or the final latents
+        [V, F, H/8, W/8, 4] with ``decode=False``), f32."""
+        if pab_config is not None:
+            raise NotImplementedError("Pyramid Attention Broadcast is not ported yet "
+                                      "(ROADMAP.md, queue 1, item 3)")
+        m = self.m
+        device = m.unet.conv_in.weight.device
+        dtype = m.unet.conv_in.weight.dtype
+        V, Fr, H, W, _ = plucker.shape
+        A = accumulate_step
+        n_view_path = H_mats is None and not (V == 2 and F_mats is not None)
+        if n_view_path and (c2w is None or K_mats is None):
+            raise ValueError("the N-view path needs c2w and K_mats (or pass F_mats for "
+                             "2 views, or H_mats)")
+        if n_view_path and V % 2:
+            raise ValueError(f"{V} views: the pairing is a perfect matching, so the "
+                             "number of views must be even")
+        batched = self.accumulate_batched and A > 1 and n_view_path
+        groups = A if batched else 1
+        state = m.scheduler.set_timesteps(num_inference_steps)
+
+        uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
+        text = torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1).to(dtype)
+        pose_feats = [interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1) for p in
+                      m.pose_encoder(plucker.to(device=device, dtype=dtype))]
+        if latents is None:
+            latents = self.draw_noise(generator, (V, Fr, H // 8, W // 8, 4))
+        latents = latents.to(device=device, dtype=torch.float32) * m.scheduler.init_noise_sigma
+
+        n_rows = 2 * V * Fr
+        row = torch.arange(n_rows, device=device)
+        row_v, row_f = row // (2 * Fr), row % Fr
+        src = row_v * Fr + row_f     # the row's (view, frame) in the [V * F] camera arrays
+        if n_view_path:
+            c2w = c2w.to(device=device, dtype=torch.float32)
+            K_mats = K_mats.to(device=device, dtype=torch.float32)
+
+        def conditioning(**kw) -> EpiConditioning:
+            return EpiConditioning(
+                video_length=Fr, F_mat_size=self.F_mat_size, rand_slope_ff=self.rand_slope_ff,
+                fix_firstframe=self.fix_firstframe, cfg_factor=2, generator=generator, **kw)
+
+        fixed = None     # the conditioning of the two paths that draw no pairing
+        if H_mats is not None:
+            rows = H_mats.to(device=device, dtype=torch.float32).reshape(V * Fr, 3, 3)
+            fixed = conditioning(H_mats=rows[src])
+        elif not n_view_path:
+            rows = F_mats.to(device=device, dtype=torch.float32).reshape(V * Fr, 3, 3)
+            fixed = conditioning(F_mats=rows[src])
+
+        def make_cond() -> EpiConditioning:
+            """The conditioning of one UNet call: a fixed one, or a fresh
+            pairing with its fundamental matrices and routing."""
+            if fixed is not None:
+                return fixed
+            partner = self.draw_pairing(generator, V).to(device)
+            dst = partner[row_v] * Fr + row_f
+            return conditioning(
+                F_mats=fundamental_between_views_torch(c2w[src], c2w[dst],
+                                                       K_mats[src], K_mats[dst]),
+                kv_index=partner_rows(partner, Fr))
+
+        timer = SpanTimer(device)
+
+        def guided_eps(lat: torch.Tensor, t: int) -> torch.Tensor:
+            """The guided noise prediction of ``groups`` pairings in one UNet
+            call, summed over the groups."""
+            conds = [make_cond() for _ in range(groups)]
+            cond_t = conds[0]
+            if groups > 1:
+                cond_t = conditioning(
+                    F_mats=torch.cat([c.F_mats for c in conds]),
+                    kv_index=torch.cat([c.kv_index + g * n_rows for g, c in enumerate(conds)]))
+            lat_in = interleave_cfg(lat).repeat(groups, 1, 1, 1, 1)
+            with timer:
+                eps = m.unet(lat_in, t, text, pose_feats, cond_t).float()
+            eps = eps.reshape((groups, 2 * V) + eps.shape[1:])
+            guided = eps[:, 0::2] + guidance_scale * (eps[:, 1::2] - eps[:, 0::2])
+            return guided.sum(0)
+
+        last = len(state.timesteps) - 1
+        for i, t in enumerate(state.timesteps):
+            t = int(t)
+            # the last timestep is taken once (:602)
+            repeats = 1 if i == last else multistep
+            for rep in range(repeats):
+                eps = guided_eps(latents, t)
+                for _ in range(A // groups - 1):
+                    eps = eps + guided_eps(latents, t)
+                latents = m.scheduler.step(state, eps / A, t, latents)
+                if rep != repeats - 1:
+                    noise = self.draw_noise(generator, latents.shape).to(device)
+                    latents = m.scheduler.renoise(state, latents, t, noise)
+        self.unet_step_ms = timer.elapsed_ms()
+        if not decode:
+            return latents
+        return decode_latents(m, latents)

@@ -4,12 +4,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from cvd_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+from cvd_tpu_torch.models.layers import FusedGroupNorm
 from cvd_tpu_torch.models.pose_encoder import CameraPoseEncoder
 from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
 from cvd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -39,6 +41,33 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+@torch.no_grad()
+def default_init_(module: nn.Module, generator: torch.Generator,
+                  zero: Sequence[str] = ()) -> nn.Module:
+    """The initialization a fresh model starts from, drawn from ``generator``:
+    Linear and Conv2d weights uniform in +-1/sqrt(fan_in) (what torch's
+    ``reset_parameters`` gives them), embeddings unit normal, every bias 0,
+    every norm scale 1, and the parameters named in ``zero`` 0: which tensors
+    start at zero, at one or free is what the JAX package's Flax init has
+    (``UNet3DConditionModel.zero_initialized``); the free draws are not Flax's."""
+    zero = set(zero)
+    for prefix, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if f"{prefix}.{name}" in zero or name == "bias":
+                p.zero_()
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FusedGroupNorm)):
+                p.fill_(1.0)
+            elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                bound = 1.0 / math.sqrt(p[0].numel())  # fan_in = in_features * kernel area
+                u = torch.rand(p.shape, generator=generator, device=generator.device,
+                               dtype=torch.float32)
+                p.copy_((u * (2 * bound) - bound).to(p.device, p.dtype))
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator, device=generator.device,
+                                    dtype=torch.float32).to(p.device, p.dtype))
+    return module
+
+
 @dataclasses.dataclass
 class PipelineModules:
     """The model bundle of one assembled pipeline."""
@@ -59,12 +88,19 @@ class PipelineModules:
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         vae_encoder: bool = False,
+        random_full: bool = False,
     ) -> "PipelineModules":
         """Build the bundle on ``device``. With ``generator`` the weights are
-        random, drawn on the generator's device; without it they are left
-        for ``load_state_dict``. Modules are built on the meta device and
-        materialized in place, so a full-size bundle never exists on the
-        host. ``vae_encoder`` adds the VAE's encoder (training)."""
+        initialized from it, on the generator's device: ``default_init_``
+        (an untrained epi module is the identity), or with ``random_full``
+        the fan-in uniforms of ``random_init_`` over EVERY parameter (runs
+        without weights that must exercise every layer). Without a
+        generator the parameters are left for ``load_state_dict``. Modules
+        are built on the meta device and materialized in place, so a
+        full-size bundle never exists on the host. ``vae_encoder`` adds the
+        VAE's encoder (training)."""
+        if random_full and generator is None:
+            raise ValueError("random_full needs a generator")
         unet_config = unet_config or UNetConfig()
         with torch.device("meta"):
             mods = [
@@ -76,13 +112,46 @@ class PipelineModules:
         out = []
         for m in mods:
             m = m.to_empty(device=device)
-            if generator is not None:
+            if random_full:
                 random_init_(m, generator)
+            elif generator is not None:
+                zero = m.zero_initialized() if isinstance(m, UNet3DConditionModel) else ()
+                default_init_(m, generator, zero)
             m = m.to(dtype=dtype).eval().requires_grad_(False)
             if torch.device(device).type == "cuda":
                 m = m.to(memory_format=torch.channels_last)
             out.append(m)
         return cls(*out, DDIMScheduler())
+
+
+class SpanTimer:
+    """Times each ``with timer:`` span on ``device``: CUDA events on the card
+    (no sync until ``elapsed_ms``), the host clock on the CPU."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.marks = []
+
+    def _mark(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __enter__(self):
+        self.marks.append(self._mark())
+
+    def __exit__(self, *exc):
+        self.marks.append(self._mark())
+
+    def elapsed_ms(self) -> List[float]:
+        """The wall time of every span so far, in ms."""
+        pairs = zip(self.marks[::2], self.marks[1::2])
+        if self.device.type != "cuda":
+            return [1e3 * (b - a) for a, b in pairs]
+        torch.cuda.synchronize(self.device)
+        return [a.elapsed_time(b) for a, b in pairs]
 
 
 def encode_prompt(modules: PipelineModules, prompt_ids: torch.Tensor,

@@ -6,18 +6,20 @@
 * a Python DDIM loop, one UNet call per step;
 * a whole-video VAE decode.
 
-Not ported yet: multidiff sliding windows (``multidiff_total_steps > 1``),
-Pyramid Attention Broadcast and meshes.
+More than two views: ``pipelines/advanced.py``. Not ported yet: multidiff
+sliding windows (``multidiff_total_steps > 1``), Pyramid Attention
+Broadcast and meshes (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
-import time
 from typing import List, Optional
 
 import torch
 
 from cvd_tpu_torch.models.epi import EpiConditioning
-from cvd_tpu_torch.pipelines.common import PipelineModules, decode_latents, encode_prompt
+from cvd_tpu_torch.pipelines.common import (
+    PipelineModules, SpanTimer, decode_latents, encode_prompt,
+)
 
 
 def _cfg4(x: torch.Tensor) -> torch.Tensor:
@@ -77,30 +79,16 @@ class SimplePipeline:
                                   device=generator.device if generator is not None else device)
         latents = latents.to(device=device, dtype=torch.float32) * m.scheduler.init_noise_sigma
 
-        cuda = device.type == "cuda"
-        marks = []
+        timer = SpanTimer(device)
         for t in state.timesteps:
-            marks.append(self._mark(cuda))
-            eps = m.unet(_cfg4(latents), int(t), text, pose_feats, epi_cond).float()
-            marks.append(self._mark(cuda))
+            with timer:
+                eps = m.unet(_cfg4(latents), int(t), text, pose_feats, epi_cond).float()
             # chunk(4): uncond rows (0, 2), cond rows (1, 3)
             eps_u = torch.stack([eps[0], eps[2]])
             eps_t = torch.stack([eps[1], eps[3]])
             latents = m.scheduler.step(state, eps_u + guidance_scale * (eps_t - eps_u),
                                        int(t), latents)
-        if cuda:
-            torch.cuda.synchronize(device)
-            self.unet_step_ms = [a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2])]
-        else:
-            self.unet_step_ms = [1e3 * (b - a) for a, b in zip(marks[::2], marks[1::2])]
+        self.unet_step_ms = timer.elapsed_ms()
         if not decode:
             return latents
         return decode_latents(m, latents)
-
-    @staticmethod
-    def _mark(cuda: bool):
-        if not cuda:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev

@@ -52,15 +52,28 @@ class DDIMScheduler:
         acp = acp.reshape(acp.shape + (1,) * (original_samples.ndim - acp.ndim))
         return acp ** 0.5 * original_samples + (1.0 - acp) ** 0.5 * noise
 
+    def _alphas(self, state: DDIMState, timestep: int):
+        """(alpha_cumprod at t, at the previous inference timestep), f32."""
+        timestep = int(timestep)
+        prev_timestep = timestep - self.num_train_timesteps // state.num_inference_steps
+        a_prev = (state.alphas_cumprod[prev_timestep] if prev_timestep >= 0
+                  else state.final_alpha_cumprod)
+        return state.alphas_cumprod[timestep], a_prev
+
     def step(self, state: DDIMState, model_output: torch.Tensor, timestep: int,
              sample: torch.Tensor) -> torch.Tensor:
         """One DDIM update x_t -> x_{t-1} (diffusers DDIMScheduler.step, eta 0)."""
-        timestep = int(timestep)
-        prev_timestep = timestep - self.num_train_timesteps // state.num_inference_steps
-        a_t = state.alphas_cumprod[timestep]
-        a_prev = (state.alphas_cumprod[prev_timestep] if prev_timestep >= 0
-                  else state.final_alpha_cumprod)
+        a_t, a_prev = self._alphas(state, timestep)
         one = np.float32(1.0)
         pred_x0 = (sample - float((one - a_t) ** 0.5) * model_output) / float(a_t ** 0.5)
         pred_dir = float((one - a_prev) ** 0.5) * model_output
         return float(a_prev ** 0.5) * pred_x0 + pred_dir
+
+    def renoise(self, state: DDIMState, sample: torch.Tensor, timestep: int,
+                noise: torch.Tensor) -> torch.Tensor:
+        """x_{t-1} back to x_t for multistep recurrent denoising:
+        x * sqrt(a_t / a_{t-1}) + sqrt(1 - a_t / a_{t-1}) * noise
+        (pipeline_animation_epi_advanced.py:700-705)."""
+        a_t, a_prev = self._alphas(state, timestep)
+        ratio = a_t / a_prev
+        return float(ratio ** 0.5) * sample + float((np.float32(1.0) - ratio) ** 0.5) * noise

@@ -174,6 +174,88 @@ def test_epi_mono_direction_raises():
         m(torch.zeros(2, 2, 4, 4, 32), cond)
 
 
+# ---------------------------------------------------------- initialization
+
+def _created(**unet_overrides):
+    import dataclasses
+
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    random_full = unet_overrides.pop("random_full", False)
+    return PipelineModules.create(dataclasses.replace(SMOKE_UNET, **unet_overrides), SMOKE_VAE,
+                                  SMOKE_CLIP, device="cpu", vae_encoder=True,
+                                  generator=torch.Generator().manual_seed(0),
+                                  random_full=random_full)
+
+
+def _bundle_modules(m):
+    return {"unet": m.unet, "vae": m.vae, "clip": m.clip, "pose": m.pose_encoder}
+
+
+def test_default_init_untrained_epi_module_is_the_identity():
+    """As in cvd_tpu (models/epi.py:383-386): proj_out starts at zero, so a
+    freshly built epi module returns its input exactly."""
+    from cvd_tpu_torch.models.epi import EpiConditioning
+
+    m = _created()
+    epi = m.unet.down_blocks[0].epi_modules[0]
+    rng = np.random.default_rng(20)
+    x = t(rng.standard_normal((2, 2, 8, 8, 32)).astype(np.float32))
+    cond = EpiConditioning(F_mats=t((rng.standard_normal((4, 3, 3)) * 1e-3).astype(np.float32)),
+                           video_length=2, rand_slope_ff=False)
+    with torch.no_grad():
+        assert torch.equal(epi(x, cond), x)
+    inner = epi.epi_transformer
+    assert inner.proj_in.weight.abs().max() > 0 and not inner.proj_out.weight.any()
+    # the motion modules are not the identity by default, their pose merge is zero
+    motion = m.unet.down_blocks[0].motion_modules[0].temporal_transformer
+    assert motion.proj_out.weight.any()
+    merge = motion.transformer_blocks[0].attention_blocks[0].processor.qkv_merge
+    assert not merge.weight.any() and not merge.bias.any()
+
+
+def test_default_init_norm_scales_are_one_and_biases_zero():
+    from cvd_tpu_torch.models.layers import FusedGroupNorm
+
+    norms = 0
+    for name, mod in _bundle_modules(_created()).items():
+        for sub in mod.modules():
+            if isinstance(sub, (torch.nn.LayerNorm, torch.nn.GroupNorm, FusedGroupNorm)):
+                norms += 1
+                assert torch.all(sub.weight == 1) and not sub.bias.any(), name
+        for n, p in mod.named_parameters():
+            if n.endswith(".bias") or n == "bias":
+                assert not p.any(), f"{name}.{n}"
+            else:
+                assert p.any() or n in getattr(mod, "zero_initialized", list)(), f"{name}.{n}"
+    assert norms > 100
+
+
+@pytest.mark.parametrize("motion_zero,epi_zero", [(False, True), (True, True), (True, False)])
+def test_zero_initialize_flags_pick_the_zero_layers(motion_zero, epi_zero):
+    unet = _created(motion_zero_initialize=motion_zero, epi_zero_initialize=epi_zero).unet
+    params = dict(unet.named_parameters())
+    motion = [n for n in params if n.endswith("temporal_transformer.proj_out.weight")]
+    epi = [n for n in params if n.endswith("epi_transformer.proj_out.weight")]
+    assert len(motion) == len(epi) == 20   # 2 a down block, 3 an up block
+    assert all(bool(params[n].any()) != motion_zero for n in motion)
+    assert all(bool(params[n].any()) != epi_zero for n in epi)
+    zero = set(unet.zero_initialized())
+    assert (set(motion) <= zero) == motion_zero and (set(epi) <= zero) == epi_zero
+    assert sum(n.endswith("qkv_merge.weight") for n in zero) == 20
+
+
+def test_random_full_still_draws_every_tensor():
+    for name, mod in _bundle_modules(_created(random_full=True)).items():
+        for n, p in mod.named_parameters():
+            assert p.any() and p.min() < p.max(), f"{name}.{n}"
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    with pytest.raises(ValueError, match="generator"):
+        PipelineModules.create(device="meta", random_full=True)
+
+
 # ---------------------------------------------------- pose, CLIP, VAE, DDIM
 
 def test_pose_encoder_matches_jax():

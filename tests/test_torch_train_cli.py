@@ -109,6 +109,8 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
     assert (run / "sanity_check" / "epi_overlay.npy").exists()
     lines = (run / "metrics.jsonl").read_text().splitlines()
     assert [json.loads(line)["step"] for line in lines] == [1, 2]
+    with open(run / "config.yaml") as f:    # the snapshot of what the run was asked for
+        assert yaml.safe_load(f) == cfg
 
     # the reference-format checkpoint: cvd_tpu's export keys and shapes for
     # the same (tiny) UNet's trainable subset
@@ -144,6 +146,10 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
     {"sync_lora_rank": 4},
     {"remat_policy": "dots"},
     {"random_weights": False},
+    {"epi_loss_weight": 0.002},
+    {"lora_rank": 4},
+    {"sync_lora_scale": 0.5},
+    {"validation_data": {"pose_file_0": "a.txt", "pose_file_1": "b.txt"}},
 ])
 def test_unported_options_raise(tmp_path, override):
     from cvd_tpu_torch.cli import train
@@ -152,6 +158,23 @@ def test_unported_options_raise(tmp_path, override):
     cfg.update(override)
     with pytest.raises(NotImplementedError):
         train.run(cfg)
+
+
+def test_options_at_their_off_value_are_taken(tmp_path):
+    from cvd_tpu_torch.cli import train
+
+    train._refuse_unported(_config(tmp_path, "/nonexistent", epi_loss_weight=0.0, lora_rank=0,
+                                   sync_lora_rank=0, sync_lora_scale=1.0, validation_data=None,
+                                   validation_steps=0))
+
+
+def test_frozen_weights_default_to_bfloat16():
+    """As cvd_tpu's cli/train.py:259: bfloat16 whatever ``bf16`` says."""
+    from cvd_tpu_torch.cli.train import _frozen_dtype
+
+    assert _frozen_dtype({}) == torch.bfloat16
+    assert _frozen_dtype({"bf16": False}) == torch.bfloat16
+    assert _frozen_dtype({"frozen_weights_dtype": "float32", "bf16": True}) == torch.float32
 
 
 def test_multihost_raises(tmp_path):
