@@ -4,6 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5 and 8 only; prints no result, exit 4)
 
 Phases (any failure raises and exits non-zero):
 
@@ -43,7 +44,12 @@ Phases (any failure raises and exits non-zero):
    ``accumulate_batched``. Then one train step of it, card against CPU, from the
    same weights, batch, noise, timesteps and slope (remat on): loss to
    1e-5 relative, trainable gradients at >= 60 dB SNR, and every trainable
-   tensor with a nonzero gradient on the card.
+   tensor with a nonzero gradient on the card. Last, the narrow model's
+   weights written as checkpoint files in the released layouts and built by
+   ``cli.build.build_modules`` on the card and on the CPU: the 2-view
+   sampler at >= 60 dB again; then other weights loaded into the card's
+   bundle must give, bit for bit, what a freshly built bundle gives (the
+   LayerNorm-fold cache of K5 sees a load).
 5. slice: ``cvd_tpu_torch.cli.inference`` at SD1.5 width (random weights,
    bf16, 256 px, 16 frames, 2 views, 3 DDIM steps) answers the two prompts
    of assets/example_prompts.json. Launch counts are reset just before
@@ -64,6 +70,25 @@ Phases (any failure raises and exits non-zero):
    three sampler UNet steps, of the N-view sampler's UNet calls at 8 and at
    16 CFG rows and of one training step (kernel time by name, idle share;
    chiprun_out/{sampler_step,nview_8rows,nview_16rows,train_step}_profile.txt).
+
+8. ckpt: the six checkpoint artifacts written at SD1.5 width from
+   ``cvd_tpu_torch.io.manifests`` (seeded float16 values drawn on the card;
+   SD folder with the UNet, the VAE under its legacy attention names and the
+   text encoder, motion module, epi checkpoint, pose adaptor, and a rank-8
+   motion LoRA) into a temporary directory, removed at the end.
+   ``cli.build.validate_ckpts`` on the files; ``cli.inference.main`` from
+   them (bf16, 256 px, 16 frames, 3 steps, the first prompt, the hash
+   tokenizer): finite videos, K1-K5 launched as often per request as in
+   phase 5. Every parameter of a second build equals its file's tensor cast
+   to the parameter's dtype, bit for bit (LoRA targets: W + scale * up @
+   down), every 4-D weight is still channels_last, and a bundle filled by
+   ``load_state_dict`` from the same tensors gives the same latents bit for
+   bit. Then ``cli.train.run`` from the files (remat on, 2 steps): finite
+   losses, trainable tensors moved off and frozen ones equal to the files'
+   values, K1-K7 launched, the f32 masters equal to the epi file before the
+   first step. ``[ckpt]`` lines: seconds to write and to build per artifact,
+   peak resident memory of the process, s/request, ms/UNet step, s/step,
+   peak device memory.
 
 The second-to-last line is the per-kernel JSON record (times, bound,
 library yardstick, launches summed over the main paths and per UNet step or
@@ -695,6 +720,7 @@ def phase_reference(torch):
     if not snr >= 60.0:
         raise RuntimeError(f"card vs CPU SNR {snr:.1f} dB < 60 dB")
     _reference_nview(torch, np, cpu, gpu, wrappers)
+    _reference_ckpt(torch, np, cpu, inputs)
 
 
 def _nview_cameras(np, torch, views, frames, size):
@@ -810,6 +836,394 @@ def phase_train_reference(torch):
     missing = [n for n in KERNELS if n not in used]
     if missing:
         raise RuntimeError(f"kernels not launched by the card's train step: {missing}")
+
+
+_VAE_LEGACY = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+
+
+def _vae_file_key(key):
+    """A VAE attention key under the SD-era name the released file has."""
+    if ".attentions." in key:
+        for new, old in _VAE_LEGACY.items():
+            key = key.replace(f".{new}.", f".{old}.")
+    return key
+
+
+def _clip_file_key(key):
+    """``CLIPTextEncoder``'s key under transformers' name."""
+    if key == "position_embedding":
+        return "text_model.embeddings.position_embedding.weight"
+    if key.startswith("token_embedding"):
+        return "text_model.embeddings." + key
+    return ("text_model.encoder." if key.startswith("layers.") else "text_model.") + key
+
+
+def _save_artifacts(torch, root, unet, vae, clip, motion, epi, pose_encoder, processors,
+                    lora=None):
+    """Write state dicts, keyed as the released files are, as those files:
+    the SD folder (``unet/``, ``vae/``, ``text_encoder/`` .bin), the motion
+    module, the epi checkpoint nested beside ``epoch`` / ``global_step``, the
+    pose adaptor with its two sub-dicts and, with ``lora``, a motion LoRA
+    under ``state_dict``. -> the CLI options that name them."""
+    for sub in ("unet", "vae", "text_encoder"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    torch.save(unet, os.path.join(root, "unet", "diffusion_pytorch_model.bin"))
+    torch.save(vae, os.path.join(root, "vae", "diffusion_pytorch_model.bin"))
+    torch.save(clip, os.path.join(root, "text_encoder", "pytorch_model.bin"))
+    paths = {"ori_model_path": root, "unet_subfolder": "unet",
+             "motion_module_ckpt": os.path.join(root, "v3_sd15_mm.ckpt"),
+             "epi_module_ckpt": os.path.join(root, "cvd_epi.ckpt"),
+             "pose_adaptor_ckpt": os.path.join(root, "camera_ctrl.ckpt")}
+    torch.save(motion, paths["motion_module_ckpt"])
+    torch.save({"epoch": 7, "global_step": 50000, "unet_trainable_dict": epi},
+               paths["epi_module_ckpt"])
+    torch.save({"pose_encoder_state_dict": pose_encoder,
+                "attention_processor_state_dict": processors}, paths["pose_adaptor_ckpt"])
+    if lora is not None:
+        paths["motion_lora_ckpt"] = os.path.join(root, "motion_lora.ckpt")
+        torch.save({"state_dict": lora}, paths["motion_lora_ckpt"])
+    return paths
+
+
+def _model_args(inference, paths, *extra, caption_file=None):
+    """The 2-view CLI's arguments for the checkpoint files of ``paths``."""
+    argv = [f"--{k}={v}" for k, v in paths.items()]
+    assets = os.path.join(HERE, "assets")
+    return inference.build_parser().parse_args(argv + list(extra) + [
+        "--caption_file", caption_file or os.path.join(assets, "example_prompts.json"),
+        "--pose_file_0", os.path.join(assets, "pose_files", "example_dolly.txt"),
+        "--pose_file_1", os.path.join(assets, "pose_files", "example_arc.txt")])
+
+
+def _reference_ckpt(torch, np, cpu, inputs):
+    """The narrow model of ``cpu`` through checkpoint files: written in the
+    released layouts, built by ``build_modules`` on the card and on the CPU."""
+    import shutil
+    import tempfile
+
+    from cvd_tpu_torch.cli import build, inference
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+
+    unet = cpu.unet.state_dict()
+    processors = {k: v for k, v in unet.items() if ".processor.qkv_merge." in k}
+    motion = {k: v for k, v in unet.items() if "motion_modules" in k and k not in processors}
+    epi = {k: v for k, v in unet.items() if "epi_modules" in k}
+    base = {k: v for k, v in unet.items()
+            if k not in processors and k not in motion and k not in epi}
+    root = tempfile.mkdtemp(prefix="chip_smoke_narrow_")
+    try:
+        paths = _save_artifacts(
+            torch, root, base, {_vae_file_key(k): v for k, v in cpu.vae.state_dict().items()},
+            {_clip_file_key(k): v for k, v in cpu.clip.state_dict().items()}, motion, epi,
+            cpu.pose_encoder.state_dict(), processors)
+        args = _model_args(inference, paths)
+        built = {dev: build.build_modules(args, torch.device(dev), tokenizer=HashTokenizer(),
+                                          widths=build.SMOKE_WIDTHS)[0]
+                 for dev in ("cpu", "cuda")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("unet", "vae", "clip", "pose_encoder"):
+        want, got = getattr(cpu, name).state_dict(), getattr(built["cpu"], name).state_dict()
+        bad = [k for k in want if not torch.equal(want[k], got[k])]
+        if bad or set(want) != set(got):
+            raise RuntimeError(f"narrow {name} from files differs from what was written: {bad[:5]}")
+    kw = dict(num_inference_steps=2, decode=False)
+    want = SimplePipeline(built["cpu"], rand_slope_ff=False)(**inputs, **kw).numpy()
+    got = SimplePipeline(built["cuda"], rand_slope_ff=False)(**inputs, **kw).cpu().numpy()
+    snr = 10 * np.log10(np.mean(want ** 2) / max(np.mean((got - want) ** 2), 1e-30))
+    log(f"[reference] narrow UNet 256 px f32, built from checkpoint files: card vs CPU "
+        f"final-latent SNR {snr:.1f} dB")
+    if not snr >= 60.0:
+        raise RuntimeError(f"from checkpoint files: card vs CPU SNR {snr:.1f} dB < 60 dB")
+
+    # a load into modules that have run: K5's fold cache must not answer with
+    # the folds of the weights before
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    other = PipelineModules.create(*build.SMOKE_WIDTHS, device="cpu", random_full=True,
+                                   generator=torch.Generator().manual_seed(5))
+    fresh = PipelineModules.create(*build.SMOKE_WIDTHS, device="cuda")
+    for name in ("unet", "vae", "clip", "pose_encoder"):
+        state = getattr(other, name).state_dict()
+        getattr(built["cuda"], name).load_state_dict(state)
+        getattr(fresh, name).load_state_dict(state)
+    reloaded = SimplePipeline(built["cuda"], rand_slope_ff=False)(**inputs, **kw)
+    anew = SimplePipeline(fresh, rand_slope_ff=False)(**inputs, **kw)
+    same = torch.equal(reloaded, anew)
+    moved = not np.array_equal(reloaded.cpu().numpy(), got)
+    log(f"[reference] other weights loaded into the card's bundle after a run: latents equal "
+        f"to a fresh bundle's bit for bit: {same}; differ from the run before: {moved}")
+    if not (same and moved):
+        raise RuntimeError("a load into used modules gives other latents than a fresh build")
+
+
+def _resident_gib():
+    """(peak, current) resident memory of this process in GiB: ``ru_maxrss``,
+    and VmRSS of /proc/self/status (nan where the kernel does not give it)."""
+    import resource
+
+    now = float("nan")
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) / 2 ** 20
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20, now
+
+
+LORA_SCALE = 0.5   # --motion_lora_scale of the ckpt phase
+
+
+def _ckpt_files(torch, root):
+    """Draw the released artifacts' tensors (float16, from the manifests) and
+    write them under ``root``. -> (the CLI options naming the files, what each
+    module's ``state_dict()`` must hold after a load, keyed as the port keys
+    them, in the files' dtype)."""
+    from cvd_tpu_torch.io import manifests as M
+    from cvd_tpu_torch.io.checkpoints import SKIP_SUBSTRINGS, clip_rename
+
+    g = torch.Generator(device="cuda").manual_seed(20260)
+    f16 = torch.float16
+    unet = M.random_state(M.sd15_unet_manifest(), g, f16)
+    vae = M.random_state(M.sd15_vae_manifest(), g, f16)
+    clip = M.random_state(M.sd15_clip_manifest(), g, f16)
+    motion = M.random_state(M.animatediff_v3_mm_manifest(), g, f16)
+    epi = M.random_state(M.cvd_epi_ckpt_manifest(), g, f16)
+    pose_encoder = M.random_state(M.cameractrl_pose_encoder_manifest(), g, f16)
+    processors = M.random_state(M.cameractrl_attention_processor_manifest(), g, f16)
+    # a rank-8 motion LoRA over every temporal to_q / to_k / to_v / to_out
+    rank, pairs = 8, {}
+    for key, w in motion.items():
+        for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+            if key.endswith(f".{proj}.weight"):
+                stem = f"{key[:-len(f'{proj}.weight')]}processor.{proj.replace('.0', '')}_lora"
+                pairs[f"{stem}.down.weight"] = (rank, w.shape[1])
+                pairs[f"{stem}.up.weight"] = (w.shape[0], rank)
+    lora = M.random_state(pairs, g, f16)
+    paths = _save_artifacts(torch, root, unet, {_vae_file_key(k): v for k, v in vae.items()},
+                            clip, motion, epi, pose_encoder, processors, lora)
+
+    def params_of(state):
+        return {k: v for k, v in state.items() if not any(s in k for s in SKIP_SUBSTRINGS)}
+
+    fused = params_of(motion)
+    for key, down in lora.items():
+        if ".down." in key:
+            target = (key.replace("processor.", "").replace("_lora.down", "")
+                      .replace("to_out.", "to_out.0."))
+            up = lora[key.replace(".down.", ".up.")]
+            # as the loader fuses: products in f32, back in the file's dtype
+            fused[target] = (fused[target].float()
+                             + LORA_SCALE * (up.float() @ down.float())).to(f16)
+    expected = {"unet": {**unet, **fused, **epi, **processors}, "vae": vae,
+                "clip": {clip_rename(k): v for k, v in params_of(clip).items()},
+                "pose_encoder": params_of(pose_encoder)}
+    return paths, expected, epi, len(pairs) // 2
+
+
+def _held(torch, module, expected, what, skip=()):
+    """Every parameter of ``module`` equals ``expected``'s tensor of its name
+    cast to the parameter's dtype, bit for bit, and none is missing (so none
+    is left at its initial value); 4-D weights on the card are channels_last."""
+    params = dict(module.named_parameters())
+    names = {k for k in expected if not k.startswith(tuple(skip))} if skip else set(expected)
+    if set(params) != names:
+        raise RuntimeError(f"{what}: parameters no file covers {sorted(set(params) - names)[:5]}, "
+                           f"file keys that name none {sorted(names - set(params))[:5]}")
+    bad = [n for n, p in params.items()
+           if not torch.equal(p, expected[n].to(p.device).to(p.dtype))]
+    strided = [n for n, p in params.items()
+               if p.ndim == 4 and p.is_cuda
+               and not p.is_contiguous(memory_format=torch.channels_last)]
+    if bad or strided:
+        raise RuntimeError(f"{what}: parameters that differ from their file's tensor {bad[:5]}; "
+                           f"4-D weights not channels_last {strided[:5]}")
+    return len(params)
+
+
+def _ckpt_runs(torch, np, root, sampler, sampler_requests):
+    from cvd_tpu_torch.cli import build, inference, train
+    from cvd_tpu_torch.io.model_config import load_model_config
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+    from cvd_tpu_torch.train.state import create_train_state
+
+    dev, bf16, tok = torch.device("cuda"), torch.bfloat16, HashTokenizer()
+    model_config = os.path.join(HERE, "configs", "inference_config.yaml")
+    t0 = time.perf_counter()
+    paths, expected, epi_file, n_lora = _ckpt_files(torch, root)
+    t_write = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    log(f"[ckpt] 6 artifacts + a rank-8 motion LoRA ({n_lora} pairs) written as float16 in "
+        f"{t_write:.1f} s, {size / 2**30:.2f} GiB")
+
+    with open(os.path.join(HERE, "assets", "example_prompts.json")) as f:
+        prompts = json.load(f)
+    one_prompt = os.path.join(root, "prompt.json")
+    with open(one_prompt, "w") as f:
+        json.dump({"captions": prompts["captions"][:1],
+                   "negative_prompts": prompts["negative_prompts"][:1]}, f)
+    args = _model_args(
+        inference, paths, "--bf16", "--model_config", model_config,
+        "--motion_lora_scale", str(LORA_SCALE), "--image_height", "256", "--image_width", "256",
+        "--video_length", "16", "--num_inference_steps", "3", "--use_negative_prompt",
+        "--out_root", os.path.join(HERE, "build", "chip_smoke_ckpt"), caption_file=one_prompt)
+    t0 = time.perf_counter()
+    if build.validate_ckpts(args) != 0:
+        raise RuntimeError("validate_ckpts refuses the files written from the manifests")
+    log(f"[ckpt] validate_ckpts on the files: 0 in {time.perf_counter() - t0:.1f} s")
+
+    # the 2-view sampler from the files
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    (rec,) = inference.main(args, tokenizer=tok)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    v, ms = rec["videos"], rec["unet_step_ms"]
+    log(f"[ckpt] request from the files: {rec['seconds']:.2f} s end to end ({seconds:.2f} s "
+        f"with the module build), UNet steps [{', '.join(f'{x:.1f}' for x in ms)}] ms, peak "
+        f"allocated {peak / 2**30:.2f} GiB, video std {float(v.std()):.4f}, launches per UNet "
+        f"step { {n: round(launches[n] / len(ms), 1) for n in FORWARD} }")
+    off = {n: (launches[n], sampler[n] / sampler_requests) for n in FORWARD
+           if launches[n] == 0 or launches[n] * sampler_requests != sampler[n]}
+    if v.shape != (2, 16, 256, 256, 3) or not np.isfinite(v).all() or off:
+        raise RuntimeError(f"from checkpoint files: videos {v.shape}, finite "
+                           f"{np.isfinite(v).all()}, launches (here, a request of phase 5) {off}")
+
+    # a second build: what it takes, and every parameter against its file
+    report = {}
+    t0 = time.perf_counter()
+    modules, _ = build.build_modules(args, dev, tokenizer=tok, report=report)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t_load = sum(r["seconds"] for r in report.values())
+    log(f"[ckpt] build from the files: {t_build:.1f} s ({t_build - t_load:.1f} s to create and "
+        f"initialize the modules; " + ", ".join(f"{n} {r['keys']} keys {r['seconds']:.2f} s"
+                                               for n, r in report.items()) + ")")
+    counts = [_held(torch, modules.unet, expected["unet"], "unet"),
+              _held(torch, modules.vae, expected["vae"], "vae", skip=("encoder.", "quant_conv.")),
+              _held(torch, modules.clip, expected["clip"], "text encoder"),
+              _held(torch, modules.pose_encoder, expected["pose_encoder"], "pose encoder")]
+    log(f"[ckpt] every parameter equals its file's tensor cast to bf16, bit for bit "
+        f"(unet {counts[0]}, vae {counts[1]}, text encoder {counts[2]}, pose encoder {counts[3]}; "
+        f"{n_lora} motion-LoRA targets as W + {LORA_SCALE} * up @ down); 4-D weights "
+        f"channels_last")
+
+    # the same tensors without files: load_state_dict into an uninitialized bundle
+    base, vae_cfg, clip_cfg = build.SD15_WIDTHS
+    unet_cfg, pose_kwargs, scheduler, _ = load_model_config(model_config, base=base)
+    direct = PipelineModules.create(unet_cfg, vae_cfg, clip_cfg, device=dev, dtype=bf16,
+                                    pose_encoder_kwargs=pose_kwargs, scheduler=scheduler)
+    direct.unet.load_state_dict(expected["unet"])
+    direct.vae.load_state_dict({k: t for k, t in expected["vae"].items()
+                                if not k.startswith(("encoder.", "quant_conv."))})
+    direct.clip.load_state_dict(expected["clip"])
+    direct.pose_encoder.load_state_dict(expected["pose_encoder"])
+    rng = np.random.default_rng(0)
+    Fr, S = 16, 256
+    inputs = dict(
+        prompt_ids=torch.from_numpy(tok(prompts["captions"][:1])),
+        negative_ids=torch.from_numpy(tok(prompts["negative_prompts"][:1])),
+        plucker=torch.from_numpy(rng.standard_normal((2, Fr, S, S, 6)).astype(np.float32)),
+        F_mats=torch.from_numpy((rng.standard_normal((2, Fr, 3, 3)) * 1e-3).astype(np.float32)),
+        latents=torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4))
+                                 .astype(np.float32)),
+        num_inference_steps=2, decode=False)
+    lat = [SimplePipeline(m)(**inputs, generator=torch.Generator(device=dev).manual_seed(3))
+           for m in (modules, direct)]
+    same = torch.equal(lat[0], lat[1])
+    log(f"[ckpt] latents of the bundle built from the files and of one filled by "
+        f"load_state_dict from the same tensors: equal bit for bit: {same} "
+        f"(std {float(lat[0].std()):.4f})")
+    if not same or not torch.isfinite(lat[0]).all():
+        raise RuntimeError("the bundle built from the files and the one filled directly differ")
+    del modules, direct, lat
+    torch.cuda.empty_cache()
+
+    # training from the same files
+    steps, n_frames, size = 2, 16, 256
+    cfg = dict(paths, model_config=model_config, motion_lora_scale=LORA_SCALE, bf16=True,
+               sample_size=size, sample_n_frames=n_frames, train_batch_size=1,
+               max_train_steps=steps, num_workers=2, remat=True, do_sanity_check=False,
+               logger_interval=1, checkpointing_steps=10 ** 9, global_seed=42,
+               output_dir=os.path.join(HERE, "build", "chip_smoke_ckpt_train"))
+    before, _ = train.build_training_modules(cfg, dev, tok)
+    ts = create_train_state(before.unet, frozen_dtype=bf16)
+    params = dict(ts.model.named_parameters())
+    masters = [k for k, t in epi_file.items()
+               if params[k].dtype != torch.float32 or not torch.equal(params[k].cpu(), t.float())]
+    if sorted(ts.trainable) != sorted(epi_file) or masters:
+        raise RuntimeError(f"f32 masters differ from the epi file before the first step: "
+                           f"{masters[:5]}")
+    _held(torch, before.vae, expected["vae"], "vae with its encoder")
+    del before, ts, params
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = train.run(cfg, sources=[_SeededPairs(steps, n_frames, size)], tokenizer=tok)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs = out["losses"], out["step_seconds"]
+    now = dict(out["state"].model.named_parameters())
+    still = [k for k, t in epi_file.items() if torch.equal(now[k].cpu(), t.float())]
+    changed = [k for k, t in expected["unet"].items()
+               if k not in epi_file and not torch.equal(now[k], t.to(dev).to(bf16))]
+    log(f"[ckpt] training from the files: {steps} steps in {seconds:.2f} s (module build "
+        f"included), losses [{', '.join(f'{x:.5f}' for x in losses)}], s/step "
+        f"[{', '.join(f'{x:.3f}' for x in secs)}], peak allocated {peak / 2**30:.2f} GiB (remat "
+        f"on); f32 masters equal to the epi file before the first step ({len(epi_file)} "
+        f"tensors), trainable tensors moved {len(epi_file) - len(still)}/{len(epi_file)}, "
+        f"frozen tensors off their file's value {len(changed)}/{len(now) - len(epi_file)}, "
+        f"launches {train_launches}")
+    missing = [n for n in KERNELS if train_launches[n] == 0]
+    if (len(losses) != steps or not all(math.isfinite(x) for x in losses) or still or changed
+            or missing):
+        raise RuntimeError(f"training from checkpoint files: losses {losses}, trainable tensors "
+                           f"not moved {still[:5]}, frozen tensors changed {changed[:5]}, "
+                           f"kernels not launched {missing}")
+    return (launches, len(ms)), (train_launches, steps)
+
+
+def phase_ckpt(torch, sampler, sampler_requests):
+    """From checkpoint files at SD1.5 width (the module docstring, 8).
+    ``sampler``: the launch counts of phase 5's ``sampler_requests`` requests.
+    -> ((sampler launches, UNet steps), (training launches, steps))."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    need = 6 * 2 ** 30   # 2.2 G parameters in float16, and room to spare
+    if free < need:
+        raise RuntimeError(f"{free / 2**30:.1f} GiB free under {tempfile.gettempdir()}: the "
+                           f"checkpoint files need {need / 2**30:.0f} GiB")
+    peak_before, before = _resident_gib()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        out = _ckpt_runs(torch, np, root, sampler, sampler_requests)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(root):
+        raise RuntimeError(f"could not remove {root}")
+    peak, now = _resident_gib()
+    log(f"[ckpt] resident memory of the process: peak {peak:.2f} GiB since the start "
+        f"({peak_before:.2f} GiB before the phase), {before:.2f} GiB resident before it, {now:.2f} GiB after; temporary files removed")
+    return out
 
 
 def _wrappers():
@@ -1216,6 +1630,13 @@ def main() -> int:
 
     smi = phase_device(torch)
     t_nvcc, t_build = phase_build(torch)
+    if "--ckpt" in sys.argv[1:]:
+        timed(phase_reference)
+        sampler, _ = timed(phase_slice)
+        timed(phase_ckpt, sampler, sampler_requests=2)
+        log(f"[total] {time.perf_counter() - t_all:.1f} s; a partial run (--ckpt): no result")
+        log(smi)
+        return 4
     report = timed(phase_kernels)
     timed(phase_reference)
     timed(phase_train_reference)
@@ -1225,18 +1646,25 @@ def main() -> int:
         timed(_profile_sampler)
         timed(_profile_nview)
     train, train_steps = timed(phase_train, profile=profile)
+    (ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps) = timed(
+        phase_ckpt, sampler, sampler_requests=2)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
         # launches: the sum over the main paths driven above, each with the
         # counts set to 0 just before it and read just after (2-view sampler,
-        # N-view sampler as a loop and batched, training); each path's own
-        # count is beside it. Per step or call: a run's count over the UNet
+        # N-view sampler as a loop and batched, training, and the sampler and
+        # training built from checkpoint files); each path's own count is
+        # beside it. Per step or call: a run's count over the UNet
         # calls or steps it took (a sampler's K4 count includes its VAE decode)
         (nview_loop, loop_calls), (nview_batched, batched_calls) = nview["loop"], nview["batched"]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": (sampler[name] + nview_loop[name] + nview_batched[name]
-                                     + train[name]),
+                                     + train[name] + ckpt_sampler[name] + ckpt_train[name]),
+                        "launches_ckpt_sampler": ckpt_sampler[name],
+                        "launches_ckpt_train": ckpt_train[name],
+                        "launches_per_ckpt_unet_step": ckpt_sampler[name] / ckpt_steps,
+                        "launches_per_ckpt_train_step": ckpt_train[name] / ckpt_train_steps,
                         "launches_sampler": sampler[name], "launches_nview": nview_loop[name],
                         "launches_nview_batched": nview_batched[name],
                         "launches_train": train[name],

@@ -11,10 +11,14 @@ subpackages mirror the JAX package's, module for module:
   models/      nn.Modules: UNet3D, motion / epi modules, pose encoder, VAE,
                CLIP text encoder
   schedulers/  DDIM
-  pipelines/   the simple 2-view sampler
+  pipelines/   the simple 2-view sampler, the N-view sampler
   train/       losses, train state, checkpoints, the epi training step
-  io/          tokenizer, Flax param tree -> state dict conversion
-  cli/         ``python -m cvd_tpu_torch.cli.inference`` and ``.cli.train``
+  io/          checkpoint import (SD1.5 folder, motion module, epi and pose
+               adaptor checkpoints; their key manifests), model config,
+               LoRA fusion, tokenizer, Flax param tree -> state dict
+  cli/         ``python -m cvd_tpu_torch.cli.inference``,
+               ``.cli.inference_advanced``, ``.cli.train``, ``.cli.build
+               --validate-ckpts`` and ``.cli.merge_lora``
 
 The package imports torch and numpy only: never jax, flax or cvd_tpu.
 """

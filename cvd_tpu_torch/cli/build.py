@@ -1,18 +1,26 @@
-"""Pipeline assembly for the CLIs (port of ``cvd_tpu/cli/build.py``, the
-random-weights branch) of the 2-view and the N-view sampler. ``--random-weights``
-builds the tiny model from the default initialization (epi modules start as
-the identity), ``--random-weights-full`` the SD1.5 widths with every tensor
-drawn. Checkpoint import is not ported yet (ROADMAP.md, queue 1).
+"""Pipeline assembly for the CLIs — the get_pipeline equivalent
+(inference_epi.py:72-145; port of ``cvd_tpu/cli/build.py``): build the
+modules and load the four checkpoint kinds, or build a random-weight
+bundle when asked to.
+
+    python -m cvd_tpu_torch.cli.build --validate-ckpts [--ori_model_path DIR ...]
+
+``--random-weights`` builds the tiny model from the default initialization
+(epi modules start as the identity), ``--random-weights-full`` the SD1.5
+widths with every tensor drawn. Model options whose code is not ported yet
+raise ``NotImplementedError`` naming their ROADMAP.md item, before anything
+is read: none is taken and ignored.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
 
-from cvd_tpu_torch.io.tokenizer import HashTokenizer
+from cvd_tpu_torch.io.tokenizer import get_tokenizer
 from cvd_tpu_torch.models.clip_text import CLIPTextConfig
 from cvd_tpu_torch.models.unet import UNetConfig
 from cvd_tpu_torch.models.vae import VAEConfig
@@ -26,9 +34,28 @@ SMOKE_UNET = UNetConfig(
 )
 SMOKE_VAE = VAEConfig(block_out_channels=(32, 32, 64, 64), norm_num_groups=8)
 SMOKE_CLIP = CLIPTextConfig(hidden_size=24, num_layers=2, num_heads=4, intermediate_size=48)
+SMOKE_WIDTHS = (SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP)
+# what a build from checkpoint files is as wide as unless the caller says
+# otherwise: the released artifacts are all SD1.5's
+SD15_WIDTHS = (UNetConfig(), VAEConfig(), CLIPTextConfig())
+# the options that name weights or their layout: --random-weights[-full] refuses them
+_WEIGHT_OPTIONS = ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
+                   "epi_module_ckpt", "pose_adaptor_ckpt", "model_config")
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--ori_model_path", default=None, help="SD1.5 diffusers folder")
+    p.add_argument("--unet_subfolder", default="unet", help="e.g. unet_webvidlora_v3")
+    p.add_argument("--motion_module_ckpt", default=None)
+    p.add_argument("--motion_lora_ckpt", default=None,
+                   help="AnimateDiff motion-LoRA ckpt (pan/zoom effects), "
+                        "fused into the temporal attentions at load")
+    p.add_argument("--motion_lora_scale", type=float, default=1.0)
+    p.add_argument("--epi_module_ckpt", default=None)
+    p.add_argument("--pose_adaptor_ckpt", default=None)
+    p.add_argument("--image_lora_ckpt", default=None, help="not ported yet")
+    p.add_argument("--civitai_lora_ckpt", default=None, help="not ported yet")
+    p.add_argument("--civitai_base_model", default=None, help="not ported yet")
     p.add_argument("--random-weights", action="store_true", dest="random_weights",
                    help="tiny random-weight smoke mode (no checkpoints needed)")
     p.add_argument("--random-weights-full", action="store_true",
@@ -38,6 +65,21 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "without checkpoints, garbage pixels")
     p.add_argument("--pose_adaptor_scale", type=float, default=1.0)
     p.add_argument("--bf16", action="store_true", help="bfloat16 weights and activations")
+    p.add_argument("--spatial_extended_attention", action="store_true", help="not ported yet")
+    p.add_argument("--image_lora_rank", type=int, default=2,
+                   help="rank of --image_lora_ckpt (not ported yet)")
+    p.add_argument("--controlnet_ckpt", default=None,
+                   help="AnimateDiff SparseCtrl ckpt (not ported yet)")
+    p.add_argument("--controlnet_simplified_embedding", action="store_true",
+                   help="v3-RGB SparseCtrl layout (not ported yet)")
+    p.add_argument("--sync_lora_rank", type=int, default=0,
+                   help="sync-LoRA rank (not ported yet; 0 = off)")
+    p.add_argument("--sync_lora_scale", type=float, default=1.0)
+    p.add_argument("--remat_policy", default="",
+                   help="training remat checkpoint policy: '' = replay whole "
+                        "blocks; 'dots' is not ported yet")
+    p.add_argument("--model_config", default=None,
+                   help="reference-format model config yaml")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; a machine without a CUDA "
                         "device must ask for --device cpu)")
@@ -55,22 +97,206 @@ def resolve_device(requested: Optional[str]) -> torch.device:
     return torch.device("cuda")
 
 
-def build_modules(args, device: torch.device) -> Tuple[PipelineModules, HashTokenizer]:
-    """-> (modules, tokenizer) with random weights."""
-    if not (args.random_weights or args.random_weights_full):
-        raise NotImplementedError(
-            "checkpoint import is not ported yet: pass --random-weights or "
-            "--random-weights-full")
-    full = args.random_weights_full
+def refuse_unported(args) -> None:
+    """Raise for every model option whose code is not ported yet, naming its
+    ROADMAP.md item. Reads no file."""
+    def has(name, off=None):
+        value = getattr(args, name, off)
+        return value is not None and value is not False and value != off
+
+    checks = [
+        (has("image_lora_ckpt") or has("image_lora_rank", 2),
+         "--image_lora_ckpt / --image_lora_rank: the runtime image LoRA", "item 3"),
+        (has("civitai_base_model"), "--civitai_base_model: single-file LDM checkpoints "
+                                    "(io/ldm_convert.py)", "item 5"),
+        (has("civitai_lora_ckpt"), "--civitai_lora_ckpt: kohya / civitai LoRA fusion "
+                                   "(io/ldm_convert.py)", "item 5"),
+        (has("controlnet_ckpt") or has("controlnet_simplified_embedding"),
+         "--controlnet_ckpt / --controlnet_simplified_embedding: SparseCtrl", "item 3"),
+        (has("sync_lora_rank", 0) or has("sync_lora_scale", 1.0),
+         "--sync_lora_rank > 0 / --sync_lora_scale: sync-LoRA", "item 4.4"),
+        (has("spatial_extended_attention"),
+         "--spatial_extended_attention: spatial extended attention", "item 3"),
+        (has("remat_policy", ""), f"--remat_policy {getattr(args, 'remat_policy', '')!r}: the "
+                                  "'dots' / 'layer' remat policies", "item 4.7"),
+    ]
+    for bad, what, item in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {item})")
+
+
+def build_modules(args, device: torch.device, vae_encoder: bool = False,
+                  unet_dtype: Optional[torch.dtype] = None, tokenizer: Optional[object] = None,
+                  report: Optional[dict] = None, widths=SD15_WIDTHS
+                  ) -> Tuple[PipelineModules, object]:
+    """-> (modules, tokenizer). With ``--random-weights[-full]`` a seeded
+    random bundle and the hash tokenizer (a weight option or
+    ``--model_config`` beside it raises: it would be ignored); else the
+    modules at ``widths`` (UNet, VAE and CLIP configs; SD1.5's, narrower only
+    for narrow files) with what ``--model_config`` sets, initialized by ``default_init_``
+    (so a module that no checkpoint is given for starts as the reference's
+    fresh one: without ``--epi_module_ckpt`` the epi modules are the
+    identity) and then filled from ``--ori_model_path`` and the motion, epi
+    and pose-adaptor checkpoints, with the SD folder's CLIP tokenizer.
+
+    ``vae_encoder`` and ``unet_dtype`` are what training adds: the VAE's
+    encoder, and the UNet held in f32 whatever ``--bf16`` says (a checkpoint's
+    values then reach the f32 masters unrounded; ``create_train_state`` casts
+    the frozen part after). ``tokenizer`` stands in for the one the SD folder
+    or the random-weights mode would give (a machine without the CLIP
+    vocabulary). ``report``: a dict that receives, per checkpoint artifact,
+    the keys consumed and the seconds taken."""
+    refuse_unported(args)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    random_full = getattr(args, "random_weights_full", False)
     generator = torch.Generator(device=device).manual_seed(0)
+    if args.random_weights or random_full:
+        given = [name for name in _WEIGHT_OPTIONS if getattr(args, name, None)]
+        if given:
+            raise ValueError("--random-weights / --random-weights-full build from no file: "
+                             "drop " + ", ".join(f"--{name}" for name in given))
+        unet_cfg, vae_cfg, clip_cfg = SD15_WIDTHS if random_full else SMOKE_WIDTHS
+        modules = PipelineModules.create(
+            unet_config=dataclasses.replace(unet_cfg, pose_scale=args.pose_adaptor_scale),
+            vae_config=vae_cfg, clip_config=clip_cfg,
+            device=device, dtype=dtype, unet_dtype=unet_dtype, generator=generator,
+            vae_encoder=vae_encoder, random_full=random_full,
+        )
+        return modules, tokenizer or get_tokenizer(None)
+    if not getattr(args, "ori_model_path", None):
+        raise ValueError("no weights to build from: pass --ori_model_path (an SD1.5 diffusers "
+                         "folder; config key `ori_model_path`) or --random-weights / "
+                         "--random-weights-full (`random_weights` / `random_weights_full`)")
+    if getattr(args, "motion_lora_ckpt", None) and not args.motion_module_ckpt:
+        raise ValueError("--motion_lora_ckpt fuses into the motion module: it needs "
+                         "--motion_module_ckpt")
+    # before the weights are read: a wrong folder fails in no time
+    tokenizer = tokenizer or get_tokenizer(args.ori_model_path)
+
+    scheduler = None
+    pose_encoder_kwargs = None
+    unet_cfg, vae_cfg, clip_cfg = widths
+    if getattr(args, "model_config", None):
+        from cvd_tpu_torch.io.model_config import load_model_config
+
+        unet_cfg, pose_encoder_kwargs, scheduler, _extra = load_model_config(
+            args.model_config, base=unet_cfg)
     modules = PipelineModules.create(
-        unet_config=dataclasses.replace(UNetConfig() if full else SMOKE_UNET,
-                                        pose_scale=args.pose_adaptor_scale),
-        vae_config=VAEConfig() if full else SMOKE_VAE,
-        clip_config=CLIPTextConfig() if full else SMOKE_CLIP,
-        device=device,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        generator=generator,
-        random_full=full,
+        unet_config=dataclasses.replace(unet_cfg, pose_scale=args.pose_adaptor_scale),
+        vae_config=vae_cfg, clip_config=clip_cfg,
+        pose_encoder_kwargs=pose_encoder_kwargs, scheduler=scheduler,
+        device=device, dtype=dtype, unet_dtype=unet_dtype, generator=generator,
+        vae_encoder=vae_encoder,
     )
-    return modules, HashTokenizer()
+
+    from cvd_tpu_torch.io.checkpoints import load_sd_pipeline_weights
+
+    loaded = load_sd_pipeline_weights(
+        modules.unet, modules.vae, modules.clip, args.ori_model_path,
+        unet_subfolder=getattr(args, "unet_subfolder", None) or "unet",
+        motion_module_ckpt=args.motion_module_ckpt,
+        epi_module_ckpt=args.epi_module_ckpt,
+        pose_adaptor_ckpt=args.pose_adaptor_ckpt,
+        pose_encoder=modules.pose_encoder,
+        motion_lora_ckpt=getattr(args, "motion_lora_ckpt", None),
+        motion_lora_scale=getattr(args, "motion_lora_scale", 1.0),
+    )
+    for name, r in loaded.items():
+        print(f"[build] {name}: {r['keys']} keys in {r['seconds']:.2f} s", flush=True)
+    if report is not None:
+        report.update(loaded)
+    return modules, tokenizer
+
+
+def validate_ckpts(args, widths=SD15_WIDTHS) -> int:
+    """--validate-ckpts dry run: route every checkpoint key (from the real
+    files when paths are given, else the built-in manifests) onto the
+    modules at ``widths`` (SD1.5's) on the ``meta`` device, WITHOUT allocating or loading
+    weights. Prints one line per artifact; non-zero on any unmapped key."""
+    from cvd_tpu_torch.io import manifests as M
+    from cvd_tpu_torch.io.checkpoints import (
+        clip_rename, merge_torch_state, motion_module_state, vae_legacy_rename,
+    )
+    from cvd_tpu_torch.io.torch_io import load_diffusers_folder_weights, load_torch_state
+
+    pose_encoder_kwargs = None
+    unet_cfg, vae_cfg, clip_cfg = widths
+    if getattr(args, "model_config", None):
+        from cvd_tpu_torch.io.model_config import load_model_config
+
+        unet_cfg, pose_encoder_kwargs, _, _ = load_model_config(args.model_config,
+                                                                base=unet_cfg)
+    m = PipelineModules.create(unet_cfg, vae_cfg, clip_cfg, device="meta", vae_encoder=True,
+                               pose_encoder_kwargs=pose_encoder_kwargs)
+    failures = 0
+
+    def check(name, module, state, **kw):
+        nonlocal failures
+        try:
+            consumed = merge_torch_state(module, state, **kw)
+            extra = len(state) - len(consumed)
+            status = "ok" if extra == 0 else f"{extra} keys unconsumed"
+            failures += extra != 0
+        except KeyError as e:
+            status = " ".join(e.args[0].splitlines()[:2])
+            failures += 1
+        print(f"[validate-ckpts] {name}: {len(state)} keys -> {status}")
+
+    def shapes_of(manifest):
+        return {k: torch.empty(shape, device="meta") for k, shape in manifest.items()}
+
+    if args.ori_model_path:
+        sub = args.unet_subfolder or "unet"
+        check("unet (folder)", m.unet,
+              load_diffusers_folder_weights(os.path.join(args.ori_model_path, sub)))
+        check("vae (folder)", m.vae,
+              load_diffusers_folder_weights(os.path.join(args.ori_model_path, "vae")),
+              rename=vae_legacy_rename)
+        clip_state = load_diffusers_folder_weights(
+            os.path.join(args.ori_model_path, "text_encoder"))
+        check("text_encoder (folder)", m.clip,
+              {k: v for k, v in clip_state.items() if "text_projection" not in k},
+              rename=clip_rename)
+    else:
+        check("unet (manifest)", m.unet, shapes_of(M.sd15_unet_manifest()))
+        check("vae (manifest)", m.vae, shapes_of(M.sd15_vae_manifest()),
+              rename=vae_legacy_rename)
+        check("text_encoder (manifest)", m.clip, shapes_of(M.sd15_clip_manifest()),
+              rename=clip_rename)
+
+    check("motion module", m.unet,
+          motion_module_state(args.motion_module_ckpt, args.motion_lora_ckpt,
+                              args.motion_lora_scale)
+          if args.motion_module_ckpt else shapes_of(M.animatediff_v3_mm_manifest()))
+    check("epi module", m.unet,
+          load_torch_state(args.epi_module_ckpt, "unet_trainable_dict")
+          if args.epi_module_ckpt else shapes_of(M.cvd_epi_ckpt_manifest()))
+    if args.pose_adaptor_ckpt:
+        check("pose encoder", m.pose_encoder,
+              load_torch_state(args.pose_adaptor_ckpt, "pose_encoder_state_dict"))
+        check("pose qkv_merge", m.unet,
+              load_torch_state(args.pose_adaptor_ckpt, "attention_processor_state_dict"))
+    else:
+        check("pose encoder", m.pose_encoder, shapes_of(M.cameractrl_pose_encoder_manifest()))
+        check("pose qkv_merge", m.unet,
+              shapes_of(M.cameractrl_attention_processor_manifest()))
+    print(f"[validate-ckpts] {'FAILED' if failures else 'all artifacts map cleanly'}")
+    return 1 if failures else 0
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_model_args(p)
+    p.add_argument("--validate-ckpts", action="store_true", dest="validate",
+                   help="dry-run checkpoint key routing against the "
+                        "full-size parameter shapes (no weights loaded)")
+    args = p.parse_args(argv)
+    if args.validate:
+        refuse_unported(args)
+        raise SystemExit(validate_ckpts(args))
+    p.error("nothing to do (pass --validate-ckpts)")
+
+
+if __name__ == "__main__":
+    main()

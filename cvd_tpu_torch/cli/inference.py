@@ -1,9 +1,15 @@
 """2-view inference CLI (port of ``cvd_tpu/cli/inference.py``).
 
-    python -m cvd_tpu_torch.cli.inference --random-weights-full --bf16 \
+    python -m cvd_tpu_torch.cli.inference --bf16 \
+        --ori_model_path <SD1.5 folder> --unet_subfolder unet_webvidlora_v3 \
+        --motion_module_ckpt v3_sd15_mm.ckpt --epi_module_ckpt <cvd epi .ckpt> \
+        --pose_adaptor_ckpt CameraCtrl.ckpt --model_config configs/inference_config.yaml \
         --caption_file assets/example_prompts.json --use_negative_prompt \
         --pose_file_0 assets/pose_files/example_dolly.txt \
         --pose_file_1 assets/pose_files/example_arc.txt --out_root results/
+
+Without checkpoints, ``--random-weights-full`` takes the place of the five
+weight options (SD1.5 widths, seeded random tensors).
 
 Each prompt writes ``<out_root>/<idx>/videos.npy`` (uint8 [2, F, H, W, 3])
 and, where ``imageio`` is installed, per-view mp4 and png frames.
@@ -41,17 +47,23 @@ def load_prompts(caption_file: str, use_negative: bool, num_videos=None):
     return captions, negatives, seeds
 
 
-def main(args) -> List[dict]:
+def main(args, tokenizer=None, widths=None) -> List[dict]:
     """Runs every prompt. Returns one record per prompt: ``videos`` (f32
     [2, F, H, W, 3] in [0, 1]), ``seconds`` (wall time of the request) and
-    ``unet_step_ms`` (each UNet call of the DDIM loop)."""
-    from cvd_tpu_torch.cli.build import build_modules, resolve_device
+    ``unet_step_ms`` (each UNet call of the DDIM loop). ``tokenizer``: an
+    object to tokenize with in place of the one the weights come with.
+    ``widths``: ``build_modules``'s, for checkpoint files narrower than
+    SD1.5's."""
+    from cvd_tpu_torch.cli.build import (
+        SD15_WIDTHS, build_modules, refuse_unported, resolve_device,
+    )
     from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
     from cvd_tpu_torch.utils.video import (
         have_imageio, save_npy, save_video, save_video_as_images,
     )
 
+    refuse_unported(args)
     if args.image_width != args.image_height:
         raise SystemExit("the epipolar attention assumes a square token grid: "
                          "use --image_width == --image_height")
@@ -61,7 +73,8 @@ def main(args) -> List[dict]:
         args.caption_file, args.use_negative_prompt, args.num_videos)
     device = resolve_device(args.device)
     t0 = time.perf_counter()
-    modules, tokenizer = build_modules(args, device)
+    modules, tokenizer = build_modules(args, device, tokenizer=tokenizer,
+                                       widths=widths or SD15_WIDTHS)
     print(f"[inference] built modules on {device} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     pipe = SimplePipeline(modules, F_mat_size=args.image_height, rand_slope_ff=True)

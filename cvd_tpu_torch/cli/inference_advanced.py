@@ -6,6 +6,8 @@ reference's ``inference_epi_advanced.py``).
         --caption_file assets/example_prompts.json --use_negative_prompt \
         --out_root results/
 
+The weight options are ``cli/inference.py``'s (``--ori_model_path`` and the
+motion, epi and pose-adaptor checkpoints, or ``--random-weights[-full]``).
 Procedural camera patterns (circle / upper_hemi / interpolate), multistep
 recurrent denoising, accumulate-step pair averaging. Each (seed, prompt)
 writes ``<out_root>/<seed_id>_<idx>/videos.npy`` (uint8 [V, F, H, W, 3]) and
@@ -83,13 +85,17 @@ def _refuse(args) -> None:
             raise NotImplementedError(f"--{flag}: {what} is not ported (ROADMAP.md, queue 1)")
 
 
-def main(args, accumulate_batched: bool = False) -> List[dict]:
+def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) -> List[dict]:
     """Runs every (seed, prompt). Returns one record each: ``videos`` (f32
     [V, F, H, W, 3] in [0, 1]), ``seconds`` (wall time of the request),
     ``unet_step_ms`` (each UNet call) and ``out`` (its directory).
     ``accumulate_batched``: the ``--accumulate_step`` pairings as one UNet
-    call (``AdvancedPipeline``)."""
-    from cvd_tpu_torch.cli.build import build_modules, resolve_device
+    call (``AdvancedPipeline``). ``tokenizer``: an object to tokenize with in
+    place of the one the weights come with. ``widths``: ``build_modules``'s,
+    for checkpoint files narrower than SD1.5's."""
+    from cvd_tpu_torch.cli.build import (
+        SD15_WIDTHS, build_modules, refuse_unported, resolve_device,
+    )
     from cvd_tpu_torch.cli.inference import load_prompts
     from cvd_tpu_torch.geometry.plucker import ray_condition
     from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
@@ -98,6 +104,7 @@ def main(args, accumulate_batched: bool = False) -> List[dict]:
     )
 
     _refuse(args)
+    refuse_unported(args)
     captions, negatives, seeds = load_prompts(args.caption_file, args.use_negative_prompt)
     device = resolve_device(args.device)
 
@@ -110,7 +117,8 @@ def main(args, accumulate_batched: bool = False) -> List[dict]:
     K_t = torch.from_numpy(K.astype(np.float32))
 
     t0 = time.perf_counter()
-    modules, tokenizer = build_modules(args, device)
+    modules, tokenizer = build_modules(args, device, tokenizer=tokenizer,
+                                       widths=widths or SD15_WIDTHS)
     print(f"[inference_advanced] built modules on {device} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     pipe = AdvancedPipeline(modules, F_mat_size=S, rand_slope_ff=True,

@@ -11,11 +11,14 @@ backward (off by default: PERF.md). ``run(cfg)`` takes the config as a
 dict and leaves a ``config.yaml`` snapshot of it in ``output_dir``;
 ``sources`` replaces the on-disk dataset with in-memory ones.
 
-Weights: ``random_weights: true`` builds the tiny smoke model from the
-default initialization (the epi modules start as the identity) and
-``random_weights_full: true`` the SD1.5 widths with every tensor drawn, on
-the device from a fixed seed. Not ported yet, and raising NotImplementedError (ROADMAP
-queue 1, training): checkpoint import, datasets other than RealEstate10K,
+Weights: ``ori_model_path`` (an SD1.5 diffusers folder; ``unet_subfolder``),
+``motion_module_ckpt``, ``pose_adaptor_ckpt`` and, to go on from a trained
+one, ``epi_module_ckpt`` (else the epi modules start as the identity), with
+the modules that ``model_config`` names; or ``random_weights: true``, the tiny smoke
+model from the default initialization, or ``random_weights_full: true``,
+the SD1.5 widths with every tensor drawn, on the device from a fixed seed.
+Not ported yet, and raising NotImplementedError (ROADMAP queue 1):
+``image_lora_ckpt``, ``civitai_*``, datasets other than RealEstate10K,
 ``cache_latents``, ``validation_steps > 0`` / ``validation_data``,
 ``--multihost``, ``sync_lora_rank > 0`` / ``sync_lora_scale``, ``lora_rank``,
 ``epi_loss_weight``, remat policies other than ``""``, process workers.
@@ -23,7 +26,6 @@ queue 1, training): checkpoint import, datasets other than RealEstate10K,
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import random
 import time
@@ -32,9 +34,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-_CHECKPOINT_KEYS = ("ori_model_path", "motion_module_ckpt", "epi_module_ckpt",
-                    "pose_adaptor_ckpt", "image_lora_ckpt", "civitai_lora_ckpt",
-                    "civitai_base_model")
+_CHECKPOINT_KEYS = ("image_lora_ckpt", "civitai_lora_ckpt", "civitai_base_model")
 _ROADMAP = "(ROADMAP queue 1, training)"
 
 
@@ -60,40 +60,31 @@ def _refuse_unported(cfg: dict) -> None:
         (bool(cfg.get("validation_data")), "validation_data: validation sampling"),
         (cfg.get("remat_policy", "") != "", f"remat_policy {cfg.get('remat_policy')!r}: "
                                            "the 'dots'/'layer' remat policies"),
-        (any(cfg.get(k) for k in _CHECKPOINT_KEYS), "checkpoint import"),
+        (any(cfg.get(k) for k in _CHECKPOINT_KEYS),
+         "image_lora_ckpt / civitai_lora_ckpt / civitai_base_model"),
     ]
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet {_ROADMAP}")
-    if not (cfg.get("random_weights") or cfg.get("random_weights_full")):
-        raise NotImplementedError(f"checkpoint import is not ported yet {_ROADMAP}: "
-                                  "set random_weights or random_weights_full")
 
 
-def build_training_modules(cfg: dict, device):
-    """-> (modules with the VAE encoder, tokenizer), random weights from a
-    fixed seed: UNet in f32 (``create_train_state`` casts its frozen part),
-    VAE / CLIP / pose encoder in bf16 when ``bf16``."""
-    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
-    from cvd_tpu_torch.io.tokenizer import HashTokenizer
-    from cvd_tpu_torch.models.clip_text import CLIPTextConfig
-    from cvd_tpu_torch.models.unet import UNetConfig
-    from cvd_tpu_torch.models.vae import VAEConfig
-    from cvd_tpu_torch.pipelines.common import PipelineModules
+def build_training_modules(cfg: dict, device, tokenizer=None, widths=None):
+    """-> (modules with the VAE encoder, tokenizer) through
+    ``cli.build.build_modules``, the config's keys as its options: UNet in
+    f32 (``create_train_state`` casts its frozen part), VAE / CLIP / pose
+    encoder in bf16 when ``bf16``."""
+    from cvd_tpu_torch.cli.build import SD15_WIDTHS, build_modules
 
-    full = bool(cfg.get("random_weights_full"))
-    modules = PipelineModules.create(
-        unet_config=dataclasses.replace(UNetConfig() if full else SMOKE_UNET,
-                                        pose_scale=cfg.get("pose_adaptor_scale", 1.0)),
-        vae_config=VAEConfig() if full else SMOKE_VAE,
-        clip_config=CLIPTextConfig() if full else SMOKE_CLIP,
-        device=device, dtype=torch.float32,
-        generator=torch.Generator(device=device).manual_seed(0), vae_encoder=True,
-        random_full=full)
-    if cfg.get("bf16", False):
-        for m in (modules.vae, modules.clip, modules.pose_encoder):
-            m.to(torch.bfloat16)
-    return modules, HashTokenizer()
+    margs = argparse.Namespace(
+        **{k: cfg.get(k) for k in ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
+                                   "epi_module_ckpt", "pose_adaptor_ckpt", "model_config")},
+        unet_subfolder=cfg.get("unet_subfolder") or "unet",
+        motion_lora_scale=cfg.get("motion_lora_scale", 1.0),
+        random_weights=bool(cfg.get("random_weights")),
+        random_weights_full=bool(cfg.get("random_weights_full")),
+        pose_adaptor_scale=cfg.get("pose_adaptor_scale", 1.0), bf16=cfg.get("bf16", False))
+    return build_modules(margs, device, vae_encoder=True, unet_dtype=torch.float32,
+                         tokenizer=tokenizer, widths=widths or SD15_WIDTHS)
 
 
 def _frozen_dtype(cfg: dict) -> Optional[torch.dtype]:
@@ -105,10 +96,12 @@ def _frozen_dtype(cfg: dict) -> Optional[torch.dtype]:
             "float32": torch.float32, "f32": torch.float32}[name]
 
 
-def run(cfg: dict, sources: Optional[Sequence] = None) -> dict:
+def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=None) -> dict:
     """The training loop. ``sources``: map-style datasets with the sample
     keys of ``RealEstate10KPoseFolded`` (default: the one ``train_data``
-    names). Returns {"state", "modules", "losses", "step_seconds",
+    names). ``tokenizer``: an object to tokenize with in place of the one the
+    weights come with. ``widths``: ``build_modules``'s, for checkpoint files
+    narrower than SD1.5's. Returns {"state", "modules", "losses", "step_seconds",
     "global_step", "epoch", "out_dir"}."""
     from cvd_tpu_torch.cli.build import resolve_device
     from cvd_tpu_torch.data.loader import DataLoader
@@ -132,7 +125,7 @@ def run(cfg: dict, sources: Optional[Sequence] = None) -> dict:
     sample_size = cfg.get("sample_size", 256)
     seed = cfg.get("global_seed", 42)
 
-    modules, tokenizer = build_training_modules(cfg, device)
+    modules, tokenizer = build_training_modules(cfg, device, tokenizer, widths)
     if sources is None:
         train_cfg = cfg.get("train_data") or {}
         sources = [RealEstate10KPoseFolded(

@@ -4,8 +4,9 @@
 tree after ``np.asarray``, with or without the ``{"params": ...}`` wrapper)
 and returns the state dict that the port's modules load with
 ``load_state_dict(strict=True)``. It applies the key rules of
-``cvd_tpu/io/key_mapping.py:198-229`` (``flax_path_to_torch_key``) and its
-kernel transposes (``:240-241``): a 4-D conv kernel [kh, kw, in, out] goes
+``cvd_tpu/io/key_mapping.py:198-229`` (``flax_path_to_torch_key``), except
+that ``time_embedding.linear_1`` / ``linear_2`` keep the names the SD1.5
+checkpoint gives them, and its kernel transposes (``:240-241``): a 4-D conv kernel [kh, kw, in, out] goes
 to [out, in, kh, kw], a 2-D dense kernel [in, out] to [out, in]. It flattens
 the tree itself and imports no flax.
 """
@@ -24,6 +25,9 @@ _INV_SPECIAL = {
     "mlp_fc2": "mlp.fc2",
 }
 _TRAILING_IDX = re.compile(r"^(.*?)((?:_\d+)+)$")
+# module names whose trailing index is part of the checkpoint's name, not a
+# list position: diffusers' TimestepEmbedding has ``linear_1`` / ``linear_2``
+_KEEP_INDEX = {("time_embedding", "linear_1"), ("time_embedding", "linear_2")}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -51,7 +55,7 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
             out.append(_INV_SPECIAL[el])
             continue
         m = _TRAILING_IDX.match(el)
-        if m:
+        if m and (path[i - 1] if i else "", el) not in _KEEP_INDEX:
             el = m.group(1) + m.group(2).replace("_", ".")
         out.append(el)
         if re.fullmatch(r"motion_modules\.\d+", out[-1]):

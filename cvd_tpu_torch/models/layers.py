@@ -5,10 +5,10 @@ Activations keep the JAX package's layouts: spatial tensors channels-last
 ``[..., H, W, C]``, video ``[B, F, H, W, C]``, tokens ``[B, L, C]``.
 Convolutions run as ``nn.Conv2d`` on the channels-last tensor permuted to
 NCHW (a zero-copy view in ``torch.channels_last`` format). Module and
-parameter names reproduce the state-dict keys that
-``cvd_tpu.io.key_mapping.export_torch_state`` gives the JAX param tree, so
-``load_state_dict(strict=True)`` takes a converted tree as it is
-(``cvd_tpu_torch.io.from_flax``).
+parameter names reproduce the released checkpoints' state-dict keys
+(``cvd_tpu_torch.io.manifests``), so ``load_state_dict`` takes a checkpoint's
+tensors, or a converted JAX param tree (``cvd_tpu_torch.io.from_flax``), as
+they are.
 """
 from __future__ import annotations
 
@@ -61,11 +61,11 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
-        self.linear = nn.ModuleDict({"1": nn.Linear(in_dim, dim),
-                                     "2": nn.Linear(dim, dim)})
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
 
     def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
-        return self.linear["2"](F.silu(self.linear["1"](t_emb)))
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
 class FusedGroupNorm(nn.Module):

@@ -89,16 +89,25 @@ class PipelineModules:
         generator: Optional[torch.Generator] = None,
         vae_encoder: bool = False,
         random_full: bool = False,
+        pose_encoder_kwargs: Optional[dict] = None,
+        scheduler: Optional[DDIMScheduler] = None,
+        unet_dtype: Optional[torch.dtype] = None,
     ) -> "PipelineModules":
         """Build the bundle on ``device``. With ``generator`` the weights are
         initialized from it, on the generator's device: ``default_init_``
         (an untrained epi module is the identity), or with ``random_full``
         the fan-in uniforms of ``random_init_`` over EVERY parameter (runs
         without weights that must exercise every layer). Without a
-        generator the parameters are left for ``load_state_dict``. Modules
+        generator the parameters are UNINITIALIZED memory, for a
+        ``load_state_dict`` that covers every one of them; a build from
+        checkpoint files, which may cover a part, starts from
+        ``default_init_``. Modules
         are built on the meta device and materialized in place, so a
         full-size bundle never exists on the host. ``vae_encoder`` adds the
-        VAE's encoder (training)."""
+        VAE's encoder (training); ``pose_encoder_kwargs`` and ``scheduler``
+        are a model config's (``io/model_config.py``); ``unet_dtype`` is the
+        UNet's where it differs from ``dtype`` (training holds it in f32
+        until ``create_train_state`` casts its frozen part)."""
         if random_full and generator is None:
             raise ValueError("random_full needs a generator")
         unet_config = unet_config or UNetConfig()
@@ -107,21 +116,24 @@ class PipelineModules:
                 UNet3DConditionModel(unet_config),
                 AutoencoderKL(vae_config or VAEConfig(), with_encoder=vae_encoder),
                 CLIPTextEncoder(clip_config or CLIPTextConfig()),
-                CameraPoseEncoder(channels=unet_config.block_out_channels),
+                CameraPoseEncoder(channels=unet_config.block_out_channels,
+                                  **(pose_encoder_kwargs or {})),
             ]
         out = []
         for m in mods:
             m = m.to_empty(device=device)
+            is_unet = isinstance(m, UNet3DConditionModel)
             if random_full:
                 random_init_(m, generator)
             elif generator is not None:
-                zero = m.zero_initialized() if isinstance(m, UNet3DConditionModel) else ()
+                zero = m.zero_initialized() if is_unet else ()
                 default_init_(m, generator, zero)
-            m = m.to(dtype=dtype).eval().requires_grad_(False)
+            m = m.to(dtype=(unet_dtype or dtype) if is_unet else dtype)
+            m = m.eval().requires_grad_(False)
             if torch.device(device).type == "cuda":
                 m = m.to(memory_format=torch.channels_last)
             out.append(m)
-        return cls(*out, DDIMScheduler())
+        return cls(*out, scheduler or DDIMScheduler())
 
 
 class SpanTimer:

@@ -1,9 +1,11 @@
-"""DDIM scheduler with diffusers' DDIMScheduler semantics as the reference
-configures it (1000 train steps, linear betas 0.00085 -> 0.012,
-steps_offset=1, clip_sample=False, epsilon prediction, set_alpha_to_one,
-eta = 0) — port of ``cvd_tpu/schedulers/ddim.py``. The tables are computed
-on the host in f64 and stored in f32; the per-step scalars are f32, as in
-the JAX package."""
+"""DDIM scheduler with diffusers' DDIMScheduler semantics, eta = 0; the
+defaults are what the reference configures (1000 train steps, linear betas
+0.00085 -> 0.012, steps_offset=1, clip_sample=False) and a model config may
+set ``beta_schedule`` and ``clip_sample`` (``io/model_config.py``) — port of
+``cvd_tpu/schedulers/ddim.py``. Epsilon prediction and a final alpha of 1 are
+fixed: nothing configures them, and the training loss regresses on the noise.
+The tables are computed on the host in f64 and stored in f32; the per-step
+scalars are f32, as in the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,16 +28,27 @@ class DDIMScheduler:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
+    beta_schedule: str = "linear"
     steps_offset: int = 1
+    clip_sample: bool = False
+
+    def _alphas_cumprod(self) -> np.ndarray:
+        if self.beta_schedule == "linear":
+            betas = np.linspace(self.beta_start, self.beta_end, self.num_train_timesteps,
+                                dtype=np.float64)
+        elif self.beta_schedule == "scaled_linear":
+            betas = np.linspace(self.beta_start ** 0.5, self.beta_end ** 0.5,
+                                self.num_train_timesteps, dtype=np.float64) ** 2
+        else:
+            raise ValueError(f"unsupported beta schedule {self.beta_schedule}")
+        return np.cumprod(1.0 - betas)
 
     def set_timesteps(self, num_inference_steps: int) -> DDIMState:
         """The inference schedule (diffusers 'leading' spacing)."""
         step_ratio = self.num_train_timesteps // num_inference_steps
         timesteps = ((np.arange(0, num_inference_steps) * step_ratio).round()[::-1].copy()
                      ).astype(np.int64) + self.steps_offset
-        betas = np.linspace(self.beta_start, self.beta_end, self.num_train_timesteps,
-                            dtype=np.float64)
-        acp = np.cumprod(1.0 - betas)
+        acp = self._alphas_cumprod()
         return DDIMState(acp.astype(np.float32), np.float32(1.0), timesteps,
                          self.num_train_timesteps, num_inference_steps)
 
@@ -65,7 +78,10 @@ class DDIMScheduler:
         """One DDIM update x_t -> x_{t-1} (diffusers DDIMScheduler.step, eta 0)."""
         a_t, a_prev = self._alphas(state, timestep)
         one = np.float32(1.0)
-        pred_x0 = (sample - float((one - a_t) ** 0.5) * model_output) / float(a_t ** 0.5)
+        sqrt_a, sqrt_b = float(a_t ** 0.5), float((one - a_t) ** 0.5)
+        pred_x0 = (sample - sqrt_b * model_output) / sqrt_a
+        if self.clip_sample:
+            pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
         pred_dir = float((one - a_prev) ** 0.5) * model_output
         return float(a_prev ** 0.5) * pred_x0 + pred_dir
 

@@ -343,7 +343,9 @@ def tiny_shapes():
 @pytest.mark.parametrize("name", ["unet", "pose", "clip", "vae"])
 def test_state_dict_keys_match_export_torch_state(name, tiny_shapes):
     """state_dict_from_flax gives exactly export_torch_state's keys and
-    shapes, and the port's module loads them with strict=True."""
+    shapes, except that the four ``time_embedding.linear_{1,2}`` keys keep
+    the SD1.5 checkpoint's names (export_torch_state writes ``linear.1``),
+    and the port's module loads them with strict=True."""
     from cvd_tpu.io.key_mapping import export_torch_state
     from cvd_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
     from cvd_tpu_torch.models.pose_encoder import CameraPoseEncoder
@@ -352,9 +354,11 @@ def test_state_dict_keys_match_export_torch_state(name, tiny_shapes):
 
     shapes = tiny_shapes[name]
     tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    ref = export_torch_state(tree)
+    ref = {k.replace("time_embedding.linear.", "time_embedding.linear_"): v
+           for k, v in export_torch_state(tree).items()}
     sd = state_dict_from_flax(tree)
     assert set(sd) == set(ref)
+    assert ("time_embedding.linear_1.weight" in sd) == (name == "unet")
     for k, v in ref.items():
         assert tuple(sd[k].shape) == v.shape, k
     ch = (32, 64, 64, 64)

@@ -140,7 +140,10 @@ def test_trainable_set_matches_jax_mask(jax_bundle):
     from cvd_tpu_torch.train.state import trainable_mask
 
     flat = traverse_util.flatten_dict(jax_mask(jax_bundle.unet_params)["params"])
-    want = {flax_path_to_torch_key(k): v for k, v in flat.items()}
+    # the export writes time_embedding.linear_1 as linear.1; the checkpoint's
+    # name, which the port has, keeps the underscore
+    want = {flax_path_to_torch_key(k).replace("time_embedding.linear.", "time_embedding.linear_"): v
+            for k, v in flat.items()}
     with torch.device("meta"):
         unet = UNet3DConditionModel(SMOKE_UNET)
     got = trainable_mask([n for n, _ in unet.named_parameters()])
