@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5 and 8 only; prints no result, exit 4)
+    python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5, 8 and 9 only; prints no result, exit 4)
 
 Phases (any failure raises and exits non-zero):
 
@@ -14,7 +14,9 @@ Phases (any failure raises and exits non-zero):
    sm_90a, all sources at once) and the Triton GroupNorm, and prints the
    seconds taken.
 3. kernels: each forward kernel against its plain PyTorch version at the
-   2-view sampler's shapes, at the N-view sampler's (128, 192 and 256 frame
+   2-view sampler's shapes, K2 with spatial extended attention's keys (Lk =
+   2 Lq at res 32 and 16, timed), K1-K5 at multidiff's 12-frame windows (48
+   frame rows, K3 at F 12), at the N-view sampler's (128, 192 and 256 frame
    rows; K1 routed by a random perfect matching of 4 and of 6 views over
    interleaved CFG rows, and by the two offset groups of
    ``accumulate_batched``) and at the kernels' edges (64 tokens, head_dim 160, a
@@ -44,7 +46,9 @@ Phases (any failure raises and exits non-zero):
    ``accumulate_batched``. Then one train step of it, card against CPU, from the
    same weights, batch, noise, timesteps and slope (remat on): loss to
    1e-5 relative, trainable gradients at >= 60 dB SNR, and every trainable
-   tensor with a nonzero gradient on the card. Last, the narrow model's
+   tensor with a nonzero gradient on the card. The narrow sampler with the
+   image LoRA, the sync-LoRA and extended attention (K2 at Lk = 2 Lq), and
+   with PAB reusing every class, card vs CPU at >= 60 dB. Last, the narrow model's
    weights written as checkpoint files in the released layouts and built by
    ``cli.build.build_modules`` on the card and on the CPU: the 2-view
    sampler at >= 60 dB again; then other weights loaded into the card's
@@ -89,6 +93,21 @@ Phases (any failure raises and exits non-zero):
    first step. ``[ckpt]`` lines: seconds to write and to build per artifact,
    peak resident memory of the process, s/request, ms/UNet step, s/step,
    peak device memory.
+
+9. options: from phase 8's files plus an image-LoRA file (CameraCtrl's keys
+   under ``lora_state_dict``, rank channels // 2, every ``up`` nonzero) and an
+   epi checkpoint carrying a sync-LoRA, float16 from the manifests: a 2-view
+   request with the image LoRA, sync-LoRA rank 4 and spatial extended
+   attention (K2 launched with keys of twice the queries' length); multidiff
+   (``--video_length 12 --multidiff_total_steps 2 --multidiff_overlaps 8``,
+   16 frames, 3 steps); the 2-view sampler at 10 steps and the 4-view sampler
+   (5 steps, multistep 2, accumulate_step 2) each without and with ``--pab``
+   (default ranges): launches per UNet call on computing and on reuse steps,
+   none of a reused class's own kernel (K2 spatial, K3 temporal, K1 epi) on
+   its reuse steps; then two training steps with both LoRAs (remat on):
+   finite losses, the sync-LoRA moved, the image LoRA bit-identical to its
+   file. Each path: launches counted from 0, s/request, ms per UNet call,
+   peak memory.
 
 The second-to-last line is the per-kernel JSON record (times, bound,
 library yardstick, launches summed over the main paths and per UNet step or
@@ -359,7 +378,8 @@ def _cases(torch, dtype, g):
     cases = []
     for feat, C in ((32, 320), (16, 640), (8, 1280)):
         N = feat * feat
-        cases += attention_cases(64, feat, C, None, "routed", feat == 32)
+        # res 16 timed too: extended attention's res-16 case beside it
+        cases += attention_cases(64, feat, C, None, "routed", feat in (32, 16))
         if feat == 8:
             continue  # the temporal kernel's shapes stay those of the main path
         for split in (True, False):  # the main path's layout first: the record's row
@@ -383,6 +403,25 @@ def _cases(torch, dtype, g):
             f"B{B} N{N} F{Fr} G{G} C{C} h{h} {kind or 'no'} mask {_layout(split)}",
             _temporal_inputs(randn, B, N, Fr, G, C, split),
             _temporal_mask(torch, g, kind, Fr, G), h))
+    # spatial extended attention: the pair's tokens as keys and values, Lk = 2 Lq
+    for feat, C in ((32, 320), (16, 640)):
+        N = feat * feat
+        q, k, v = randn(64, N, C), randn(64, 2 * N, C), randn(64, 2 * N, C)
+        cases.append(_case(
+            "flash_attention", f"B64 Lq{N} Lk{2 * N} C{C} h8 extended",
+            lambda q=q, k=k, v=v: epi_flash.flash_attention(q, k, v, heads=8),
+            lambda q=q, k=k, v=v: epi_flash._plain(q, k, v, None, None, 8), True,
+            launch=lambda q=q, k=k, v=v: epi_launch(q, k, v, None, None),
+            library=lambda q=q, k=k, v=v: epi_library(q, k, v, None, None),
+            library_call="scaled_dot_product_attention",
+            work=(*work.attention_fwd(64, 8, N, 2 * N, C // 8, size), "bfloat16")))
+    # multidiff's 12-frame windows: 2 views x 2 CFG rows x 12 frames = 48 frame rows,
+    # K3 at F 12, below the 16-row tile
+    for feat, C in ((32, 320), (16, 640)):
+        N = feat * feat
+        cases += attention_cases(48, feat, C, None, "routed, 12-frame window", False)
+        cases.append(temporal_case(f"B4 N{N} F12 C{C} h8 {_layout(True)}",
+                                   _temporal_inputs(randn, 4, N, 12, 12, C, True), None, 8))
     # a ragged key length and a query length that fills no tile
     q, k, v = randn(4, 200, 320), randn(4, 150, 320), randn(4, 150, 320)
     cases.append(_case("flash_attention", "B4 Lq200 Lk150 C320 h8 ragged",
@@ -394,7 +433,8 @@ def _cases(torch, dtype, g):
     # ... and the N-view sampler's 128 and 256 frame rows
     for R, S, C, timed in ((64, 1024, 320, True), (64, 1024, 960, False), (64, 256, 1920, False),
                            (64, 64, 2560, False), (5, 200, 1344, False), (32, 65536, 128, True),
-                           (128, 1024, 320, True), (256, 1024, 320, True)):
+                           (128, 1024, 320, True), (256, 1024, 320, True),
+                           (48, 1024, 320, False)):
         x = randn(R, S, C, scale=2.0, shift=3.0)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         p = norms.plan(R, S, C, 32, size, sms)
@@ -421,7 +461,7 @@ def _cases(torch, dtype, g):
     for T, C, Ks in ((65536, 320, (2560,)), (65536, 320, (320, 320, 320)), (16384, 640, (5120,)),
                      (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320)),
                      (131072, 320, (2560,)), (262144, 320, (2560,)),
-                     (8192, 1280, (1280, 1280, 1280))):
+                     (8192, 1280, (1280, 1280, 1280)), (49152, 320, (2560,))):
         x = randn(T, C)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         ws = [randn(K, C, scale=1.0 / math.sqrt(C)) for K in Ks]
@@ -720,7 +760,71 @@ def phase_reference(torch):
     if not snr >= 60.0:
         raise RuntimeError(f"card vs CPU SNR {snr:.1f} dB < 60 dB")
     _reference_nview(torch, np, cpu, gpu, wrappers)
+    _reference_options(torch, np, inputs, wrappers)
     _reference_ckpt(torch, np, cpu, inputs)
+
+
+def _extended_calls(torch):
+    """A context that counts the K2 launches of extended attention (keys of
+    twice the queries' length) by wrapping what ``models.layers`` calls."""
+    import contextlib
+
+    from cvd_tpu_torch.models import layers
+
+    @contextlib.contextmanager
+    def watch():
+        kernel, seen = layers.flash_attention, []
+
+        def watched(q, k, v, heads):
+            seen.append(k.shape[1] == 2 * q.shape[1])
+            return kernel(q, k, v, heads=heads)
+
+        layers.flash_attention = watched
+        try:
+            yield seen
+        finally:
+            layers.flash_attention = kernel
+    return watch()
+
+
+def _reference_options(torch, np, inputs, wrappers):
+    """The narrow UNet at 256 px with the runtime image LoRA (rank channels //
+    2), the sync-LoRA (rank 4) and spatial extended attention, 2 steps; then
+    the narrow sampler with PAB reusing every class (4 steps, steps 1 and 3
+    reused): card (kernels) vs CPU (plain versions), every tensor drawn (so
+    every LoRA ``up`` is nonzero), final latents at >= 60 dB."""
+    import dataclasses
+
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.pipelines.pab import PABConfig
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+
+    lora = dataclasses.replace(SMOKE_UNET, spatial_lora_rank=-2, sync_lora_rank=4,
+                               spatial_extended_attention=True)
+    pab = PABConfig(spatial=2, cross=2, temporal=2, epi=2, start_frac=0.0, end_frac=1.0)
+    for what, cfg, kw in (("image LoRA + sync-LoRA + extended attention", lora,
+                           dict(num_inference_steps=2)),
+                          ("PAB reusing every class", SMOKE_UNET,
+                           dict(num_inference_steps=4, pab_config=pab))):
+        cpu = PipelineModules.create(cfg, SMOKE_VAE, SMOKE_CLIP, device="cpu",
+                                     generator=torch.Generator().manual_seed(4), random_full=True)
+        gpu = PipelineModules.create(cfg, SMOKE_VAE, SMOKE_CLIP, device="cuda")
+        for name in ("unet", "vae", "clip", "pose_encoder"):
+            getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+        want = SimplePipeline(cpu, rand_slope_ff=False)(**inputs, decode=False, **kw).numpy()
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        with _extended_calls(torch) as seen:
+            got = SimplePipeline(gpu, rand_slope_ff=False)(**inputs, decode=False,
+                                                           **kw).cpu().numpy()
+        used = {n: fn.launches - before[n] for n, fn in wrappers.items()
+                if fn.launches > before[n]}
+        snr = 10 * np.log10(np.mean(want ** 2) / max(np.mean((got - want) ** 2), 1e-30))
+        log(f"[reference] narrow UNet 256 px f32, {what}: card vs CPU final-latent SNR "
+            f"{snr:.1f} dB (launches {used}; K2 at Lk = 2 Lq {sum(seen)})")
+        if not snr >= 60.0 or "epi_flash_attention" not in used or (cfg is lora and not any(seen)):
+            raise RuntimeError(f"{what}: card vs CPU SNR {snr:.1f} dB, launches {used}, "
+                               f"K2 at Lk = 2 Lq {sum(seen)}")
 
 
 def _nview_cameras(np, torch, views, frames, size):
@@ -1195,27 +1299,32 @@ def _ckpt_runs(torch, np, root, sampler, sampler_requests):
         raise RuntimeError(f"training from checkpoint files: losses {losses}, trainable tensors "
                            f"not moved {still[:5]}, frozen tensors changed {changed[:5]}, "
                            f"kernels not launched {missing}")
-    return (launches, len(ms)), (train_launches, steps)
+    return ((launches, len(ms)), (train_launches, steps)), paths, one_prompt
 
 
 def phase_ckpt(torch, sampler, sampler_requests):
-    """From checkpoint files at SD1.5 width (the module docstring, 8).
+    """From checkpoint files at SD1.5 width (the module docstring, 8), then
+    phase ``options`` (9) from the same files.
     ``sampler``: the launch counts of phase 5's ``sampler_requests`` requests.
-    -> ((sampler launches, UNet steps), (training launches, steps))."""
+    -> ((sampler launches, UNet steps), (training launches, steps)), and
+    phase ``options``'s {path: (launches, UNet calls or steps)}."""
     import shutil
     import tempfile
 
     import numpy as np
 
     free = shutil.disk_usage(tempfile.gettempdir()).free
-    need = 6 * 2 ** 30   # 2.2 G parameters in float16, and room to spare
+    need = 7 * 2 ** 30   # 2.2 G parameters in float16 and the options' files, and room
     if free < need:
         raise RuntimeError(f"{free / 2**30:.1f} GiB free under {tempfile.gettempdir()}: the "
                            f"checkpoint files need {need / 2**30:.0f} GiB")
     peak_before, before = _resident_gib()
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        out = _ckpt_runs(torch, np, root, sampler, sampler_requests)
+        out, paths, one_prompt = _ckpt_runs(torch, np, root, sampler, sampler_requests)
+        t0 = time.perf_counter()
+        opts = _options_runs(torch, np, root, paths, one_prompt)
+        log(f"[time] phase_options: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if os.path.exists(root):
@@ -1223,6 +1332,198 @@ def phase_ckpt(torch, sampler, sampler_requests):
     peak, now = _resident_gib()
     log(f"[ckpt] resident memory of the process: peak {peak:.2f} GiB since the start "
         f"({peak_before:.2f} GiB before the phase), {before:.2f} GiB resident before it, {now:.2f} GiB after; temporary files removed")
+    return out, opts
+
+
+class _PerCall:
+    """The launch counts of each UNet call made inside the ``with`` block
+    (global module hooks, removed on exit)."""
+
+    def __init__(self, torch, wrappers):
+        from cvd_tpu_torch.models.unet import UNet3DConditionModel
+
+        self.torch, self.wrappers, self.calls = torch, wrappers, []
+        self.unet = UNet3DConditionModel
+
+    def __enter__(self):
+        hooks = self.torch.nn.modules.module
+
+        def pre(mod, args):
+            if isinstance(mod, self.unet):
+                self.start = {n: fn.launches for n, fn in self.wrappers.items()}
+
+        def post(mod, args, out):
+            if isinstance(mod, self.unet):
+                self.calls.append({n: fn.launches - self.start[n]
+                                   for n, fn in self.wrappers.items()})
+
+        self.handles = [hooks.register_module_forward_pre_hook(pre),
+                        hooks.register_module_forward_hook(post)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def _mean_launches(calls):
+    return {n: round(sum(c[n] for c in calls) / len(calls), 1) for n in FORWARD} if calls else {}
+
+
+def _options_files(torch, root, paths):
+    """An image-LoRA file (CameraCtrl's keys, rank channels // 2, under
+    ``lora_state_dict``) and an epi checkpoint that carries a sync-LoRA of
+    rank 4 (so channels // 2 beside an image LoRA of rank 2), float16 from the
+    manifests, every ``up`` nonzero. -> (their paths, the image LoRA's and the
+    sync-LoRA's tensors)."""
+    from cvd_tpu_torch.io import manifests as M
+
+    g = torch.Generator(device="cuda").manual_seed(20261)
+    f16 = torch.float16
+    image = M.random_state(M.cameractrl_image_lora_manifest(2), g, f16)
+    sync = M.random_state(M.cvd_sync_lora_manifest(4, 2), g, f16)
+    epi = M.random_state(M.cvd_epi_ckpt_manifest(), g, f16)
+    files = {"image_lora_ckpt": os.path.join(root, "image_lora.ckpt"),
+             "epi_module_ckpt": os.path.join(root, "cvd_epi_sync.ckpt")}
+    torch.save({"lora_state_dict": image}, files["image_lora_ckpt"])
+    torch.save({"epoch": 1, "global_step": 10, "unet_trainable_dict": {**epi, **sync}},
+               files["epi_module_ckpt"])
+    return files, image, sync
+
+
+def _options_runs(torch, np, root, paths, one_prompt):
+    """Phase ``options`` (the module docstring, 9). -> {path: (launches, UNet
+    calls or training steps)}."""
+    from cvd_tpu_torch.cli import inference, inference_advanced, train
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+    from cvd_tpu_torch.pipelines.pab import PABConfig, reuse_masks
+
+    tok, dev, bf16 = HashTokenizer(), torch.device("cuda"), torch.bfloat16
+    model_config = os.path.join(HERE, "configs", "inference_config.yaml")
+    t0 = time.perf_counter()
+    files, image, sync = _options_files(torch, root, paths)
+    log(f"[options] an image LoRA ({len(image)} keys) and an epi checkpoint with a sync-LoRA "
+        f"({len(sync)} keys) written as float16 in {time.perf_counter() - t0:.1f} s")
+    wrappers = _wrappers()
+    common = ("--bf16", "--model_config", model_config, "--image_height", "256",
+              "--image_width", "256", "--use_negative_prompt")
+    out = {}
+
+    def request(name, module, argv, calls_expected, **kw):
+        """One request through ``module.main``: launches counted from 0, per
+        UNet call, s/request, ms per call, peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        with _extended_calls(torch) as seen, _PerCall(torch, wrappers) as per:
+            (rec,) = module.main(argv, tokenizer=tok, **kw)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        v, ms = rec["videos"], rec["unet_step_ms"]
+        steady = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else ms[0]
+        log(f"[options] {name}: {rec['seconds']:.2f} s the request, {len(ms)} UNet calls "
+            f"[{', '.join(f'{x:.1f}' for x in ms)}] ms (median after the first {steady:.1f}), "
+            f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, video "
+            f"{tuple(v.shape)} std {float(v.std()):.4f}; launches per UNet call "
+            f"{_mean_launches(per.calls)}; K2 at Lk = 2 Lq {sum(seen)} of {len(seen)}")
+        missing = [n for n in FORWARD if launches[n] == 0]
+        if not np.isfinite(v).all() or len(ms) != calls_expected or missing:
+            raise RuntimeError(f"{name}: finite {np.isfinite(v).all()}, {len(ms)} UNet calls "
+                               f"(want {calls_expected}), kernels not launched {missing}")
+        out[name] = (launches, len(ms))
+        return rec, per.calls, seen
+
+    def args2(*extra, files_=paths):
+        return _model_args(inference, files_, *common, *extra, "--out_root",
+                           os.path.join(HERE, "build", "chip_smoke_options"),
+                           caption_file=one_prompt)
+
+    # (a) the image LoRA, the sync-LoRA and extended attention
+    lora_paths = dict(paths, **files)
+    _, calls, seen = request("lora", inference, args2(
+        "--image_lora_rank", "2", "--sync_lora_rank", "4", "--spatial_extended_attention",
+        "--video_length", "16", "--num_inference_steps", "3", files_=lora_paths), 3)
+    if not any(seen):
+        raise RuntimeError("extended attention launched no K2 at Lk = 2 Lq")
+    # (b) multidiff: 2 windows of 12 frames overlapping by 8, 16 frames
+    rec, _, _ = request("multidiff", inference, args2(
+        "--video_length", "12", "--multidiff_total_steps", "2", "--multidiff_overlaps", "8",
+        "--num_inference_steps", "3"), 6)
+    if rec["videos"].shape != (2, 16, 256, 256, 3):
+        raise RuntimeError(f"multidiff videos {rec['videos'].shape}")
+    # (c) PAB (the default ranges) against no PAB, 2 views at 10 steps, then 4 views
+    # (5 steps, multistep 2, accumulate 2: 18 UNet calls)
+    masks = reuse_masks(10, PABConfig())
+    for pab in ((), ("--pab",)):
+        name = "pab_2view" if pab else "no_pab_2view"
+        _, calls, _ = request(name, inference, args2("--video_length", "16",
+                                                     "--num_inference_steps", "10", *pab), 10)
+    own = {"spatial": "flash_attention", "temporal": "temporal_flash_attention",
+           "epi": "epi_flash_attention"}
+    reused = [i for i in range(10) if any(masks[c][i] for c in masks)]
+    bad = [(i, c) for i in reused for c, k in own.items() if masks[c][i] and calls[i][k]]
+    log(f"[options] PAB 2 views: launches per UNet call on computing steps "
+        f"{_mean_launches([calls[i] for i in range(10) if i not in reused])}, on reuse steps "
+        f"{_mean_launches([calls[i] for i in reused])} (steps {reused}); a reused class's "
+        f"own kernel launched on its reuse steps: {bad or 'never'}")
+    if bad:
+        raise RuntimeError(f"PAB: reused classes launched their kernels {bad}")
+    for pab in ((), ("--pab",)):
+        argv = [f"--{k}={v}" for k, v in paths.items()] + list(common) + [
+            "--video_length", "16", "--view_num", "4", "--num_inference_steps", "5",
+            "--multistep", "2", "--accumulate_step", "2", "--caption_file", one_prompt,
+            "--out_root", os.path.join(HERE, "build", "chip_smoke_options_nview"), *pab]
+        _, calls, _ = request("pab_4view" if pab else "no_pab_4view", inference_advanced,
+                              inference_advanced.build_parser().parse_args(argv), 18)
+    masks = reuse_masks(5, PABConfig())
+    step_of = [i for i in range(5) for _ in range((2 if i < 4 else 1) * 2)]
+    reused = [j for j, i in enumerate(step_of) if any(masks[c][i] for c in masks)]
+    bad = [(j, c) for j in reused for c, k in own.items()
+           if masks[c][step_of[j]] and calls[j][k]]
+    log(f"[options] PAB 4 views: launches per UNet call on computing calls "
+        f"{_mean_launches([c for j, c in enumerate(calls) if j not in reused])}, on reuse calls "
+        f"{_mean_launches([calls[j] for j in reused])} ({len(reused)} of {len(calls)}); a "
+        f"reused class's own kernel launched on its reuse calls: {bad or 'never'}")
+    if bad:
+        raise RuntimeError(f"PAB 4 views: reused classes launched their kernels {bad}")
+
+    # (d) two training steps with both LoRAs, remat on
+    steps, n_frames, size = 2, 16, 256
+    cfg = dict(lora_paths, model_config=model_config, lora_rank=2, sync_lora_rank=4, bf16=True,
+               sample_size=size, sample_n_frames=n_frames, train_batch_size=1,
+               max_train_steps=steps, num_workers=2, remat=True, do_sanity_check=False,
+               logger_interval=1, checkpointing_steps=10 ** 9, global_seed=42,
+               output_dir=os.path.join(HERE, "build", "chip_smoke_options_train"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = train.run(cfg, sources=[_SeededPairs(steps, n_frames, size)], tokenizer=tok)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    now = dict(res["state"].model.named_parameters())
+    trainable = set(res["state"].trainable)
+    sync_moved = sum(not torch.equal(now[k].cpu(), t.float()) for k, t in sync.items())
+    image_same = sum(torch.equal(now[k], t.to(dev).to(bf16)) for k, t in image.items())
+    losses = res["losses"]
+    log(f"[options] training with both LoRAs: {steps} steps in {seconds:.2f} s (module build "
+        f"included), losses [{', '.join(f'{x:.5f}' for x in losses)}], s/step "
+        f"[{', '.join(f'{x:.3f}' for x in res['step_seconds'])}], peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (remat on); trainable "
+        f"{len(trainable)} tensors, sync-LoRA tensors moved {sync_moved}/{len(sync)}, image "
+        f"LoRA tensors equal to their file's {image_same}/{len(image)}, launches {launches}")
+    missing = [n for n in KERNELS if launches[n] == 0]
+    if (len(losses) != steps or not all(math.isfinite(x) for x in losses)
+            or not set(sync) <= trainable or sync_moved != len(sync)
+            or image_same != len(image) or missing):
+        raise RuntimeError(f"training with both LoRAs: losses {losses}, sync moved {sync_moved}, "
+                           f"image LoRA unchanged {image_same}, kernels not launched {missing}")
+    out["train_lora"] = (launches, steps)
     return out
 
 
@@ -1646,7 +1947,7 @@ def main() -> int:
         timed(_profile_sampler)
         timed(_profile_nview)
     train, train_steps = timed(phase_train, profile=profile)
-    (ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps) = timed(
+    ((ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps)), options = timed(
         phase_ckpt, sampler, sampler_requests=2)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -1657,10 +1958,16 @@ def main() -> int:
         # training built from checkpoint files); each path's own count is
         # beside it. Per step or call: a run's count over the UNet
         # calls or steps it took (a sampler's K4 count includes its VAE decode)
+        # phase options: each of its paths, and per UNet call or training step
         (nview_loop, loop_calls), (nview_batched, batched_calls) = nview["loop"], nview["batched"]
+        opts = {f"launches_options_{path}": n[name] for path, (n, _) in options.items()}
+        opts.update({f"launches_per_call_options_{path}": n[name] / calls
+                     for path, (n, calls) in options.items()})
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": (sampler[name] + nview_loop[name] + nview_batched[name]
-                                     + train[name] + ckpt_sampler[name] + ckpt_train[name]),
+                                     + train[name] + ckpt_sampler[name] + ckpt_train[name]
+                                     + sum(n[name] for n, _ in options.values())),
+                        **opts,
                         "launches_ckpt_sampler": ckpt_sampler[name],
                         "launches_ckpt_train": ckpt_train[name],
                         "launches_per_ckpt_unet_step": ckpt_sampler[name] / ckpt_steps,

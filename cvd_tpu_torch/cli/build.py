@@ -7,9 +7,11 @@ bundle when asked to.
 
 ``--random-weights`` builds the tiny model from the default initialization
 (epi modules start as the identity), ``--random-weights-full`` the SD1.5
-widths with every tensor drawn. Model options whose code is not ported yet
-raise ``NotImplementedError`` naming their ROADMAP.md item, before anything
-is read: none is taken and ignored.
+widths with every tensor drawn. The runtime image LoRA
+(``--image_lora_ckpt``), the sync-LoRA (``--sync_lora_rank``) and spatial
+extended attention are the JAX package's options. Model options whose code
+is not ported yet raise ``NotImplementedError`` naming their ROADMAP.md
+item, before anything is read: none is taken and ignored.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ SMOKE_WIDTHS = (SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP)
 SD15_WIDTHS = (UNetConfig(), VAEConfig(), CLIPTextConfig())
 # the options that name weights or their layout: --random-weights[-full] refuses them
 _WEIGHT_OPTIONS = ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
-                   "epi_module_ckpt", "pose_adaptor_ckpt", "model_config")
+                   "epi_module_ckpt", "pose_adaptor_ckpt", "image_lora_ckpt", "model_config")
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
@@ -53,7 +55,9 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--motion_lora_scale", type=float, default=1.0)
     p.add_argument("--epi_module_ckpt", default=None)
     p.add_argument("--pose_adaptor_ckpt", default=None)
-    p.add_argument("--image_lora_ckpt", default=None, help="not ported yet")
+    p.add_argument("--image_lora_ckpt", default=None,
+                   help="runtime image LoRA (CameraCtrl's RealEstate10K LoRA), kept "
+                        "unfused on the spatial attentions")
     p.add_argument("--civitai_lora_ckpt", default=None, help="not ported yet")
     p.add_argument("--civitai_base_model", default=None, help="not ported yet")
     p.add_argument("--random-weights", action="store_true", dest="random_weights",
@@ -65,15 +69,18 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "without checkpoints, garbage pixels")
     p.add_argument("--pose_adaptor_scale", type=float, default=1.0)
     p.add_argument("--bf16", action="store_true", help="bfloat16 weights and activations")
-    p.add_argument("--spatial_extended_attention", action="store_true", help="not ported yet")
+    p.add_argument("--spatial_extended_attention", action="store_true",
+                   help="spatial self-attention sees both videos of the pair")
     p.add_argument("--image_lora_rank", type=int, default=2,
-                   help="rank of --image_lora_ckpt (not ported yet)")
+                   help="rank of --image_lora_ckpt: > 16 absolute, else channels // rank "
+                        "per layer")
     p.add_argument("--controlnet_ckpt", default=None,
                    help="AnimateDiff SparseCtrl ckpt (not ported yet)")
     p.add_argument("--controlnet_simplified_embedding", action="store_true",
                    help="v3-RGB SparseCtrl layout (not ported yet)")
     p.add_argument("--sync_lora_rank", type=int, default=0,
-                   help="sync-LoRA rank (not ported yet; 0 = off)")
+                   help="sync-LoRA rank on the pose-conditioned temporal attention "
+                        "(0 = off, >16 absolute, 1..16 resolves per layer)")
     p.add_argument("--sync_lora_scale", type=float, default=1.0)
     p.add_argument("--remat_policy", default="",
                    help="training remat checkpoint policy: '' = replay whole "
@@ -105,24 +112,32 @@ def refuse_unported(args) -> None:
         return value is not None and value is not False and value != off
 
     checks = [
-        (has("image_lora_ckpt") or has("image_lora_rank", 2),
-         "--image_lora_ckpt / --image_lora_rank: the runtime image LoRA", "item 3"),
         (has("civitai_base_model"), "--civitai_base_model: single-file LDM checkpoints "
                                     "(io/ldm_convert.py)", "item 5"),
         (has("civitai_lora_ckpt"), "--civitai_lora_ckpt: kohya / civitai LoRA fusion "
                                    "(io/ldm_convert.py)", "item 5"),
         (has("controlnet_ckpt") or has("controlnet_simplified_embedding"),
          "--controlnet_ckpt / --controlnet_simplified_embedding: SparseCtrl", "item 3"),
-        (has("sync_lora_rank", 0) or has("sync_lora_scale", 1.0),
-         "--sync_lora_rank > 0 / --sync_lora_scale: sync-LoRA", "item 4.4"),
-        (has("spatial_extended_attention"),
-         "--spatial_extended_attention: spatial extended attention", "item 3"),
         (has("remat_policy", ""), f"--remat_policy {getattr(args, 'remat_policy', '')!r}: the "
                                   "'dots' / 'layer' remat policies", "item 4.7"),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {item})")
+
+
+def unet_options(args, unet_cfg: UNetConfig) -> UNetConfig:
+    """``unet_cfg`` with what the options set: the pose-adaptor scale, spatial
+    extended attention, the sync-LoRA and, with ``--image_lora_ckpt``, the
+    image LoRA's rank (``r`` if > 16, else channels // r per layer,
+    cvd_tpu/cli/build.py:158-163)."""
+    r = getattr(args, "image_lora_rank", 2)
+    return dataclasses.replace(
+        unet_cfg, pose_scale=getattr(args, "pose_adaptor_scale", 1.0),
+        spatial_extended_attention=bool(getattr(args, "spatial_extended_attention", False)),
+        spatial_lora_rank=(r if r > 16 else -r) if getattr(args, "image_lora_ckpt", None) else 0,
+        sync_lora_rank=getattr(args, "sync_lora_rank", 0) or 0,
+        sync_lora_scale=getattr(args, "sync_lora_scale", 1.0))
 
 
 def build_modules(args, device: torch.device, vae_encoder: bool = False,
@@ -136,8 +151,9 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
     for narrow files) with what ``--model_config`` sets, initialized by ``default_init_``
     (so a module that no checkpoint is given for starts as the reference's
     fresh one: without ``--epi_module_ckpt`` the epi modules are the
-    identity) and then filled from ``--ori_model_path`` and the motion, epi
-    and pose-adaptor checkpoints, with the SD folder's CLIP tokenizer.
+    identity, a LoRA's ``up`` zero) and then filled from ``--ori_model_path``
+    and the motion, epi, pose-adaptor and image-LoRA checkpoints, with the SD
+    folder's CLIP tokenizer.
 
     ``vae_encoder`` and ``unet_dtype`` are what training adds: the VAE's
     encoder, and the UNet held in f32 whatever ``--bf16`` says (a checkpoint's
@@ -157,7 +173,7 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
                              "drop " + ", ".join(f"--{name}" for name in given))
         unet_cfg, vae_cfg, clip_cfg = SD15_WIDTHS if random_full else SMOKE_WIDTHS
         modules = PipelineModules.create(
-            unet_config=dataclasses.replace(unet_cfg, pose_scale=args.pose_adaptor_scale),
+            unet_config=unet_options(args, unet_cfg),
             vae_config=vae_cfg, clip_config=clip_cfg,
             device=device, dtype=dtype, unet_dtype=unet_dtype, generator=generator,
             vae_encoder=vae_encoder, random_full=random_full,
@@ -182,7 +198,7 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
         unet_cfg, pose_encoder_kwargs, scheduler, _extra = load_model_config(
             args.model_config, base=unet_cfg)
     modules = PipelineModules.create(
-        unet_config=dataclasses.replace(unet_cfg, pose_scale=args.pose_adaptor_scale),
+        unet_config=unet_options(args, unet_cfg),
         vae_config=vae_cfg, clip_config=clip_cfg,
         pose_encoder_kwargs=pose_encoder_kwargs, scheduler=scheduler,
         device=device, dtype=dtype, unet_dtype=unet_dtype, generator=generator,
@@ -200,6 +216,7 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
         pose_encoder=modules.pose_encoder,
         motion_lora_ckpt=getattr(args, "motion_lora_ckpt", None),
         motion_lora_scale=getattr(args, "motion_lora_scale", 1.0),
+        image_lora_ckpt=getattr(args, "image_lora_ckpt", None),
     )
     for name, r in loaded.items():
         print(f"[build] {name}: {r['keys']} keys in {r['seconds']:.2f} s", flush=True)
@@ -215,7 +232,7 @@ def validate_ckpts(args, widths=SD15_WIDTHS) -> int:
     weights. Prints one line per artifact; non-zero on any unmapped key."""
     from cvd_tpu_torch.io import manifests as M
     from cvd_tpu_torch.io.checkpoints import (
-        clip_rename, merge_torch_state, motion_module_state, vae_legacy_rename,
+        clip_rename, image_lora_state, merge_torch_state, motion_module_state, vae_legacy_rename,
     )
     from cvd_tpu_torch.io.torch_io import load_diffusers_folder_weights, load_torch_state
 
@@ -226,6 +243,7 @@ def validate_ckpts(args, widths=SD15_WIDTHS) -> int:
 
         unet_cfg, pose_encoder_kwargs, _, _ = load_model_config(args.model_config,
                                                                 base=unet_cfg)
+    unet_cfg = unet_options(args, unet_cfg)
     m = PipelineModules.create(unet_cfg, vae_cfg, clip_cfg, device="meta", vae_encoder=True,
                                pose_encoder_kwargs=pose_encoder_kwargs)
     failures = 0
@@ -268,9 +286,13 @@ def validate_ckpts(args, widths=SD15_WIDTHS) -> int:
           motion_module_state(args.motion_module_ckpt, args.motion_lora_ckpt,
                               args.motion_lora_scale)
           if args.motion_module_ckpt else shapes_of(M.animatediff_v3_mm_manifest()))
+    epi_manifest = M.cvd_epi_ckpt_manifest()
+    if unet_cfg.sync_lora_rank and unet_cfg.sync_lora_scale:
+        epi_manifest.update(M.cvd_sync_lora_manifest(
+            unet_cfg.sync_lora_rank, abs(unet_cfg.spatial_lora_rank) or 4))
     check("epi module", m.unet,
           load_torch_state(args.epi_module_ckpt, "unet_trainable_dict")
-          if args.epi_module_ckpt else shapes_of(M.cvd_epi_ckpt_manifest()))
+          if args.epi_module_ckpt else shapes_of(epi_manifest))
     if args.pose_adaptor_ckpt:
         check("pose encoder", m.pose_encoder,
               load_torch_state(args.pose_adaptor_ckpt, "pose_encoder_state_dict"))
@@ -280,6 +302,8 @@ def validate_ckpts(args, widths=SD15_WIDTHS) -> int:
         check("pose encoder", m.pose_encoder, shapes_of(M.cameractrl_pose_encoder_manifest()))
         check("pose qkv_merge", m.unet,
               shapes_of(M.cameractrl_attention_processor_manifest()))
+    if getattr(args, "image_lora_ckpt", None):
+        check("image lora", m.unet, image_lora_state(args.image_lora_ckpt))
     print(f"[validate-ckpts] {'FAILED' if failures else 'all artifacts map cleanly'}")
     return 1 if failures else 0
 

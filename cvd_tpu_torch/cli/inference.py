@@ -9,7 +9,11 @@
         --pose_file_1 assets/pose_files/example_arc.txt --out_root results/
 
 Without checkpoints, ``--random-weights-full`` takes the place of the five
-weight options (SD1.5 widths, seeded random tensors).
+weight options (SD1.5 widths, seeded random tensors). ``--multidiff_total_steps
+N --multidiff_overlaps O`` denoises N overlapping windows of
+``--video_length`` frames, N * (video_length - O) + O frames in all (at most
+the pose encoder's 16); ``--pab [--pab_ranges ...]`` turns on Pyramid
+Attention Broadcast.
 
 Each prompt writes ``<out_root>/<idx>/videos.npy`` (uint8 [2, F, H, W, 3])
 and, where ``imageio`` is installed, per-view mp4 and png frames.
@@ -63,12 +67,20 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
         have_imageio, save_npy, save_video, save_video_as_images,
     )
 
+    from cvd_tpu_torch.pipelines.pab import PABConfig
+
     refuse_unported(args)
     if args.image_width != args.image_height:
         raise SystemExit("the epipolar attention assumes a square token grid: "
                          "use --image_width == --image_height")
-    if args.multidiff_total_steps != 1:
-        raise SystemExit("--multidiff_total_steps > 1 is not ported yet")
+    pab_config = None
+    if args.pab:
+        pab_config = PABConfig.from_string(args.pab_ranges) if args.pab_ranges else PABConfig()
+        if args.multidiff_total_steps != 1:
+            raise ValueError("PAB + multidiff windows is unsupported")
+    # all frames of the multidiff windows (cvd_tpu/cli/inference.py:100-116)
+    F = (args.multidiff_total_steps * (args.video_length - args.multidiff_overlaps)
+         + args.multidiff_overlaps if args.multidiff_total_steps > 1 else args.video_length)
     captions, negatives, seeds = load_prompts(
         args.caption_file, args.use_negative_prompt, args.num_videos)
     device = resolve_device(args.device)
@@ -83,11 +95,11 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
         validation_negative_prompts=negatives,
         pose_file_0=args.pose_file_0,
         pose_file_1=args.pose_file_1,
-        sample_n_frames=args.video_length,
+        sample_n_frames=F,
         sample_size=args.image_height,
         zero_first_frame_scale=args.zero_first_frame_scale,
     )
-    F, S = args.video_length, args.image_height
+    S = args.image_height
     results = []
     for idx in range(len(dataset)):
         sample = dataset[idx]
@@ -100,7 +112,9 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
         videos = pipe(prompt_ids, neg_ids, plucker, F_mats,
                       num_inference_steps=args.num_inference_steps,
                       guidance_scale=args.guidance_scale,
-                      generator=torch.Generator(device=device).manual_seed(seed))
+                      generator=torch.Generator(device=device).manual_seed(seed),
+                      multidiff_total_steps=args.multidiff_total_steps,
+                      multidiff_overlaps=args.multidiff_overlaps, pab_config=pab_config)
         videos = videos.cpu().numpy()
         seconds = time.perf_counter() - t0
         print(f"[inference] [{idx}] {sample['validation_prompt']!r} seed={seed}: "
@@ -127,7 +141,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--video_length", type=int, default=16)
     add_model_args(p)
     p.add_argument("--num_inference_steps", type=int, default=25)
-    p.add_argument("--multidiff_total_steps", type=int, default=1)
+    p.add_argument("--multidiff_total_steps", type=int, default=1,
+                   help="sliding denoise windows for videos longer than --video_length "
+                        "(total frames = steps*(video_length-overlaps)+overlaps)")
+    p.add_argument("--multidiff_overlaps", type=int, default=12)
     p.add_argument("--guidance_scale", type=float, default=8.5)
     p.add_argument("--caption_file", required=True)
     p.add_argument("--use_negative_prompt", action="store_true")
@@ -139,6 +156,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pose_file_0", required=True)
     p.add_argument("--pose_file_1", required=True)
     p.add_argument("--num_videos", type=int, default=None)
+    p.add_argument("--pab", action="store_true",
+                   help="Pyramid Attention Broadcast: reuse cached attention outputs on "
+                        "scheduled mid-trajectory steps (see pipelines/pab.py)")
+    p.add_argument("--pab_ranges", type=str, default="",
+                   help="e.g. 'spatial=2,cross=3,temporal=2,epi=1'")
     return p
 
 

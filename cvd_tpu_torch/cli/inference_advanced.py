@@ -13,8 +13,9 @@ recurrent denoising, accumulate-step pair averaging. Each (seed, prompt)
 writes ``<out_root>/<seed_id>_<idx>/videos.npy`` (uint8 [V, F, H, W, 3]) and
 a NeRF-style ``transforms.json`` (OpenCV -> OpenGL axes, reference
 :362-410) and, where ``imageio`` is installed, ``video.mp4`` / ``video.gif``
-(the views stacked) and ``images/<view>/%04d.png``. Not ported yet, and
-refused (ROADMAP.md, queue 1): ``--pab``, ``--sharded``, ``--step_chunk``.
+(the views stacked) and ``images/<view>/%04d.png``. ``--pab
+[--pab_ranges ...]`` turns on Pyramid Attention Broadcast. Not ported yet,
+and refused (ROADMAP.md, queue 1): ``--sharded``, ``--step_chunk``.
 """
 from __future__ import annotations
 
@@ -78,8 +79,7 @@ def _refuse(args) -> None:
     if args.mono_direction:
         # the reference rejects this path too (attention_processor.py:622)
         raise NotImplementedError("--mono_direction is not supported")
-    for flag, what in (("pab", "Pyramid Attention Broadcast"),
-                       ("sharded", "sampling over a mesh of devices"),
+    for flag, what in (("sharded", "sampling over a mesh of devices"),
                        ("step_chunk", "the chunked scan (a Python loop has no use for it)")):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not ported (ROADMAP.md, queue 1)")
@@ -99,12 +99,16 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     from cvd_tpu_torch.cli.inference import load_prompts
     from cvd_tpu_torch.geometry.plucker import ray_condition
     from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+    from cvd_tpu_torch.pipelines.pab import PABConfig
     from cvd_tpu_torch.utils.video import (
         have_imageio, save_npy, save_video, save_video_as_images,
     )
 
     _refuse(args)
     refuse_unported(args)
+    pab_config = None
+    if args.pab:
+        pab_config = PABConfig.from_string(args.pab_ranges) if args.pab_ranges else PABConfig()
     captions, negatives, seeds = load_prompts(args.caption_file, args.use_negative_prompt)
     device = resolve_device(args.device)
 
@@ -135,7 +139,7 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
                 torch.from_numpy(tokenizer([prompt])), neg_ids, plucker, c2w=c2w_t, K_mats=K_t,
                 num_inference_steps=args.num_inference_steps,
                 guidance_scale=args.guidance_scale, multistep=args.multistep,
-                accumulate_step=args.accumulate_step,
+                accumulate_step=args.accumulate_step, pab_config=pab_config,
                 generator=torch.Generator(device=device).manual_seed(seed))
             videos = videos.cpu().numpy()                      # [V, F, H, W, 3]
             seconds = time.perf_counter() - t0
@@ -174,6 +178,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_negative_prompt", action="store_true",
                    help="read per-prompt negative_prompts from the caption json")
     p.add_argument("--use_specific_seeds", action="store_true")
+    p.add_argument("--zero_first_frame_scale", action="store_true", default=True,
+                   help="identity-first pose normalization; procedural "
+                        "trajectories start at identity so both settings "
+                        "coincide here (as in the reference, whose "
+                        "get_relative_pose is never called on this path)")
     p.add_argument("--view_num", type=int, default=4)
     p.add_argument("--multistep", type=int, default=3)
     p.add_argument("--accumulate_step", type=int, default=1)
@@ -186,7 +195,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mono_direction", action="store_true",
                    help="not supported: the reference raises too")
     p.add_argument("--sharded", action="store_true", help="not ported yet")
-    p.add_argument("--pab", action="store_true", help="not ported yet")
+    p.add_argument("--pab", action="store_true",
+                   help="Pyramid Attention Broadcast: reuse attention outputs on scheduled "
+                        "outer steps (see pipelines/pab.py)")
+    p.add_argument("--pab_ranges", type=str, default="",
+                   help="per-class broadcast ranges, e.g. 'spatial=2,cross=3,temporal=2,epi=1'")
     p.add_argument("--step_chunk", type=int, default=None, help="not ported: no scan to chunk")
     return p
 

@@ -4,7 +4,8 @@
     python -m cvd_tpu_torch.cli.train --config configs/train_epi.yaml
 
 Fine-tunes only the epi/sync/auxiliary parameters on folded RealEstate10K
-pairs: null-text dropout, periodic logging and checkpoints (the port's
+pairs (with ``sync_lora_rank`` the sync-LoRA trains beside the epi modules,
+and ``image_lora_ckpt``'s runtime image LoRA stays frozen at scale 1): null-text dropout, periodic logging and checkpoints (the port's
 ``save`` file and the reference-format ``.ckpt``), ``resume_from`` and a
 first-step sanity dump; ``remat: true`` recomputes each UNet block in the
 backward (off by default: PERF.md). ``run(cfg)`` takes the config as a
@@ -17,11 +18,14 @@ one, ``epi_module_ckpt`` (else the epi modules start as the identity), with
 the modules that ``model_config`` names; or ``random_weights: true``, the tiny smoke
 model from the default initialization, or ``random_weights_full: true``,
 the SD1.5 widths with every tensor drawn, on the device from a fixed seed.
-Not ported yet, and raising NotImplementedError (ROADMAP queue 1):
-``image_lora_ckpt``, ``civitai_*``, datasets other than RealEstate10K,
-``cache_latents``, ``validation_steps > 0`` / ``validation_data``,
-``--multihost``, ``sync_lora_rank > 0`` / ``sync_lora_scale``, ``lora_rank``,
-``epi_loss_weight``, remat policies other than ``""``, process workers.
+``lora_rank`` is the image LoRA's rank, as in the JAX package (and so the
+sync-LoRA's divisor with an image LoRA); ``epi_loss_weight`` weighs a loss
+of the auxiliary q/k head, which no config with ``additional_channel: 0``
+has, so it changes nothing and ``epi_loss`` reports 0. Not ported yet, and
+raising NotImplementedError (ROADMAP queue 1): ``civitai_*``, datasets
+other than RealEstate10K, ``cache_latents``, ``validation_steps > 0`` /
+``validation_data``, ``--multihost``, remat policies other than ``""``,
+process workers.
 """
 from __future__ import annotations
 
@@ -45,27 +49,39 @@ def load_config(path: str) -> dict:
         return yaml.safe_load(f)
 
 
+def _model_args(cfg: dict) -> argparse.Namespace:
+    """The config's keys as ``cli.build``'s model options: ``lora_rank`` is
+    ``--image_lora_rank`` (cvd_tpu/cli/train.py:127)."""
+    return argparse.Namespace(
+        **{k: cfg.get(k) for k in ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
+                                   "epi_module_ckpt", "pose_adaptor_ckpt", "model_config")
+           + _CHECKPOINT_KEYS},
+        unet_subfolder=cfg.get("unet_subfolder") or "unet",
+        motion_lora_scale=cfg.get("motion_lora_scale", 1.0),
+        random_weights=bool(cfg.get("random_weights")),
+        random_weights_full=bool(cfg.get("random_weights_full")),
+        pose_adaptor_scale=cfg.get("pose_adaptor_scale", 1.0), bf16=cfg.get("bf16", False),
+        image_lora_rank=cfg.get("lora_rank", 4),
+        sync_lora_rank=cfg.get("sync_lora_rank", 0) or 0,
+        sync_lora_scale=cfg.get("sync_lora_scale", 1.0),
+        remat_policy=cfg.get("remat_policy", "") or "")
+
+
 def _refuse_unported(cfg: dict) -> None:
+    from cvd_tpu_torch.cli.build import refuse_unported
+
     name = (cfg.get("train_data") or {}).get("dataset_name", "realestate10k")
     checks = [
         (name not in ("realestate10k", "realestate10k_local"),
          f"dataset_name {name!r}: only RealEstate10K is ported"),
         (cfg.get("cache_latents", False), "cache_latents: the latents cache"),
         ((cfg.get("validation_steps") or 0) > 0, "validation_steps > 0: validation sampling"),
-        ((cfg.get("sync_lora_rank") or 0) > 0, "sync_lora_rank > 0: sync-LoRA"),
-        ((cfg.get("sync_lora_scale") or 1.0) != 1.0, "sync_lora_scale != 1: sync-LoRA"),
-        ((cfg.get("lora_rank") or 0) != 0, "lora_rank != 0: the image LoRA"),
-        ((cfg.get("epi_loss_weight") or 0.0) != 0.0,
-         "epi_loss_weight != 0: the auxiliary q/k head and its epipolar loss"),
         (bool(cfg.get("validation_data")), "validation_data: validation sampling"),
-        (cfg.get("remat_policy", "") != "", f"remat_policy {cfg.get('remat_policy')!r}: "
-                                           "the 'dots'/'layer' remat policies"),
-        (any(cfg.get(k) for k in _CHECKPOINT_KEYS),
-         "image_lora_ckpt / civitai_lora_ckpt / civitai_base_model"),
     ]
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet {_ROADMAP}")
+    refuse_unported(_model_args(cfg))
 
 
 def build_training_modules(cfg: dict, device, tokenizer=None, widths=None):
@@ -75,15 +91,7 @@ def build_training_modules(cfg: dict, device, tokenizer=None, widths=None):
     encoder in bf16 when ``bf16``."""
     from cvd_tpu_torch.cli.build import SD15_WIDTHS, build_modules
 
-    margs = argparse.Namespace(
-        **{k: cfg.get(k) for k in ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
-                                   "epi_module_ckpt", "pose_adaptor_ckpt", "model_config")},
-        unet_subfolder=cfg.get("unet_subfolder") or "unet",
-        motion_lora_scale=cfg.get("motion_lora_scale", 1.0),
-        random_weights=bool(cfg.get("random_weights")),
-        random_weights_full=bool(cfg.get("random_weights_full")),
-        pose_adaptor_scale=cfg.get("pose_adaptor_scale", 1.0), bf16=cfg.get("bf16", False))
-    return build_modules(margs, device, vae_encoder=True, unet_dtype=torch.float32,
+    return build_modules(_model_args(cfg), device, vae_encoder=True, unet_dtype=torch.float32,
                          tokenizer=tokenizer, widths=widths or SD15_WIDTHS)
 
 

@@ -9,13 +9,16 @@ Mirrors get_pipeline's load order and strictness (inference_epi.py:72-145):
      motion LoRA fused into it first)
   3. CVD epi ckpt ('unet_trainable_dict') -> epi_modules params
   4. CameraCtrl pose-adaptor ckpt -> pose encoder + qkv_merge processors
-The port's modules carry the checkpoints' own names and torch's layouts, so
+  5. the runtime image LoRA (CameraCtrl's RealEstate10K LoRA) -> the
+     ``processor.to_*_lora`` deltas of the spatial attentions
+The sync-LoRA of a sync-trained epi ckpt rides in its ``unet_trainable_dict``
+and lands through 3 when the UNet is built with it. The port's modules carry the checkpoints' own names and torch's layouts, so
 nothing is transposed and a key lands on the parameter of the same name.
 Every loader holds the coverage contract of the reference's load-time
 asserts (inference_epi.py:97-122): each checkpoint key it accepts lands on
 a parameter of equal shape or is a named skipped buffer, else ``KeyError``.
-Each returns the keys it consumed. Not ported yet: the runtime image LoRA,
-civitai single-file models and SparseCtrl (ROADMAP.md, queue 1).
+Each returns the keys it consumed. Not ported yet: civitai single-file
+models and SparseCtrl (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
-from cvd_tpu_torch.io.torch_io import load_diffusers_folder_weights, load_torch_state
+from cvd_tpu_torch.io.torch_io import (
+    _torch_load, load_diffusers_folder_weights, load_torch_state,
+)
 
 # buffers the released files carry and the modules compute themselves
 SKIP_SUBSTRINGS = (
@@ -185,6 +190,28 @@ def load_pose_adaptor_weights(unet: nn.Module, pose_encoder: nn.Module, path: st
         unet, load_torch_state(path, sub_dict="attention_processor_state_dict"))
 
 
+def image_lora_state(path: str) -> Dict[str, torch.Tensor]:
+    """The image-LoRA file's pairs: the top-level dict, or its
+    ``lora_state_dict`` where it has one (inference_epi.py:91-98)."""
+    if not path.endswith(".safetensors"):
+        raw = _torch_load(path)
+        if isinstance(raw, dict) and "lora_state_dict" in raw:
+            return {k: v.detach() for k, v in raw["lora_state_dict"].items()
+                    if isinstance(v, torch.Tensor)}
+    return load_torch_state(path)
+
+
+def load_image_lora_weights(unet: nn.Module, path: str) -> List[str]:
+    """The runtime image LoRA, strictly: every key of the file lands on a
+    ``processor.to_*_lora`` parameter of the UNet (built with
+    ``spatial_lora_rank``), in place."""
+    state = image_lora_state(path)
+    consumed = merge_torch_state(unet, state)
+    if len(consumed) != len(state):
+        raise KeyError(f"{len(state) - len(consumed)} image-LoRA keys unconsumed")
+    return consumed
+
+
 def load_sd_pipeline_weights(
     unet: nn.Module,
     vae: nn.Module,
@@ -197,6 +224,7 @@ def load_sd_pipeline_weights(
     pose_encoder: Optional[nn.Module] = None,
     motion_lora_ckpt: Optional[str] = None,
     motion_lora_scale: float = 1.0,
+    image_lora_ckpt: Optional[str] = None,
 ) -> Dict[str, dict]:
     """The full reference load sequence, into the modules in place, one
     artifact at a time (each file's tensors are let go before the next is
@@ -220,4 +248,6 @@ def load_sd_pipeline_weights(
         if pose_encoder is None:
             raise ValueError("pose_adaptor_ckpt needs the pose encoder to load into")
         load("pose_adaptor", load_pose_adaptor_weights, unet, pose_encoder, pose_adaptor_ckpt)
+    if image_lora_ckpt:
+        load("image_lora", load_image_lora_weights, unet, image_lora_ckpt)
     return report

@@ -6,7 +6,8 @@ and returns the state dict that the port's modules load with
 ``load_state_dict(strict=True)``. It applies the key rules of
 ``cvd_tpu/io/key_mapping.py:198-229`` (``flax_path_to_torch_key``), except
 that ``time_embedding.linear_1`` / ``linear_2`` keep the names the SD1.5
-checkpoint gives them, and its kernel transposes (``:240-241``): a 4-D conv kernel [kh, kw, in, out] goes
+checkpoint gives them and the image LoRA's ``to_*_lora`` sit under
+``processor``, as in CameraCtrl's LoRA file, and its kernel transposes (``:240-241``): a 4-D conv kernel [kh, kw, in, out] goes
 to [out, in, kh, kw], a 2-D dense kernel [in, out] to [out, in]. It flattens
 the tree itself and imports no flax.
 """
@@ -48,8 +49,10 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
         if i == len(path) - 1 and el in ("kernel", "scale", "embedding"):
             out.append("weight")
             continue
-        if el == "qkv_merge" or el.endswith("_lora_sync"):
-            # these live on the attention *processor* in the reference
+        if el == "qkv_merge" or el.endswith(("_lora_sync", "_lora")):
+            # these live on the attention *processor* in the reference: the
+            # pose merge, the sync-LoRA and the image LoRA (to_q_lora/down ->
+            # processor.to_q_lora.down)
             out.append("processor")
         if el in _INV_SPECIAL:
             out.append(_INV_SPECIAL[el])

@@ -268,6 +268,31 @@ def cvd_sync_lora_manifest(sync_lora_rank: int = 4,
     return m
 
 
+def _spatial_sites() -> List[Tuple[str, int]]:
+    """(key prefix, channels) of every spatial transformer of the SD1.5 UNet."""
+    sites = [(f"down_blocks.{i}.attentions.{j}", CH[i]) for i in range(3) for j in range(2)]
+    sites.append(("mid_block.attentions.0", CH[-1]))
+    sites += [(f"up_blocks.{i}.attentions.{j}", RCH[i]) for i in range(1, 4) for j in range(3)]
+    return sites
+
+
+def cameractrl_image_lora_manifest(image_lora_rank: int = 2) -> Manifest:
+    """The runtime image LoRA of CameraCtrl (loaded at inference_epi.py:91-98,
+    optionally under ``lora_state_dict``): to_{q,k,v,out}_lora.{down,up} on
+    the processor of attn1 and attn2 of every spatial transformer. Per-layer
+    rank by the reference rule (unet.py:1028): ``image_lora_rank`` when > 16,
+    else channels // image_lora_rank."""
+    m: Manifest = {}
+    for p, c in _spatial_sites():
+        r = image_lora_rank if image_lora_rank > 16 else c // image_lora_rank
+        for a, kdim in (("attn1", c), ("attn2", CROSS)):
+            proc = f"{p}.transformer_blocks.0.{a}.processor"
+            for proj, in_f in (("to_q", c), ("to_k", kdim), ("to_v", kdim), ("to_out", c)):
+                m[f"{proc}.{proj}_lora.down.weight"] = (r, in_f)
+                m[f"{proc}.{proj}_lora.up.weight"] = (c, r)
+    return m
+
+
 def animatediff_sparsectrl_manifest(simplified: bool = False,
                                     conditioning_channels: int = None) -> Manifest:
     """AnimateDiff SparseCtrl ckpt keys (models/sparse_controlnet.py:85-313):

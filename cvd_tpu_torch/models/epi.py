@@ -37,7 +37,8 @@ from cvd_tpu_torch.geometry.epipolar_mask import (
     pixel_grid_coords, pseudo_lines,
 )
 from cvd_tpu_torch.models.layers import (
-    FeedForward, FusedGroupNorm, group_norm_per_frame, linear, merge_heads, split_heads,
+    FeedForward, FusedGroupNorm, group_norm_per_frame, linear, merge_heads, pab_run,
+    split_heads,
 )
 from cvd_tpu_torch.ops.attention import attention_with_bias
 from cvd_tpu_torch.ops.epi_flash import epi_flash_attention
@@ -223,9 +224,11 @@ class EpiTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
         self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, cond: EpiConditioning) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None) -> torch.Tensor:
+        """pab: the request's PAB cache, class "epi": a reused attention
+        skips its lines, bias set-up and projections as well."""
         for norm, attn in zip(self.norms, self.attention_blocks):
-            x = x + attn(x, cond, pre_ln=norm)
+            x = x + pab_run(pab, attn, "epi", lambda: attn(x, cond, pre_ln=norm))
         return self.ff(x, pre_ln=self.ff_norm) + x
 
 
@@ -244,11 +247,11 @@ class EpiTransformer(nn.Module):
             for _ in range(num_transformer_blocks)])
         self.proj_out = nn.Linear(C, C)
 
-    def forward(self, x: torch.Tensor, cond: EpiConditioning) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None) -> torch.Tensor:
         B, Fr, H, W, C = x.shape
         h = linear(self.proj_in, group_norm_per_frame(self.norm, x).reshape(B * Fr, H * W, C))
         for blk in self.transformer_blocks:
-            h = blk(h, cond)
+            h = blk(h, cond, pab)
         return linear(self.proj_out, h).reshape(B, Fr, H, W, C) + x
 
 
@@ -260,5 +263,5 @@ class EpiModule(nn.Module):
         super().__init__()
         self.epi_transformer = EpiTransformer(*args, **kwargs)
 
-    def forward(self, x: torch.Tensor, cond: EpiConditioning) -> torch.Tensor:
-        return self.epi_transformer(x, cond)
+    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None) -> torch.Tensor:
+        return self.epi_transformer(x, cond, pab)

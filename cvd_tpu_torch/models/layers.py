@@ -25,8 +25,20 @@ from cvd_tpu_torch.ops.ln_matmul import layer_norm_matmul
 from cvd_tpu_torch.ops.norms import group_norm
 
 # self-attentions at least this long take the fused kernel (K2) on CUDA,
-# as the JAX package does at its big spatial attentions (layers.py:382-403)
+# as the JAX package does at its big spatial attentions (layers.py:382-403);
+# one whose keys are not its queries (extended attention: the pair's tokens)
+# also needs both lengths a multiple of 128, as the JAX package's
+# ``flash_supported`` decides
 FLASH_MIN_TOKENS = 256
+FLASH_KEY_MULTIPLE = 128
+
+
+def pab_run(pab, site: nn.Module, kind: str, fn):
+    """``fn()``, the output of the attention ``site`` of class ``kind``, under
+    Pyramid Attention Broadcast (``pipelines/pab.py``): with a cache ``pab``
+    that marks ``kind`` reused for this call, the cached output instead, and
+    ``fn`` (its norm, projections and attention) does not run."""
+    return fn() if pab is None else pab.run(site, kind, fn)
 
 
 def sinusoidal_time_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
@@ -151,12 +163,46 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, L, H * D)
 
 
+class LoRADelta(nn.Module):
+    """down -> up low-rank delta (diffusers ``LoRALinearLayer``): no biases,
+    ``up`` starts at zero (``UNet3DConditionModel.zero_initialized``), so a
+    fresh delta is 0. ``down_std``: ``down`` starts as N(0, down_std) (the
+    sync-LoRA's 1 / rank) instead of the default uniform."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 down_std: Optional[float] = None):
+        super().__init__()
+        self.down = nn.Linear(in_features, rank, bias=False)
+        self.up = nn.Linear(rank, out_features, bias=False)
+        self.down.init_std = down_std
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self.up, linear(self.down, x))
+
+
+class LoRAProcessor(nn.Module):
+    """The image LoRA of one attention, where the reference keeps it: on the
+    attention processor (state-dict keys ``...attn1.processor.to_q_lora.down.
+    weight``), a delta for each of q, k, v (from the normed tokens, k and v
+    from the context) and the output (from the attention's output, before
+    ``to_out``)."""
+
+    def __init__(self, query_dim: int, context_dim: int, inner: int, rank: int):
+        super().__init__()
+        self.to_q_lora = LoRADelta(query_dim, inner, rank)
+        self.to_k_lora = LoRADelta(context_dim, inner, rank)
+        self.to_v_lora = LoRADelta(context_dim, inner, rank)
+        self.to_out_lora = LoRADelta(inner, query_dim, rank)
+
+
 class Attention(nn.Module):
     """diffusers ``Attention``: to_q/to_k/to_v without bias, to_out.0 with
-    bias. Token-major [B, L, C]; context [B, Lk, C_ctx] for cross attention."""
+    bias. Token-major [B, L, C]; context [B, Lk, C_ctx] for cross attention.
+    With ``lora_rank > 0`` each projection gains a LoRA delta scaled at call
+    time by ``lora_scale`` (the reference's CustomizedLoRAAttnProcessor)."""
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
-                 cross_attention_dim: Optional[int] = None):
+                 cross_attention_dim: Optional[int] = None, lora_rank: int = 0):
         super().__init__()
         inner = heads * dim_head
         ctx = cross_attention_dim or query_dim
@@ -165,15 +211,22 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(ctx, inner, bias=False)
         self.to_v = nn.Linear(ctx, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.processor = (LoRAProcessor(query_dim, ctx, inner, lora_rank)
+                          if lora_rank > 0 else None)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
-                pre_ln: Optional[nn.LayerNorm] = None) -> torch.Tensor:
+                pre_ln: Optional[nn.LayerNorm] = None,
+                lora_scale: float = 1.0) -> torch.Tensor:
         """pre_ln: the preceding LayerNorm of the queries; ``x`` is then
         UNNORMALIZED and the norm fuses into the projection (kernel K5).
-        Context tokens are never normalized by it."""
+        Context tokens are never normalized by it. The LoRA deltas need the
+        normed tokens, so they take no ``pre_ln``."""
         wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
+        lora = self.processor
         if pre_ln is not None:
+            if lora is not None:
+                raise ValueError("the LoRA deltas need the normed tokens: no pre_ln")
             if context is None:
                 q, k, v = layer_norm_matmul(x, pre_ln.weight, pre_ln.bias,
                                             [wq, wk, wv], [None] * 3, eps=pre_ln.eps)
@@ -186,13 +239,24 @@ class Attention(nn.Module):
         else:
             (q,) = fused_matmul(x, (wq,))
             k, v = fused_matmul(context, (wk, wv))
-        if bias is None and context is None and q.shape[1] >= FLASH_MIN_TOKENS:
-            out = flash_attention(q, k, v, heads=self.heads)
+        if lora is not None:
+            ctx = x if context is None else context
+            q = q + lora_scale * lora.to_q_lora(x)
+            k = k + lora_scale * lora.to_k_lora(ctx)
+            v = v + lora_scale * lora.to_v_lora(ctx)
+        Lq, Lk = q.shape[1], k.shape[1]
+        if bias is None and Lq >= FLASH_MIN_TOKENS and (
+                context is None
+                or (Lq % FLASH_KEY_MULTIPLE == 0 and Lk % FLASH_KEY_MULTIPLE == 0)):
+            h = flash_attention(q, k, v, heads=self.heads)
         else:
-            out = merge_heads(attention_with_bias(
+            h = merge_heads(attention_with_bias(
                 split_heads(q, self.heads), split_heads(k, self.heads),
                 split_heads(v, self.heads), bias))
-        return self.to_out[0](out)
+        out = self.to_out[0](h)
+        if lora is not None:
+            out = out + lora_scale * lora.to_out_lora(h)
+        return out
 
 
 class ResnetBlock2D(nn.Module):
@@ -244,22 +308,50 @@ class Upsample2D(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """diffusers BasicTransformerBlock (spatial): self attn, cross attn, ff,
-    each LayerNorm folded into the following projection."""
+    """diffusers BasicTransformerBlock (spatial): self attn, cross attn, ff.
+    Each LayerNorm folds into the following projection (kernel K5), unless
+    the normed tokens are needed on their own: by the LoRA deltas, and by
+    ``extended_attention``, where the self-attention's keys and values are
+    the normed tokens of both videos of the pair (the reference's
+    spatial_extended_attention, attention_processor.py:69-83). The batch is
+    then the two videos' rows, first video first."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 768):
+    def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim: int = 768,
+                 extended_attention: bool = False, lora_rank: int = 0):
         super().__init__()
+        self.extended_attention = extended_attention
+        self.fused = lora_rank == 0 and not extended_attention
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, dim_head)
+        self.attn1 = Attention(dim, heads, dim_head, lora_rank=lora_rank)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim=cross_attention_dim)
+        self.attn2 = Attention(dim, heads, dim_head, cross_attention_dim=cross_attention_dim,
+                               lora_rank=lora_rank)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(x, pre_ln=self.norm1)
-        x = x + self.attn2(x, context, pre_ln=self.norm2)
-        return x + self.ff(x, pre_ln=self.norm3)
+    def _self_attention(self, x: torch.Tensor, lora_scale: float) -> torch.Tensor:
+        h = self.norm1(x)
+        context = None
+        if self.extended_attention:
+            half = h.shape[0] // 2
+            pair = torch.cat([h[:half], h[half:]], dim=1)     # [B/2, 2L, C]
+            context = torch.cat([pair, pair], dim=0)
+        return self.attn1(h, context, lora_scale=lora_scale)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor, lora_scale: float = 1.0,
+                pab=None) -> torch.Tensor:
+        """pab: the request's PAB cache (``pipelines/pab.py``): classes
+        "spatial" (attn1) and "cross" (attn2)."""
+        if self.fused:
+            x = x + pab_run(pab, self.attn1, "spatial",
+                            lambda: self.attn1(x, pre_ln=self.norm1))
+            x = x + pab_run(pab, self.attn2, "cross",
+                            lambda: self.attn2(x, context, pre_ln=self.norm2))
+            return x + self.ff(x, pre_ln=self.norm3)
+        x = x + pab_run(pab, self.attn1, "spatial", lambda: self._self_attention(x, lora_scale))
+        x = x + pab_run(pab, self.attn2, "cross",
+                        lambda: self.attn2(self.norm2(x), context, lora_scale=lora_scale))
+        return x + self.ff(self.norm3(x))
 
 
 class Transformer2DModel(nn.Module):
@@ -267,22 +359,25 @@ class Transformer2DModel(nn.Module):
     [N, H, W, C]; context [N, L, C_ctx]."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int = 1,
-                 cross_attention_dim: int = 768, groups: int = 32):
+                 cross_attention_dim: int = 768, groups: int = 32,
+                 extended_attention: bool = False, lora_rank: int = 0):
         super().__init__()
         inner = heads * dim_head
         self.norm = FusedGroupNorm(in_channels, groups, 1e-6)
         self.proj_in = Conv2d(in_channels, inner, 1, 1, 0)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim)
+            BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
+                                  extended_attention, lora_rank)
             for _ in range(depth)
         ])
         self.proj_out = Conv2d(inner, in_channels, 1, 1, 0)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, lora_scale: float = 1.0,
+                pab=None) -> torch.Tensor:
         N, H, W, C = x.shape
         h = self.proj_in(self.norm(x))
         h = h.reshape(N, H * W, h.shape[-1])
         for blk in self.transformer_blocks:
-            h = blk(h, context)
+            h = blk(h, context, lora_scale, pab)
         h = self.proj_out(h.reshape(N, H, W, h.shape[-1]))
         return h + x

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from cvd_tpu_torch.models.layers import (
-    FeedForward, FusedGroupNorm, fused_matmul, group_norm_per_frame,
+    FeedForward, FusedGroupNorm, LoRADelta, fused_matmul, group_norm_per_frame, pab_run,
     temporal_positional_encoding,
 )
 from cvd_tpu_torch.ops.temporal_attn import temporal_attention_plain, temporal_flash_attention
@@ -60,46 +60,72 @@ def causal_temporal_mask(kind: str, length: int) -> torch.Tensor:
 
 class _PoseProcessor(nn.Module):
     """Holds ``qkv_merge`` where the reference keeps it: on the attention
-    processor (state-dict key ``...attention_blocks.0.processor.qkv_merge``)."""
+    processor (state-dict key ``...attention_blocks.0.processor.qkv_merge``),
+    and beside it the sync-LoRA (``processor.to_{q,k,v,out}_lora_sync``;
+    "sync" puts them in the trainable set, train/state.py)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, sync_lora_rank: int = 0):
         super().__init__()
         self.qkv_merge = nn.Linear(dim, dim)
+        if sync_lora_rank > 0:
+            for name in ("to_q", "to_k", "to_v", "to_out"):
+                setattr(self, f"{name}_lora_sync",
+                        LoRADelta(dim, dim, sync_lora_rank, down_std=1.0 / sync_lora_rank))
+        self.sync = sync_lora_rank > 0
 
 
 class TemporalSelfAttention(nn.Module):
     """One temporal attention over the frame axis: sinusoidal PE + optional
-    pose conditioning. Input [B, N, F, C], already layer-normed."""
+    pose conditioning. Input [B, N, F, C], already layer-normed.
+
+    sync-LoRA (attention_processor.py:262-270, 341-344), on the
+    pose-conditioned attention only, with ``sync_lora_rank > 0`` and
+    ``sync_lora_scale != 0``: rank-r deltas on q/k/v from the (post-merge)
+    qkv source, and on the output from the POST-projection output (the
+    reference's order, kept): ``o = to_out(h); o += s * up(down(o))``."""
 
     def __init__(self, dim: int, heads: int, pe_max_len: int = 32,
                  pose_conditioned: bool = False, pose_scale: float = 1.0,
-                 causal_mask_type: str = ""):
+                 causal_mask_type: str = "", sync_lora_rank: int = 0,
+                 sync_lora_scale: float = 0.0):
         super().__init__()
         self.heads = heads
         self.pe_max_len = pe_max_len
         self.pose_scale = pose_scale
         self.causal_mask_type = causal_mask_type
+        self.sync_lora_scale = sync_lora_scale
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
-        self.processor = _PoseProcessor(dim) if pose_conditioned else None
+        sync = sync_lora_rank if sync_lora_scale != 0.0 else 0
+        self.processor = _PoseProcessor(dim, sync) if pose_conditioned else None
 
     def forward(self, x: torch.Tensor,
                 pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, Fr, C = x.shape
         pe = temporal_positional_encoding(self.pe_max_len, C, x.device)[:, :Fr]
         x = x + pe.to(x.dtype)
-        if self.processor is not None and pose_feature is not None:
-            x = self.processor.qkv_merge(x + pose_feature.to(x.dtype)) * self.pose_scale + x
+        proc = self.processor
+        if proc is not None and pose_feature is not None:
+            x = proc.qkv_merge(x + pose_feature.to(x.dtype)) * self.pose_scale + x
         q, k, v = fused_matmul(x, (self.to_q.weight, self.to_k.weight, self.to_v.weight))
+        sync = proc is not None and proc.sync
+        if sync:
+            s = self.sync_lora_scale
+            q = q + s * proc.to_q_lora_sync(x)
+            k = k + s * proc.to_k_lora_sync(x)
+            v = v + s * proc.to_v_lora_sync(x)
         mask = (causal_temporal_mask(self.causal_mask_type, Fr).to(x.device)
                 if self.causal_mask_type else None)
         if N >= TEMPORAL_KERNEL_MIN_PIXELS:
             out = temporal_flash_attention(q, k, v, mask, heads=self.heads)
         else:
             out = temporal_attention_plain(q, k, v, mask, self.heads)
-        return self.to_out[0](out)
+        o = self.to_out[0](out)
+        if sync:
+            o = o + self.sync_lora_scale * proc.to_out_lora_sync(o)
+        return o
 
 
 class TemporalTransformerBlock(nn.Module):
@@ -108,13 +134,16 @@ class TemporalTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, num_attention_blocks: int = 2,
                  pe_max_len: int = 32, pose_cond_indices: Sequence[int] = (0,),
-                 pose_scale: float = 1.0, causal_mask_type: str = ""):
+                 pose_scale: float = 1.0, causal_mask_type: str = "",
+                 sync_lora_rank: int = 0, sync_lora_scale: float = 0.0):
         super().__init__()
         self.attention_blocks = nn.ModuleList([
             TemporalSelfAttention(dim, heads, pe_max_len,
                                   pose_conditioned=i in pose_cond_indices,
                                   pose_scale=pose_scale,
-                                  causal_mask_type=causal_mask_type)
+                                  causal_mask_type=causal_mask_type,
+                                  sync_lora_rank=sync_lora_rank,
+                                  sync_lora_scale=sync_lora_scale)
             for i in range(num_attention_blocks)
         ])
         self.norms = nn.ModuleList([nn.LayerNorm(dim, eps=1e-5)
@@ -122,10 +151,12 @@ class TemporalTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
         self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor,
-                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pose_feature: Optional[torch.Tensor] = None,
+                pab=None) -> torch.Tensor:
+        """pab: the request's PAB cache, class "temporal": a reused attention
+        skips its LayerNorm, PE add and ``qkv_merge`` as well."""
         for norm, attn in zip(self.norms, self.attention_blocks):
-            x = attn(norm(x), pose_feature) + x
+            x = pab_run(pab, attn, "temporal", lambda: attn(norm(x), pose_feature)) + x
         return self.ff(x, pre_ln=self.ff_norm) + x
 
 
@@ -136,20 +167,22 @@ class TemporalTransformer(nn.Module):
     def __init__(self, in_channels: int, heads: int = 8, num_transformer_blocks: int = 1,
                  num_attention_blocks: int = 2, pe_max_len: int = 32,
                  pose_cond_indices: Sequence[int] = (0,), pose_scale: float = 1.0,
-                 norm_groups: int = 32, causal_mask_type: str = ""):
+                 norm_groups: int = 32, causal_mask_type: str = "",
+                 sync_lora_rank: int = 0, sync_lora_scale: float = 0.0):
         super().__init__()
         C = in_channels
         self.norm = FusedGroupNorm(C, norm_groups, 1e-6)
         self.proj_in = nn.Linear(C, C)
         self.transformer_blocks = nn.ModuleList([
             TemporalTransformerBlock(C, heads, num_attention_blocks, pe_max_len,
-                                     pose_cond_indices, pose_scale, causal_mask_type)
+                                     pose_cond_indices, pose_scale, causal_mask_type,
+                                     sync_lora_rank, sync_lora_scale)
             for _ in range(num_transformer_blocks)
         ])
         self.proj_out = nn.Linear(C, C)
 
-    def forward(self, x: torch.Tensor,
-                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pose_feature: Optional[torch.Tensor] = None,
+                pab=None) -> torch.Tensor:
         B, Fr, H, W, C = x.shape
         # per-frame GroupNorm, then pixel-major for the temporal blocks
         h = group_norm_per_frame(self.norm, x).reshape(B, Fr, H * W, C)
@@ -157,7 +190,7 @@ class TemporalTransformer(nn.Module):
         if pose_feature is not None:
             pose_feature = pose_feature.reshape(B, Fr, H * W, -1).transpose(1, 2)
         for blk in self.transformer_blocks:
-            h = blk(h, pose_feature)
+            h = blk(h, pose_feature, pab)
         h = self.proj_out(h).transpose(1, 2)
         return h.reshape(B, Fr, H, W, C) + x
 
@@ -170,6 +203,6 @@ class MotionModule(nn.Module):
         super().__init__()
         self.temporal_transformer = TemporalTransformer(*args, **kwargs)
 
-    def forward(self, x: torch.Tensor,
-                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.temporal_transformer(x, pose_feature)
+    def forward(self, x: torch.Tensor, pose_feature: Optional[torch.Tensor] = None,
+                pab=None) -> torch.Tensor:
+        return self.temporal_transformer(x, pose_feature, pab)

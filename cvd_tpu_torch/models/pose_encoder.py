@@ -51,6 +51,7 @@ class CameraPoseEncoder(nn.Module):
                  temporal_pe_max_len: int = 16):
         super().__init__()
         self.downscale_factor = downscale_factor
+        self.temporal_pe_max_len = temporal_pe_max_len
         self.encoder_conv_in = Conv2d(cin, channels[0], 3, 1, 1)
         convs, attns = [], []
         in_ch = channels[0]

@@ -9,10 +9,13 @@ Layout is channels-last video [B, F, H, W, C]; per-frame 2D ops fold frames
 into the batch. Module names reproduce the reference state-dict keys
 (``down_blocks.{i}.resnets.{j}...``). ``remat=True`` recomputes each UNet
 block in the backward (``torch.utils.checkpoint``, the JAX package's
-``remat_unit="block"`` with no saving policy). Not ported yet: the layer
-scan (``scan_identical_layers``, an XLA compile lever), the ``layer`` remat
-unit and the ``dots`` policy, LoRA, sync-LoRA, first-frame fusion and the
-auxiliary q/k head.
+``remat_unit="block"`` with no saving policy). The runtime image LoRA
+(``spatial_lora_rank``, scaled per call by ``lora_scale``), the sync-LoRA
+and spatial extended attention are the JAX package's options of the same
+names; ``pab`` is a request's Pyramid Attention Broadcast cache
+(``pipelines/pab.py``). Not ported yet: the layer scan
+(``scan_identical_layers``, an XLA compile lever), the ``layer`` remat unit
+and the ``dots`` policy, first-frame fusion and the auxiliary q/k head.
 """
 from __future__ import annotations
 
@@ -61,6 +64,35 @@ class UNetConfig:
     epi_module_mid_block: bool = False
     epi_num_transformer_blocks: int = 1
     epi_num_attention_blocks: int = 2
+    # the self-attention's keys and values see both videos of the pair
+    # (attention_processor.py:69-83)
+    spatial_extended_attention: bool = False
+    # the runtime image LoRA on every spatial attention: > 0 a fixed rank,
+    # < 0 a rank of channels // |value| per layer (unet.py:1028), 0 none
+    spatial_lora_rank: int = 0
+    # sync-LoRA on the pose-conditioned temporal attentions; rank 0 or scale
+    # 0 is off. A rank > 16 is absolute, 1..16 resolves per layer to
+    # channels // (|spatial_lora_rank| or 4): the reference divides by the
+    # IMAGE-LoRA rank (unet.py:1092), 4 being its training default
+    sync_lora_rank: int = 0
+    sync_lora_scale: float = 1.0
+
+
+def _lora_rank(cfg: UNetConfig, channels: int) -> int:
+    if cfg.spatial_lora_rank > 0:
+        return cfg.spatial_lora_rank
+    if cfg.spatial_lora_rank < 0:
+        return channels // (-cfg.spatial_lora_rank)
+    return 0
+
+
+def _sync_lora_rank(cfg: UNetConfig, channels: int) -> int:
+    """The sync-LoRA's rank at a layer of ``channels`` (0: none)."""
+    if cfg.sync_lora_rank == 0 or cfg.sync_lora_scale == 0.0:
+        return 0
+    if cfg.sync_lora_rank > 16:
+        return cfg.sync_lora_rank
+    return channels // (abs(cfg.spatial_lora_rank) or 4)
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +106,9 @@ def _unfold(x: torch.Tensor, B: int) -> torch.Tensor:
 def _motion(cfg: UNetConfig, channels: int) -> MotionModule:
     return MotionModule(channels, cfg.attention_heads, cfg.motion_num_transformer_blocks,
                         cfg.motion_num_attention_blocks, cfg.motion_pe_max_len,
-                        cfg.pose_cond_attn_indices, cfg.pose_scale, cfg.motion_norm_groups)
+                        cfg.pose_cond_attn_indices, cfg.pose_scale, cfg.motion_norm_groups,
+                        sync_lora_rank=_sync_lora_rank(cfg, channels),
+                        sync_lora_scale=cfg.sync_lora_scale)
 
 
 def _epi(cfg: UNetConfig, channels: int) -> EpiModule:
@@ -97,7 +131,9 @@ class _Block(nn.Module):
         self.attentions = nn.ModuleList([
             Transformer2DModel(channels, heads, channels // heads,
                                cross_attention_dim=cfg.cross_attention_dim,
-                               groups=cfg.norm_num_groups)
+                               groups=cfg.norm_num_groups,
+                               extended_attention=cfg.spatial_extended_attention,
+                               lora_rank=_lora_rank(cfg, channels))
             for _ in range(n)]) if with_attn else None
         self.motion_modules = nn.ModuleList(
             [_motion(cfg, channels) for _ in range(n)]) if use_motion else None
@@ -106,16 +142,17 @@ class _Block(nn.Module):
 
     def layer(self, j: int, x: torch.Tensor, temb_f: torch.Tensor,
               context_f: Optional[torch.Tensor], pose_feature: Optional[torch.Tensor],
-              epi_cond: Optional[EpiConditioning]) -> torch.Tensor:
+              epi_cond: Optional[EpiConditioning], lora_scale: float = 1.0,
+              pab=None) -> torch.Tensor:
         B = x.shape[0]
         h = self.resnets[j](_fold(x), temb_f)
         if self.attentions is not None:
-            h = self.attentions[j](h, context_f)
+            h = self.attentions[j](h, context_f, lora_scale, pab)
         x = _unfold(h, B)
         if self.motion_modules is not None:
-            x = self.motion_modules[j](x, pose_feature)
+            x = self.motion_modules[j](x, pose_feature, pab)
         if self.epi_modules is not None:
-            x = self.epi_modules[j](x, epi_cond)
+            x = self.epi_modules[j](x, epi_cond, pab)
         return x
 
 
@@ -127,10 +164,10 @@ class CrossAttnDownBlock(_Block):
         self.downsamplers = (nn.ModuleList([Downsample2D(channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb_f, context_f, pose_feature, epi_cond):
+    def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None):
         res_states = []
         for j in range(len(self.resnets)):
-            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond)
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab)
             res_states.append(x)
         if self.downsamplers is not None:
             x = _unfold(self.downsamplers[0](_fold(x)), x.shape[0])
@@ -143,8 +180,8 @@ class MidBlock(_Block):
         super().__init__(cfg, [channels], channels, temb_dim, True, use_motion, use_epi)
         self.resnets.append(ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups))
 
-    def forward(self, x, temb_f, context_f, pose_feature, epi_cond):
-        x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond)
+    def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None):
+        x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab)
         return _unfold(self.resnets[1](_fold(x), temb_f), x.shape[0])
 
 
@@ -155,10 +192,11 @@ class CrossAttnUpBlock(_Block):
                          use_epi)
         self.upsamplers = nn.ModuleList([Upsample2D(channels)]) if add_upsample else None
 
-    def forward(self, x, res_states, temb_f, context_f, pose_feature, epi_cond):
+    def forward(self, x, res_states, temb_f, context_f, pose_feature, epi_cond,
+                lora_scale=1.0, pab=None):
         for j in range(len(self.resnets)):
             x = torch.cat([x, res_states[-1 - j]], dim=-1)
-            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond)
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab)
         if self.upsamplers is not None:
             x = _unfold(self.upsamplers[0](_fold(x)), x.shape[0])
         return x
@@ -208,10 +246,11 @@ class UNet3DConditionModel(nn.Module):
 
     def zero_initialized(self) -> List[str]:
         """Names of the parameters a fresh model starts at zero: the pose
-        merge layers (``qkv_merge``; biases start at zero anyway), the epi
-        modules' ``proj_out`` with ``epi_zero_initialize`` and the motion
-        modules' with ``motion_zero_initialize``."""
-        ends = ["qkv_merge.weight"]
+        merge layers (``qkv_merge``; biases start at zero anyway), the ``up``
+        of every LoRA delta (image and sync), the epi modules' ``proj_out``
+        with ``epi_zero_initialize`` and the motion modules' with
+        ``motion_zero_initialize``."""
+        ends = ["qkv_merge.weight", "_lora.up.weight", "_lora_sync.up.weight"]
         if self.config.epi_zero_initialize:
             ends.append("epi_transformer.proj_out.weight")
         if self.config.motion_zero_initialize:
@@ -226,9 +265,13 @@ class UNet3DConditionModel(nn.Module):
         pose_features: Optional[Sequence[torch.Tensor]] = None,  # 4x [B, F, h, w, c]
         epi_cond: Optional[EpiConditioning] = None,
         remat: bool = False,
+        lora_scale: float = 1.0,
+        pab=None,
     ) -> torch.Tensor:
         """``remat``: recompute each block's activations in the backward
-        instead of keeping them (only while autograd records)."""
+        instead of keeping them (only while autograd records).
+        ``lora_scale``: the image LoRA's scale for this call. ``pab``: the
+        request's PAB cache, its reuse flags set for this call."""
         B, Fr = sample.shape[:2]
         recompute = remat and torch.is_grad_enabled()
 
@@ -250,12 +293,15 @@ class UNet3DConditionModel(nn.Module):
         x = _unfold(self.conv_in(_fold(sample.to(dtype))), B)
         res_stack = [x]
         for i, block in enumerate(self.down_blocks):
-            x, res = run(block, x, temb_f, context_f, pose_features[i], epi_cond)
+            x, res = run(block, x, temb_f, context_f, pose_features[i], epi_cond,
+                         lora_scale, pab)
             res_stack += res
-        x = run(self.mid_block, x, temb_f, context_f, pose_features[-1], epi_cond)
+        x = run(self.mid_block, x, temb_f, context_f, pose_features[-1], epi_cond,
+                lora_scale, pab)
         for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
             res, res_stack = res_stack[-n:], res_stack[:-n]
-            x = run(block, x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond)
+            x = run(block, x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond,
+                    lora_scale, pab)
         h = self.conv_norm_out(_fold(x))
         return _unfold(self.conv_out(h), B)

@@ -12,12 +12,16 @@ reference's ``pipeline_animation_epi_advanced.py``):
   :699), as a loop of UNet calls or, with ``accumulate_batched``, as ONE
   call at batch 2V * accumulate_step with each group's routing offset into
   its own row block;
-* the fixed 2-view path (``F_mats``) and the homography path (``H_mats``).
+* the fixed 2-view path (``F_mats``) and the homography path (``H_mats``);
+* Pyramid Attention Broadcast (``pipelines/pab.py``): the reuse flags
+  follow the timestep, so every multistep repeat and every pairing of a
+  timestep shares them, and the one cache of the request carries across
+  all its UNet calls (advanced.py:401-480).
 
 A Python loop over timesteps, one or more UNet calls each. Every random
 draw (initial latents, pairings, re-noise, epi slopes) comes from the one
-``generator`` the caller passes. Not ported yet: Pyramid Attention
-Broadcast and meshes (ROADMAP.md, queue 1).
+``generator`` the caller passes. Not ported yet: meshes (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from cvd_tpu_torch.models.epi import EpiConditioning
 from cvd_tpu_torch.pipelines.common import (
     PipelineModules, SpanTimer, decode_latents, encode_prompt,
 )
+from cvd_tpu_torch.pipelines.pab import PABCache
 
 
 def random_pairing(generator: Optional[torch.Generator], num_views: int) -> torch.Tensor:
@@ -104,10 +109,8 @@ class AdvancedPipeline:
         pab_config=None,
     ) -> torch.Tensor:
         """Returns images [V, F, H, W, 3] in [0, 1] (or the final latents
-        [V, F, H/8, W/8, 4] with ``decode=False``), f32."""
-        if pab_config is not None:
-            raise NotImplementedError("Pyramid Attention Broadcast is not ported yet "
-                                      "(ROADMAP.md, queue 1, item 3)")
+        [V, F, H/8, W/8, 4] with ``decode=False``), f32. ``pab_config``: a
+        ``PABConfig``."""
         m = self.m
         device = m.unet.conv_in.weight.device
         dtype = m.unet.conv_in.weight.dtype
@@ -166,6 +169,7 @@ class AdvancedPipeline:
                 kv_index=partner_rows(partner, Fr))
 
         timer = SpanTimer(device)
+        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
 
         def guided_eps(lat: torch.Tensor, t: int) -> torch.Tensor:
             """The guided noise prediction of ``groups`` pairings in one UNet
@@ -178,7 +182,7 @@ class AdvancedPipeline:
                     kv_index=torch.cat([c.kv_index + g * n_rows for g, c in enumerate(conds)]))
             lat_in = interleave_cfg(lat).repeat(groups, 1, 1, 1, 1)
             with timer:
-                eps = m.unet(lat_in, t, text, pose_feats, cond_t).float()
+                eps = m.unet(lat_in, t, text, pose_feats, cond_t, pab=pab).float()
             eps = eps.reshape((groups, 2 * V) + eps.shape[1:])
             guided = eps[:, 0::2] + guidance_scale * (eps[:, 1::2] - eps[:, 0::2])
             return guided.sum(0)
@@ -186,6 +190,8 @@ class AdvancedPipeline:
         last = len(state.timesteps) - 1
         for i, t in enumerate(state.timesteps):
             t = int(t)
+            if pab is not None:
+                pab.at_step(i)
             # the last timestep is taken once (:602)
             repeats = 1 if i == last else multistep
             for rep in range(repeats):

@@ -49,7 +49,9 @@ def default_init_(module: nn.Module, generator: torch.Generator,
     ``reset_parameters`` gives them), embeddings unit normal, every bias 0,
     every norm scale 1, and the parameters named in ``zero`` 0: which tensors
     start at zero, at one or free is what the JAX package's Flax init has
-    (``UNet3DConditionModel.zero_initialized``); the free draws are not Flax's."""
+    (``UNet3DConditionModel.zero_initialized``); the free draws are not Flax's,
+    except that a Linear with an ``init_std`` (the sync-LoRA's ``down``) draws
+    N(0, init_std), as the JAX package's does."""
     zero = set(zero)
     for prefix, mod in module.named_modules():
         for name, p in mod.named_parameters(recurse=False):
@@ -57,6 +59,9 @@ def default_init_(module: nn.Module, generator: torch.Generator,
                 p.zero_()
             elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FusedGroupNorm)):
                 p.fill_(1.0)
+            elif getattr(mod, "init_std", None) is not None:
+                p.copy_((torch.randn(p.shape, generator=generator, device=generator.device,
+                                     dtype=torch.float32) * mod.init_std).to(p.device, p.dtype))
             elif isinstance(mod, (nn.Linear, nn.Conv2d)):
                 bound = 1.0 / math.sqrt(p[0].numel())  # fan_in = in_features * kernel area
                 u = torch.rand(p.shape, generator=generator, device=generator.device,

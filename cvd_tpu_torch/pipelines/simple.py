@@ -4,11 +4,14 @@
   (simple.py:131-149, 178-202);
 * pose features computed once, outside the loop;
 * a Python DDIM loop, one UNet call per step;
+* multidiff sliding windows: a video longer than the model's window is
+  denoised as ``multidiff_total_steps`` overlapping windows per step, their
+  noise predictions averaged where they overlap (simple.py:151-217);
+* Pyramid Attention Broadcast (``pipelines/pab.py``), not with multidiff;
 * a whole-video VAE decode.
 
-More than two views: ``pipelines/advanced.py``. Not ported yet: multidiff
-sliding windows (``multidiff_total_steps > 1``), Pyramid Attention
-Broadcast and meshes (ROADMAP.md, queue 1).
+More than two views: ``pipelines/advanced.py``. Not ported yet: meshes
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from cvd_tpu_torch.models.epi import EpiConditioning
 from cvd_tpu_torch.pipelines.common import (
     PipelineModules, SpanTimer, decode_latents, encode_prompt,
 )
+from cvd_tpu_torch.pipelines.pab import PABCache
 
 
 def _cfg4(x: torch.Tensor) -> torch.Tensor:
@@ -52,42 +56,80 @@ class SimplePipeline:
         latents: Optional[torch.Tensor] = None,
         decode: bool = True,
         multidiff_total_steps: int = 1,
+        multidiff_overlaps: int = 12,
+        pab_config=None,
     ) -> torch.Tensor:
         """Returns images [2, F, H, W, 3] in [0, 1] (or the final latents
-        [2, F, H/8, W/8, 4] with ``decode=False``), f32."""
-        if multidiff_total_steps != 1:
-            raise NotImplementedError("multidiff sliding windows are not ported yet")
+        [2, F, H/8, W/8, 4] with ``decode=False``), f32.
+
+        With ``multidiff_total_steps`` > 1 the F frames are denoised as that
+        many windows, each overlapping the next by ``multidiff_overlaps``
+        frames: F = steps * (window - overlap) + overlap. The pose encoder
+        sees all F frames, so F is bounded by its temporal positional
+        encoding, as in the JAX package. ``pab_config``: a ``PABConfig``
+        (not with multidiff)."""
         m = self.m
         device = m.unet.conv_in.weight.device
         dtype = m.unet.conv_in.weight.dtype
         V, Fr, H, W, _ = plucker.shape
         if V != 2:
             raise ValueError("SimplePipeline is the fixed 2-view sampler")
+        windows = multidiff_total_steps
+        Fw = Fr if windows == 1 else (Fr - multidiff_overlaps) // windows + multidiff_overlaps
+        stride = Fw - multidiff_overlaps
+        if windows != 1 and (stride <= 0 or (windows - 1) * stride + Fw != Fr):
+            raise ValueError(f"{Fr} frames are not {windows} windows of {Fw} frames "
+                             f"overlapping by {multidiff_overlaps}: frames must equal "
+                             "steps * (window - overlap) + overlap")
+        max_frames = m.pose_encoder.temporal_pe_max_len
+        if Fr > max_frames:
+            raise ValueError(f"{Fr} frames: the pose encoder runs on every frame of the video "
+                             f"and its temporal positional encoding holds {max_frames}")
+        if pab_config is not None and windows != 1:
+            raise ValueError("PAB + multidiff windows is unsupported")
         state = m.scheduler.set_timesteps(num_inference_steps)
 
         uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
         text = torch.cat([uncond, cond, uncond, cond], dim=0).to(dtype)
         pose_feats = [_cfg4(p.to(dtype)) for p in
                       m.pose_encoder(plucker.to(device=device, dtype=dtype))]
-        F4 = _cfg4(F_mats.to(device=device, dtype=torch.float32)).reshape(4 * Fr, 3, 3)
-        epi_cond = EpiConditioning(
-            F_mats=F4, video_length=Fr, F_mat_size=self.F_mat_size,
-            rand_slope_ff=self.rand_slope_ff, generator=generator,
-        )
+        F4 = _cfg4(F_mats.to(device=device, dtype=torch.float32))     # [4, F, 3, 3]
+
+        def window_cond(start: int):
+            """The pose features and epipolar conditioning of the window of
+            frames [start, start + Fw)."""
+            return [p[:, start:start + Fw] for p in pose_feats], EpiConditioning(
+                F_mats=F4[:, start:start + Fw].reshape(4 * Fw, 3, 3), video_length=Fw,
+                F_mat_size=self.F_mat_size, rand_slope_ff=self.rand_slope_ff,
+                generator=generator)
+
+        starts = [w * stride for w in range(windows)]
+        conds = [window_cond(s) for s in starts]
+        # the overlap-average weights: 1 / the number of windows over each frame
+        counts = torch.zeros(Fr, device=device)
+        for s in starts:
+            counts[s:s + Fw] += 1.0
+        inv_counts = (1.0 / counts)[None, :, None, None, None]
         if latents is None:
             latents = torch.randn((2, Fr, H // 8, W // 8, 4), generator=generator,
                                   device=generator.device if generator is not None else device)
         latents = latents.to(device=device, dtype=torch.float32) * m.scheduler.init_noise_sigma
+        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
 
         timer = SpanTimer(device)
-        for t in state.timesteps:
-            with timer:
-                eps = m.unet(_cfg4(latents), int(t), text, pose_feats, epi_cond).float()
-            # chunk(4): uncond rows (0, 2), cond rows (1, 3)
-            eps_u = torch.stack([eps[0], eps[2]])
-            eps_t = torch.stack([eps[1], eps[3]])
-            latents = m.scheduler.step(state, eps_u + guidance_scale * (eps_t - eps_u),
-                                       int(t), latents)
+        for i, t in enumerate(state.timesteps):
+            if pab is not None:
+                pab.at_step(i)
+            eps_full = torch.zeros_like(latents)
+            for s, (pf, epi_cond) in zip(starts, conds):
+                with timer:
+                    eps = m.unet(_cfg4(latents[:, s:s + Fw]), int(t), text, pf, epi_cond,
+                                 pab=pab).float()
+                # chunk(4): uncond rows (0, 2), cond rows (1, 3)
+                eps_u = torch.stack([eps[0], eps[2]])
+                eps_t = torch.stack([eps[1], eps[3]])
+                eps_full[:, s:s + Fw] += eps_u + guidance_scale * (eps_t - eps_u)
+            latents = m.scheduler.step(state, eps_full * inv_counts, int(t), latents)
         self.unet_step_ms = timer.elapsed_ms()
         if not decode:
             return latents

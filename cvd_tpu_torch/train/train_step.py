@@ -5,7 +5,9 @@
 encode (VAE, frozen, frame chunks of 8) -> noise + per-video timesteps ->
 ``add_noise`` -> frozen CLIP and pose encoder -> UNet with the epipolar
 conditioning (one first-frame slope per step) -> f32 MSE against the noise
--> backward into the trainable set -> clip, AdamW, LR schedule.
+-> backward into the trainable set -> clip, AdamW, LR schedule. The image
+LoRA, where the UNet has one, runs at scale 1: these are posed batches
+(the JAX package sets it to 0 only for unposed ones, train_step.py:84-91).
 """
 from __future__ import annotations
 
@@ -88,7 +90,7 @@ def loss_and_grads(
     epi_cond = EpiConditioning(
         F_mats=batch["F_mats"].to(device=device, dtype=torch.float32).reshape(B * F, 3, 3),
         F_mat_size=F_mat_size, video_length=F, rand_slope_ff=rand_slope_ff, slope=slope)
-    pred = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=remat)
+    pred = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=remat, lora_scale=1.0)
     loss = masked_mse_loss(pred.float(), noise)
     loss.backward()
     return loss.detach()

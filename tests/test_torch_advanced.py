@@ -198,8 +198,10 @@ def test_advanced_pipeline_refusals(port_bundle):
 
     ids = torch.zeros(1, 77, dtype=torch.int32)
     pipe = AdvancedPipeline(port_bundle)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe(ids, ids, torch.zeros(2, Fr, IMG, IMG, 6), pab_config=object())
+    # PAB is taken (tests/test_torch_pab.py); a config that is none is not
+    with pytest.raises(AttributeError):
+        pipe(ids, ids, torch.zeros(2, Fr, IMG, IMG, 6), F_mats=torch.zeros(2, Fr, 3, 3),
+             pab_config=object())
     with pytest.raises(ValueError, match="c2w"):
         pipe(ids, ids, torch.zeros(4, Fr, IMG, IMG, 6))
     with pytest.raises(ValueError, match="even"):
@@ -488,7 +490,7 @@ def test_inference_advanced_cli_random_weights(tmp_path):
 @pytest.mark.parametrize("extra,error", [
     (["--view_num", "3"], SystemExit),
     (["--image_width", "128"], SystemExit),
-    (["--pab"], NotImplementedError),
+    (["--pab", "--pab_ranges", "attn=2"], ValueError),
     (["--sharded"], NotImplementedError),
     (["--step_chunk", "2"], NotImplementedError),
     (["--mono_direction"], NotImplementedError),
@@ -499,6 +501,24 @@ def test_inference_advanced_cli_refuses(tmp_path, extra, error):
     with pytest.raises(error):
         inference_advanced.main(_cli_args(tmp_path, *extra))
     assert not os.path.exists(tmp_path / "out")    # refused before anything was written
+
+
+def test_inference_advanced_cli_takes_the_reference_flags(tmp_path):
+    """--zero_first_frame_scale, a no-op here as in cvd_tpu (procedural
+    trajectories start at identity), parses as cvd_tpu's parser has it; --pab
+    runs the sampler with Pyramid Attention Broadcast."""
+    from cvd_tpu.cli import inference_advanced as jax_cli
+    from cvd_tpu_torch.cli import inference_advanced
+
+    args = _cli_args(tmp_path, "--zero_first_frame_scale", "--pab", "--pab_ranges",
+                     "spatial=2,start_frac=0.0")
+    assert args.zero_first_frame_scale is True
+    want = {a.dest: a.help for a in jax_cli.build_parser()._actions}
+    got = {a.dest: a.help for a in inference_advanced.build_parser()._actions}
+    assert got["zero_first_frame_scale"] == want["zero_first_frame_scale"]
+    args.caption_file = os.path.join(ASSETS, "example_prompts.json")
+    (rec, _) = inference_advanced.main(args)
+    assert rec["videos"].shape == (4, 2, 64, 64, 3) and np.isfinite(rec["videos"]).all()
 
 
 def test_inference_advanced_cli_refuses_a_silent_cpu_run(tmp_path, monkeypatch):

@@ -4,6 +4,7 @@ entry points built from checkpoint files, on the CPU at the smoke widths
 ``test_torch_checkpoints.write_tiny_checkpoints``'s, in the released
 layouts). Also what a load must leave right: the f32 masters of training and
 the LayerNorm-fold cache of kernel K5."""
+import dataclasses
 import json
 import os
 import sys
@@ -112,12 +113,53 @@ NOWHERE = dict(ori_model_path="/nonexistent/sd", motion_module_ckpt="/nonexisten
                epi_module_ckpt="/nonexistent/epi.ckpt", pose_adaptor_ckpt="/nonexistent/p.ckpt")
 
 
-@pytest.mark.parametrize("option", REFUSED, ids=lambda o: next(iter(o)))
-def test_unported_model_options_raise_before_a_file_is_opened(option):
-    """Every path points nowhere: a FileNotFoundError would mean that
-    something was read before the option was refused."""
-    from cvd_tpu_torch.cli.build import build_modules
+# the options of REFUSED that are ported now: each is taken, and reaches the model
+PORTED = ("image_lora_ckpt", "image_lora_rank", "sync_lora_rank", "sync_lora_scale",
+          "spatial_extended_attention")
 
+
+def _check_ported(paths, tmp_path, name, value):
+    """Build from the tiny files with the option; what it must have set."""
+    from cvd_tpu_torch.models.unet import UNet3DConditionModel
+
+    if name == "image_lora_ckpt":
+        with torch.device("meta"):
+            shapes = UNet3DConditionModel(dataclasses.replace(
+                SMOKE_WIDTHS[0], spatial_lora_rank=-2)).state_dict()
+        g = torch.Generator().manual_seed(4)
+        lora = {k: torch.randn(v.shape, generator=g) for k, v in shapes.items() if "_lora." in k}
+        value = str(tmp_path / "lora.ckpt")
+        torch.save({"lora_state_dict": lora}, value)
+    unet = _build(paths, **{name: value}).unet
+    sd = unet.state_dict()
+    has_lora = any("_lora." in k for k in sd)
+    has_sync = any("_lora_sync." in k for k in sd)
+    if name == "image_lora_ckpt":
+        assert all(torch.equal(sd[k], v) for k, v in lora.items()) and not has_sync
+    elif name == "sync_lora_rank":       # rank channels // 4 (no image LoRA to divide by)
+        assert has_sync and not has_lora and unet.config.sync_lora_rank == value
+        assert sd["down_blocks.0.motion_modules.0.temporal_transformer.transformer_blocks.0."
+                  "attention_blocks.0.processor.to_q_lora_sync.down.weight"].shape == (8, 32)
+    elif name == "spatial_extended_attention":
+        assert unet.config.spatial_extended_attention and not has_lora
+        blk = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+        assert blk.extended_attention and not blk.fused
+    else:   # the image LoRA's rank without its file, sync scale 0 without a rank: no-ops
+        assert not has_lora and not has_sync
+
+
+@pytest.mark.parametrize("option", REFUSED, ids=lambda o: next(iter(o)))
+def test_unported_model_options_raise_before_a_file_is_opened(option, paths, tmp_path):
+    """Every path points nowhere: a FileNotFoundError would mean that
+    something was read before the option was refused. An option of PORTED is
+    taken instead: a build from the tiny files with it has what it sets."""
+    from cvd_tpu_torch.cli.build import build_modules, refuse_unported
+
+    name, value = next(iter(option.items()))
+    if name in PORTED:
+        refuse_unported(model_args(NOWHERE, **option))
+        _check_ported(paths, tmp_path, name, value)
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, item"):
         build_modules(model_args(NOWHERE, **option), torch.device("cpu"))
 
@@ -191,7 +233,7 @@ def test_entry_points_refuse_unported_options_first(entry, tmp_path):
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if entry == "inference":
-            inference.main(_inference_args(NOWHERE, out, image_lora_ckpt="/nonexistent/l.ckpt",
+            inference.main(_inference_args(NOWHERE, out, controlnet_ckpt="/nonexistent/c.ckpt",
                                            caption_file="/nonexistent/prompts.json"))
         elif entry == "inference_advanced":
             inference_advanced.main(_advanced_args(NOWHERE, out, controlnet_ckpt="/nonexistent/c",

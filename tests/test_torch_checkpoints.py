@@ -203,15 +203,38 @@ def _manifest_cases():
     }
 
 
+# the LoRA artifacts, against a UNet built with the options that make their
+# parameters: (manifest, UNetConfig fields, keys)
+_LORA_CASES = {
+    "sync_lora_4": ("cvd_sync_lora_manifest", (4, 4), dict(sync_lora_rank=4), 160),
+    "sync_lora_32": ("cvd_sync_lora_manifest", (32, 4), dict(sync_lora_rank=32), 160),
+    "image_lora_2": ("cameractrl_image_lora_manifest", (2,), dict(spatial_lora_rank=-2), 256),
+}
+
+
 @pytest.mark.parametrize("artifact", ["sd15_unet", "motion_module", "epi_module",
                                       "attention_processor", "sd15_vae", "sd15_clip",
-                                      "pose_encoder"])
+                                      "pose_encoder", *_LORA_CASES])
 def test_manifest_keys_are_the_ports_state_dict_keys(artifact, full_size):
     """Every key of the manifest, after its rename, is a key of the port's
     full-size ``state_dict()`` with the same shape, or a named skipped
-    buffer: held key by key, not through the importer."""
+    buffer: held key by key, not through the importer. The sync-LoRA (ranks
+    4 and 32) and the image LoRA (``--image_lora_rank 2``) against a
+    ``meta`` UNet built with them, which has no other LoRA key."""
+    from cvd_tpu_torch.io import manifests as M
     from cvd_tpu_torch.io.checkpoints import SKIP_SUBSTRINGS
+    from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
 
+    if artifact in _LORA_CASES:
+        fn, args, options, n_keys = _LORA_CASES[artifact]
+        manifest = getattr(M, fn)(*args)
+        with torch.device("meta"):
+            sd = UNet3DConditionModel(UNetConfig(**options)).state_dict()
+        assert len(manifest) == n_keys
+        assert {k for k in sd if "_lora" in k} == set(manifest)
+        for key, shape in manifest.items():
+            assert tuple(sd[key].shape) == tuple(shape), key
+        return
     name, manifest, rename, n_keys = _manifest_cases()[artifact]
     assert len(manifest) == n_keys
     sd = getattr(full_size, name).state_dict()
@@ -264,8 +287,10 @@ def test_manifests_are_cvd_tpus(name):
     from cvd_tpu_torch.io import manifests as PM
 
     assert getattr(PM, name)() == getattr(JM, name)()
+    # the port adds the image LoRA's, which cvd_tpu has none of
     assert [n for n in dir(JM) if n.endswith("_manifest") and not n.startswith("_")] == \
-        [n for n in dir(PM) if n.endswith("_manifest") and not n.startswith("_")]
+        [n for n in dir(PM) if n.endswith("_manifest") and not n.startswith("_")
+         and n != "cameractrl_image_lora_manifest"]
 
 
 def test_random_state_has_the_manifests_layout():

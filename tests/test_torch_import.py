@@ -20,8 +20,11 @@ assert "triton" not in sys.modules, "triton must be imported only at kernel laun
 lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("safetensors", "transformers"))
 assert not lazy, lazy
 for new in ("io.manifests", "io.torch_io", "io.checkpoints", "io.model_config", "io.lora",
-            "io.tokenizer", "cli.build", "cli.merge_lora"):
+            "io.tokenizer", "cli.build", "cli.merge_lora", "pipelines.pab"):
     assert "cvd_tpu_torch." + new in names, new
+# the port's own copy of the PAB schedules, not a re-export of cvd_tpu's
+assert sys.modules["cvd_tpu_torch.pipelines.pab"].__file__.endswith(
+    "cvd_tpu_torch/pipelines/pab.py")
 print(len(names))
 """
 

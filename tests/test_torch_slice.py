@@ -145,17 +145,23 @@ def test_inference_cli_random_weights(tmp_path):
 
 
 def test_multidiff_windows_are_refused():
+    """Multidiff windows that do not tile the video are refused by name (2
+    frames cannot be 2 windows overlapping by the default 12), as is a video
+    longer than the pose encoder's positional encoding; the windows that do
+    tile it are tests/test_torch_multidiff.py's."""
     from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
     from cvd_tpu_torch.pipelines.common import PipelineModules
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
 
     m = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cpu",
                                generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        SimplePipeline(m)(torch.zeros(1, 77, dtype=torch.int32),
-                          torch.zeros(1, 77, dtype=torch.int32),
-                          torch.zeros(2, 2, 64, 64, 6), torch.zeros(2, 2, 3, 3),
+    ids = torch.zeros(1, 77, dtype=torch.int32)
+    with pytest.raises(ValueError, match="frames must equal"):
+        SimplePipeline(m)(ids, ids, torch.zeros(2, 2, 64, 64, 6), torch.zeros(2, 2, 3, 3),
                           multidiff_total_steps=2)
+    with pytest.raises(ValueError, match="positional encoding holds 16"):
+        SimplePipeline(m)(ids, ids, torch.zeros(2, 18, 64, 64, 6), torch.zeros(2, 18, 3, 3),
+                          multidiff_total_steps=2, multidiff_overlaps=2)
 
 
 def test_entry_points_refuse_a_silent_cpu_run(monkeypatch, tmp_path):

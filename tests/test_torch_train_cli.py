@@ -139,6 +139,9 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
     assert all(int(s["step"]) == 3 for s in opt.values())
 
 
+PORTED = ("sync_lora_rank", "epi_loss_weight", "lora_rank", "sync_lora_scale")
+
+
 @pytest.mark.parametrize("override", [
     {"train_data": {"dataset_name": "webvid10m", "root_path": "/nonexistent"}},
     {"cache_latents": True},
@@ -151,9 +154,22 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
     {"sync_lora_scale": 0.5},
     {"validation_data": {"pose_file_0": "a.txt", "pose_file_1": "b.txt"}},
 ])
-def test_unported_options_raise(tmp_path, override):
+def test_unported_options_raise(tmp_path, re10k_root, override):
+    """An option of PORTED is taken: one step runs, with the sync-LoRA in the
+    trainable set where a rank asks for it (lora_rank alone is the image
+    LoRA's rank, which needs its file; epi_loss_weight weighs a loss no
+    config with additional_channel 0 has; a sync scale without a rank is
+    off), as in cvd_tpu."""
     from cvd_tpu_torch.cli import train
 
+    key = next(iter(override))
+    if key in PORTED:
+        out = train.run(_config(tmp_path, re10k_root, max_train_steps=1, checkpointing_steps=10,
+                                do_sanity_check=False, **override))
+        assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
+        sync = [n for n in out["state"].trainable if "_lora_sync." in n]
+        assert bool(sync) == (key == "sync_lora_rank")
+        return
     cfg = _config(tmp_path, "/nonexistent")
     cfg.update(override)
     # without random weights the build asks for checkpoints: none is named
@@ -168,6 +184,28 @@ def test_options_at_their_off_value_are_taken(tmp_path):
     train._refuse_unported(_config(tmp_path, "/nonexistent", epi_loss_weight=0.0, lora_rank=0,
                                    sync_lora_rank=0, sync_lora_scale=1.0, validation_data=None,
                                    validation_steps=0))
+
+
+def test_the_shipped_train_config_runs_a_step(tmp_path, re10k_root):
+    """configs/train_epi.yaml as shipped (epi_loss_weight 0.002, lora_rank 4),
+    with random weights on the CPU at the smoke widths and the pose-file
+    data: one step, whose loss equals bit for bit the one with both keys at
+    0, as cvd_tpu's does (neither acts without an image-LoRA file and an
+    auxiliary head)."""
+    from cvd_tpu_torch.cli import train
+
+    shipped = train.load_config(os.path.join(os.path.dirname(ASSETS), "configs",
+                                             "train_epi.yaml"))
+    assert shipped["epi_loss_weight"] == 0.002 and shipped["lora_rank"] == 4
+    losses = []
+    for name, keys in (("shipped", {}), ("off", {"epi_loss_weight": 0.0, "lora_rank": 0})):
+        cfg = dict(shipped, **keys, random_weights=True, device="cpu", sample_size=64,
+                   sample_n_frames=2, max_train_steps=1, checkpointing_steps=10,
+                   num_workers=1, do_sanity_check=False, output_dir=str(tmp_path / name),
+                   train_data=dict(shipped["train_data"], root_path=str(re10k_root)))
+        out = train.run(cfg)
+        losses.append(out["losses"][0])
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
 
 
 def test_frozen_weights_default_to_bfloat16():
