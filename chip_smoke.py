@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5, 8 and 9 only; prints no result, exit 4)
+    python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5, 8, 9 and 10 only; prints no result, exit 4)
 
 Phases (any failure raises and exits non-zero):
 
@@ -21,8 +21,10 @@ Phases (any failure raises and exits non-zero):
    interleaved CFG rows, and by the two offset groups of
    ``accumulate_batched``) and at the kernels' edges (64 tokens, head_dim 160, a
    ragged key length, a ragged token count; for GroupNorm every kind of
-   slab of the UNet, C/G off a power of two, and which path each shape
-   takes), and each backward kernel (K6, K7: autograd through the kernels
+   slab of the UNet, C/G off a power of two, the first-frame fusion blocks'
+   (60 rows = 4 CFG rows x 15 frames: C 640 / 960 at S 1024, C 2560 / 3840
+   at S 16, SiLU, eps 1e-6, timed), and which path each shape takes), and
+   each backward kernel (K6, K7: autograd through the kernels
    against autograd of the plain versions) at the training shapes and at
    K6's edges (ragged lengths, 64 tokens, two query rows routed to one
    source row); K3 and K7 on contiguous q/k/v and on the ``split`` views of
@@ -53,7 +55,13 @@ Phases (any failure raises and exits non-zero):
    ``cli.build.build_modules`` on the card and on the CPU: the 2-view
    sampler at >= 60 dB again; then other weights loaded into the card's
    bundle must give, bit for bit, what a freshly built bundle gives (the
-   LayerNorm-fold cache of K5 sees a load).
+   LayerNorm-fold cache of K5 sees a load). Then this slice's modules,
+   card vs CPU at >= 60 dB from drawn weights: a SparseCtrl model of each
+   layout (every zero convolution nonzero) feeding its residuals into the
+   UNet, and the UNet with ``fuse_first_frame``; and (with the train step
+   above) one train step of the UNet with the auxiliary q/k head
+   (``additional_channel`` 4, ``epi_loss_weight`` 1): loss and epi loss to
+   1e-5 relative, gradients at >= 60 dB, the epi loss nonzero.
 5. slice: ``cvd_tpu_torch.cli.inference`` at SD1.5 width (random weights,
    bf16, 256 px, 16 frames, 2 views, 3 DDIM steps) answers the two prompts
    of assets/example_prompts.json. Launch counts are reset just before
@@ -109,9 +117,29 @@ Phases (any failure raises and exits non-zero):
    file. Each path: launches counted from 0, s/request, ms per UNet call,
    peak memory.
 
+10. extras: from phase 8's files plus a SparseCtrl file of each layout
+   (float16 from ``animatediff_sparsectrl_manifest``, every zero convolution
+   nonzero; the pyramid at the file's top level, the simplified one under
+   ``state_dict``): (a) ``build_modules`` with ``--controlnet_ckpt`` for each:
+   every SparseCtrl parameter equal to its file's tensor cast to bf16, one
+   SparseCtrl call at 4 CFG rows x 16 frames (K2 / K3 / K4 / K5 launches and
+   ms per call), then the UNet with its residuals: finite, and unlike the
+   UNet without them; (b) one UNet call with ``fuse_first_frame`` at SD1.5
+   width: finite, K4 launched at the fusion blocks' shapes; (c)
+   ``cli.train.run`` from the files with ``cache_latents`` (2 items of the
+   seeded pairs of phase 7, built once), the auxiliary head (a copy of
+   configs/inference_config.yaml with ``additional_channel`` 64),
+   ``epi_loss_weight`` 0.002 and validation every 2 steps (3 DDIM steps on
+   assets/pose_files), 4 steps, remat on: finite losses and epi losses, the
+   head's convolutions moved, validation files written, K1-K7 launched; s/step
+   beside the same run's without the cache and validation (just before it)
+   and phase 7's (no cache, no head), the cache's seconds per item, the peak
+   memory.
+
 The second-to-last line is the per-kernel JSON record (times, bound,
 library yardstick, launches summed over the main paths and per UNet step or
-call of each sampler and per training step); the last line is ``{"ok": true, "device": {...}}``.
+call of each sampler and per training step, and each path of phases 9 and
+10); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -431,10 +459,13 @@ def _cases(torch, dtype, g):
     # the UNet's slabs (res 32 in, res 32 / 16 / 8 up-path concatenations), a
     # C/G off a power of two with S off the block, and the VAE's full-size rows
     # ... and the N-view sampler's 128 and 256 frame rows
+    # ... and the first-frame fusion blocks' (4 CFG rows x 15 frames): concat(first,
+    # frame) over 2C then 3C channels, C 320 at res 32 and 1280 at res 4
     for R, S, C, timed in ((64, 1024, 320, True), (64, 1024, 960, False), (64, 256, 1920, False),
                            (64, 64, 2560, False), (5, 200, 1344, False), (32, 65536, 128, True),
                            (128, 1024, 320, True), (256, 1024, 320, True),
-                           (48, 1024, 320, False)):
+                           (48, 1024, 320, False), (60, 1024, 640, True), (60, 1024, 960, True),
+                           (60, 16, 2560, True), (60, 16, 3840, True)):
         x = randn(R, S, C, scale=2.0, shift=3.0)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         p = norms.plan(R, S, C, 32, size, sms)
@@ -762,6 +793,79 @@ def phase_reference(torch):
     _reference_nview(torch, np, cpu, gpu, wrappers)
     _reference_options(torch, np, inputs, wrappers)
     _reference_ckpt(torch, np, cpu, inputs)
+    _reference_extras(torch, np, wrappers)
+
+
+def _snr_db(np, want, got):
+    return 10 * np.log10(np.mean(want ** 2) / max(np.mean((got - want) ** 2), 1e-30))
+
+
+def _reference_extras(torch, np, wrappers):
+    """The narrow UNet at 256 px (2 videos x 2 frames), card (kernels) vs CPU
+    (plain versions), every tensor drawn: a SparseCtrl model of each layout
+    (every zero convolution nonzero) feeding its residuals into the UNet, and
+    the UNet with ``fuse_first_frame``; outputs at >= 60 dB."""
+    import copy
+    import dataclasses
+
+    from cvd_tpu_torch.cli.build import SMOKE_UNET
+    from cvd_tpu_torch.models.epi import EpiConditioning
+    from cvd_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+    from cvd_tpu_torch.models.unet import UNet3DConditionModel
+    from cvd_tpu_torch.pipelines.common import random_init_
+
+    rng = np.random.default_rng(11)
+    B, Fr, S = 2, 2, 256
+    t = torch.from_numpy
+    sample = t(rng.standard_normal((B, Fr, S // 8, S // 8, 4)).astype(np.float32))
+    text = t(rng.standard_normal((B, 77, SMOKE_UNET.cross_attention_dim)).astype(np.float32))
+    F_mats = t((rng.standard_normal((B * Fr, 3, 3)) * 1e-3).astype(np.float32))
+    timesteps = torch.tensor([71, 642])
+
+    def pair(module):
+        """(the module on the CPU, a copy on the card)."""
+        card = copy.deepcopy(module).cuda().to(memory_format=torch.channels_last)
+        return module.eval(), card.eval()
+
+    cases = []
+    for simplified in (False, True):
+        c, side = (4, S // 8) if simplified else (3, S)
+        cond = t(rng.standard_normal((B, Fr, side, side, c)).astype(np.float32))
+        mask = t((rng.random((B, Fr, side, side, 1)) > 0.5).astype(np.float32))
+        ctrl = SparseControlNetModel(SMOKE_UNET, c, use_simplified_condition_embedding=simplified)
+        cases.append((f"SparseCtrl ({'simplified' if simplified else 'pyramid'}) + UNet with "
+                      f"its residuals", SMOKE_UNET, (ctrl, cond, mask)))
+    cases.append(("UNet with fuse_first_frame",
+                  dataclasses.replace(SMOKE_UNET, fuse_first_frame=True), None))
+    for what, cfg, sparse in cases:
+        unets = pair(random_init_(UNet3DConditionModel(cfg), torch.Generator().manual_seed(13)))
+        ctrls = None
+        if sparse is not None:
+            ctrls = pair(random_init_(sparse[0], torch.Generator().manual_seed(14)))
+        outs = []
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        for i, dev in enumerate(("cpu", "cuda")):
+            kw = {}
+            with torch.no_grad():
+                if ctrls is not None:
+                    down, mid = ctrls[i](sample.to(dev), timesteps.to(dev), text.to(dev),
+                                         sparse[1].to(dev), sparse[2].to(dev),
+                                         conditioning_scale=0.8)
+                    kw = dict(down_block_additional_residuals=down,
+                              mid_block_additional_residual=mid)
+                cond = EpiConditioning(F_mats=F_mats.to(dev), video_length=Fr,
+                                       rand_slope_ff=False)
+                outs.append(unets[i](sample.to(dev), timesteps.to(dev), text.to(dev), None, cond,
+                                     **kw).float().cpu().numpy())
+        used = {n: fn.launches - before[n] for n, fn in wrappers.items()
+                if fn.launches > before[n]}
+        snr = _snr_db(np, *outs)
+        log(f"[reference] narrow UNet 256 px f32, {what}: card vs CPU output SNR {snr:.1f} dB "
+            f"(launches {used})")
+        missing = [n for n in FORWARD if n not in used]
+        if not snr >= 60.0 or missing:
+            raise RuntimeError(f"{what}: card vs CPU SNR {snr:.1f} dB, kernels not launched "
+                               f"{missing}")
 
 
 def _extended_calls(torch):
@@ -891,7 +995,11 @@ def _train_batch(torch, np, Fr, S, seed):
 
 def phase_train_reference(torch):
     """One train step of the narrow UNet at 256 px: card (kernels) vs CPU
-    (plain versions), same weights, batch, noise, timesteps and slope."""
+    (plain versions), same weights, batch, noise, timesteps and slope; then
+    the same with the auxiliary q/k head (``additional_channel`` 4) and its
+    epipolar loss at weight 1."""
+    import dataclasses
+
     import numpy as np
 
     from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
@@ -901,11 +1009,6 @@ def phase_train_reference(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cpu",
-                                 generator=torch.Generator().manual_seed(1), random_full=True)
-    gpu = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cuda")
-    for name in ("unet", "clip", "pose_encoder"):
-        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
     Fr, S = 2, 256
     batch = _train_batch(torch, np, Fr, S, seed=1)
     rng = np.random.default_rng(2)
@@ -914,32 +1017,52 @@ def phase_train_reference(torch):
                   timesteps=torch.from_numpy(np.array([71, 642])), F_mat_size=S,
                   rand_slope_ff=True, remat=True)
     wrappers = _wrappers()
-    results = []
-    for m in (cpu, gpu):
-        before = {n: fn.launches for n, fn in wrappers.items()}
-        state = create_train_state(m.unet)
-        # a CPU generator on both sides: the same first-frame slope
-        loss = loss_and_grads(state, batch, m, torch.Generator().manual_seed(3), **pinned)
-        params = dict(m.unet.named_parameters())
-        grads = {n: params[n].grad.detach().cpu().numpy() for n in state.trainable}
-        results.append((float(loss), grads, sorted(n for n, fn in wrappers.items()
-                                                   if fn.launches > before[n])))
-    (want_loss, want, _), (got_loss, got, used) = results
-    cat = np.concatenate
-    ref = cat([want[n].ravel() for n in want])
-    err = cat([got[n].ravel() for n in want]) - ref
-    snr = 10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-30))
-    zero = sorted(n for n, g in got.items() if not np.any(g))
-    rel = abs(got_loss - want_loss) / abs(want_loss)
-    log(f"[reference] narrow UNet train step 256 px f32, remat on: loss card {got_loss:.7f} "
-        f"CPU {want_loss:.7f} (rel {rel:.1e}); trainable gradients ({len(want)} tensors) "
-        f"SNR {snr:.1f} dB; zero on the card: {len(zero)} (kernels used: {', '.join(used)})")
-    if not (rel <= 1e-5 and snr >= 60.0) or zero:
-        raise RuntimeError(f"train step card vs CPU: loss rel {rel:.1e}, SNR {snr:.1f} dB, "
-                           f"zero gradients {zero[:5]}")
-    missing = [n for n in KERNELS if n not in used]
-    if missing:
-        raise RuntimeError(f"kernels not launched by the card's train step: {missing}")
+    for what, unet_cfg, weight in (
+            ("", SMOKE_UNET, 0.002),
+            (", with the auxiliary head (epi_loss_weight 1)",
+             dataclasses.replace(SMOKE_UNET, additional_channel=4), 1.0)):
+        cpu = PipelineModules.create(unet_cfg, SMOKE_VAE, SMOKE_CLIP, device="cpu",
+                                     generator=torch.Generator().manual_seed(1), random_full=True)
+        gpu = PipelineModules.create(unet_cfg, SMOKE_VAE, SMOKE_CLIP, device="cuda")
+        for name in ("unet", "clip", "pose_encoder"):
+            getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+        results = []
+        for m in (cpu, gpu):
+            before = {n: fn.launches for n, fn in wrappers.items()}
+            state = create_train_state(m.unet)
+            # a CPU generator on both sides: the same first-frame slope
+            loss, epi = loss_and_grads(state, batch, m, torch.Generator().manual_seed(3),
+                                         epi_loss_weight=weight, **pinned)
+            params = dict(m.unet.named_parameters())
+            grads = {n: params[n].grad.detach().cpu().numpy() for n in state.trainable}
+            results.append((float(loss), float(epi), grads,
+                            sorted(n for n, fn in wrappers.items() if fn.launches > before[n])))
+        (want_loss, want_epi, want, _), (got_loss, got_epi, got, used) = results
+        cat = np.concatenate
+        ref = cat([want[n].ravel() for n in want])
+        err = cat([got[n].ravel() for n in want]) - ref
+        snr = 10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-30))
+        # a bias on every key shifts each query's logits by one constant, which
+        # the softmax ignores: that gradient is 0 up to rounding on both sides
+        zero = sorted(n for n, g in got.items() if not np.any(g)
+                      and n != "conv_auxiliary_key.bias")
+        rel = abs(got_loss - want_loss) / abs(want_loss)
+        head = unet_cfg.additional_channel > 0
+        rel_epi = abs(got_epi - want_epi) / max(abs(want_epi), 1e-30)
+        log(f"[reference] narrow UNet train step 256 px f32, remat on{what}: loss card "
+            f"{got_loss:.7f} CPU {want_loss:.7f} (rel {rel:.1e})"
+            + (f", epi loss card {got_epi:.7f} CPU {want_epi:.7f} (rel {rel_epi:.1e})"
+               if head else "")
+            + f"; trainable gradients ({len(want)} tensors) SNR {snr:.1f} dB; zero on the card: "
+            f"{len(zero)} (kernels used: {', '.join(used)})")
+        if not (rel <= 1e-5 and snr >= 60.0) or zero or (
+                head and not (want_epi > 0 and rel_epi <= 1e-5)):
+            raise RuntimeError(f"train step{what} card vs CPU: loss rel {rel:.1e}, epi loss "
+                               f"{got_epi} vs {want_epi}, SNR {snr:.1f} dB, zero gradients "
+                               f"{zero[:5]}")
+        missing = [n for n in KERNELS if n not in used]
+        if missing:
+            raise RuntimeError(f"kernels not launched by the card's train step: {missing}")
 
 
 _VAE_LEGACY = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
@@ -1302,12 +1425,13 @@ def _ckpt_runs(torch, np, root, sampler, sampler_requests):
     return ((launches, len(ms)), (train_launches, steps)), paths, one_prompt
 
 
-def phase_ckpt(torch, sampler, sampler_requests):
+def phase_ckpt(torch, sampler, sampler_requests, train_seconds=None):
     """From checkpoint files at SD1.5 width (the module docstring, 8), then
-    phase ``options`` (9) from the same files.
-    ``sampler``: the launch counts of phase 5's ``sampler_requests`` requests.
+    phases ``options`` (9) and ``extras`` (10) from the same files.
+    ``sampler``: the launch counts of phase 5's ``sampler_requests`` requests;
+    ``train_seconds``: phase 7's steady step times (None: not run).
     -> ((sampler launches, UNet steps), (training launches, steps)), and
-    phase ``options``'s {path: (launches, UNet calls or steps)}."""
+    phases ``options``' and ``extras``' {path: (launches, UNet calls or steps)}."""
     import shutil
     import tempfile
 
@@ -1323,8 +1447,13 @@ def phase_ckpt(torch, sampler, sampler_requests):
     try:
         out, paths, one_prompt = _ckpt_runs(torch, np, root, sampler, sampler_requests)
         t0 = time.perf_counter()
-        opts = _options_runs(torch, np, root, paths, one_prompt)
+        opts = {f"options_{path}": n
+                for path, n in _options_runs(torch, np, root, paths, one_prompt).items()}
         log(f"[time] phase_options: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        opts.update({f"extras_{path}": n for path, n in
+                     _extras_runs(torch, np, root, paths, train_seconds).items()})
+        log(f"[time] phase_extras: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if os.path.exists(root):
@@ -1527,6 +1656,234 @@ def _options_runs(torch, np, root, paths, one_prompt):
     return out
 
 
+def _sparsectrl_files(torch, root):
+    """A SparseCtrl file of each layout, float16 from the manifests, every
+    tensor drawn (so every zero convolution is nonzero): the pyramid at the
+    file's top level, the simplified one under ``state_dict``.
+    -> {simplified: (path, state)}."""
+    from cvd_tpu_torch.io import manifests as M
+
+    g = torch.Generator(device="cuda").manual_seed(20262)
+    files = {}
+    for simplified in (False, True):
+        state = M.random_state(M.animatediff_sparsectrl_manifest(simplified), g, torch.float16)
+        path = os.path.join(root, f"sparsectrl_{'rgb' if simplified else 'scribble'}.ckpt")
+        torch.save({"state_dict": state} if simplified else state, path)
+        files[simplified] = (path, state)
+    return files
+
+
+def _watch_group_norm(torch):
+    """A context that records the (rows, pixels, channels) of every GroupNorm
+    the models run, by wrapping what ``models.layers`` calls."""
+    import contextlib
+
+    from cvd_tpu_torch.models import layers
+
+    @contextlib.contextmanager
+    def watch():
+        kernel, seen = layers.group_norm, []
+
+        def watched(x, *args, **kw):
+            seen.append((x.shape[0], x[0, ..., 0].numel(), x.shape[-1]))
+            return kernel(x, *args, **kw)
+
+        layers.group_norm = watched
+        try:
+            yield seen
+        finally:
+            layers.group_norm = kernel
+    return watch()
+
+
+def _extras_runs(torch, np, root, paths, train_seconds):
+    """Phase ``extras`` (the module docstring, 10). -> {path: (launches, calls
+    or steps)}."""
+    import dataclasses
+    import logging
+
+    import yaml
+
+    from cvd_tpu_torch.cli import build, inference, train
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+    from cvd_tpu_torch.models.epi import EpiConditioning
+    from cvd_tpu_torch.models.unet import UNet3DConditionModel
+    from cvd_tpu_torch.pipelines.common import random_init_
+
+    tok, dev, bf16 = HashTokenizer(), torch.device("cuda"), torch.bfloat16
+    model_config = os.path.join(HERE, "configs", "inference_config.yaml")
+    wrappers = _wrappers()
+    out = {}
+    t0 = time.perf_counter()
+    files = _sparsectrl_files(torch, root)
+    log(f"[extras] SparseCtrl files (pyramid {len(files[False][1])} keys, simplified "
+        f"{len(files[True][1])} keys) written as float16 in {time.perf_counter() - t0:.1f} s")
+
+    def counted(fn, repeats=1):
+        """fn() once with the counts from 0, then ``repeats`` timed calls:
+        -> (its result, launches, ms per call)."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        result = fn()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        return result, launches, _time_ms(torch, fn, iters=repeats)
+
+    # (a) SparseCtrl through build_modules, then the UNet with its residuals
+    rng = np.random.default_rng(21)
+    R, Fr, S = 4, 16, 256
+    sample = torch.from_numpy(rng.standard_normal((R, Fr, S // 8, S // 8, 4))
+                              .astype(np.float32)).to(dev)
+    plucker = torch.from_numpy(rng.standard_normal((R, Fr, S, S, 6)).astype(np.float32))
+    F_mats = torch.from_numpy((rng.standard_normal((R * Fr, 3, 3)) * 1e-3)
+                              .astype(np.float32)).to(dev)
+    timesteps = torch.tensor([701] * R, device=dev)
+    for simplified, (path, state) in files.items():
+        layout = "simplified" if simplified else "pyramid"
+        extra = ("--controlnet_ckpt", path) + (("--controlnet_simplified_embedding",)
+                                               if simplified else ())
+        args = _model_args(inference, paths, "--bf16", "--model_config", model_config, *extra)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        modules, _ = build.build_modules(args, dev, tokenizer=tok)
+        t_build = time.perf_counter() - t0
+        n = _held(torch, modules.controlnet, state, f"SparseCtrl {layout}",
+                  skip=[k for k in state if "pos_encoder" in k])
+        ctrl, unet = modules.controlnet, modules.unet
+        c, side = (4, S // 8) if simplified else (3, S)
+        cond = torch.from_numpy(rng.uniform(-1, 1, (R, Fr, side, side, c)).astype(np.float32))
+        mask = torch.zeros(R, Fr, side, side, 1)
+        mask[:, ::5] = 1.0   # sparse: every fifth frame carries its condition
+        with torch.no_grad():
+            text = modules.clip(torch.from_numpy(tok(["a scenic video"] * R)).to(dev))
+            pose = modules.pose_encoder(plucker.to(dev, bf16))
+            cond, mask = cond.to(dev), mask.to(dev)
+            (down, mid), ctrl_launches, ctrl_ms = counted(
+                lambda: ctrl(sample, timesteps, text, cond, mask, conditioning_scale=1.0),
+                repeats=3)
+            epi = EpiConditioning(F_mats=F_mats, video_length=Fr, rand_slope_ff=False)
+            with_res, unet_launches, unet_ms = counted(lambda: unet(
+                sample, timesteps, text, pose, epi, down_block_additional_residuals=down,
+                mid_block_additional_residual=mid))
+            without = unet(sample, timesteps, text, pose, epi)
+        diff = float((with_res.float() - without.float()).abs().max())
+        finite = bool(torch.isfinite(with_res).all() and all(torch.isfinite(r).all()
+                                                             for r in down))
+        log(f"[extras] SparseCtrl {layout}: build_modules {t_build:.1f} s, {n} parameters equal "
+            f"to the file's tensors cast to bf16; one call at {R} CFG rows x {Fr} frames "
+            f"{ctrl_ms:.1f} ms, launches per call "
+            f"{ {k: ctrl_launches[k] for k in FORWARD} }, {len(down)} residuals + mid; the UNet "
+            f"with them {unet_ms:.1f} ms, launches {  {k: unet_launches[k] for k in FORWARD} }, "
+            f"finite {finite}, max |with - without| {diff:.4f}")
+        missing = [k for k in ("flash_attention", "temporal_flash_attention", "group_norm",
+                               "layer_norm_matmul") if ctrl_launches[k] == 0]
+        if not finite or not diff > 0 or missing or len(down) != 12:
+            raise RuntimeError(f"SparseCtrl {layout}: finite {finite}, difference {diff}, "
+                               f"kernels not launched {missing}")
+        out[f"sparsectrl_{layout}"] = (ctrl_launches, 1)
+        del modules, ctrl, unet, down, mid, with_res, without
+    torch.cuda.empty_cache()
+
+    # (b) one UNet call with fuse_first_frame at SD1.5 width
+    cfg = dataclasses.replace(build.SD15_WIDTHS[0], fuse_first_frame=True)
+    with torch.device("meta"):
+        unet = UNet3DConditionModel(cfg)
+    unet = random_init_(unet.to_empty(device=dev), torch.Generator(device=dev).manual_seed(3))
+    unet = unet.to(bf16).eval().requires_grad_(False).to(memory_format=torch.channels_last)
+    text = torch.randn(R, 77, cfg.cross_attention_dim, device=dev, dtype=bf16)
+    epi = EpiConditioning(F_mats=F_mats, video_length=Fr, rand_slope_ff=False)
+    with torch.no_grad(), _watch_group_norm(torch) as seen:
+        fused, launches, ms = counted(lambda: unet(sample, timesteps, text, None, epi))
+    fusion = sorted({(r, p, c) for r, p, c in seen if r == R * (Fr - 1)})
+    want = [(R * (Fr - 1), 16, 2560), (R * (Fr - 1), 16, 3840), (R * (Fr - 1), 1024, 640),
+            (R * (Fr - 1), 1024, 960)]
+    log(f"[extras] UNet with fuse_first_frame, {R} CFG rows x {Fr} frames: {ms:.1f} ms, finite "
+        f"{bool(torch.isfinite(fused).all())}, launches {  {k: launches[k] for k in FORWARD} }; "
+        f"K4 at the fusion blocks' (rows, pixels, channels) {fusion}")
+    if not torch.isfinite(fused).all() or fusion != want:
+        raise RuntimeError(f"fuse_first_frame: finite {bool(torch.isfinite(fused).all())}, "
+                           f"GroupNorm shapes of the fusion blocks {fusion}")
+    out["fuse_first_frame"] = (launches, 1)
+    del unet, fused
+    torch.cuda.empty_cache()
+
+    # (c) training from the files with the latents cache, the head and validation
+    with open(model_config) as f:
+        raw = yaml.safe_load(f)
+    raw["unet_additional_kwargs"]["additional_channel"] = 64
+    head_config = os.path.join(root, "inference_config_aux.yaml")
+    with open(head_config, "w") as f:
+        yaml.safe_dump(raw, f)
+    steps, items = 4, 2
+    pose_files = {k: os.path.join(HERE, "assets", "pose_files", f"example_{n}.txt")
+                  for k, n in (("pose_file_0", "dolly"), ("pose_file_1", "arc"))}
+    out_dir = os.path.join(HERE, "build", "chip_smoke_extras_train")
+    cfg = dict(paths, model_config=head_config, bf16=True, sample_size=S, sample_n_frames=Fr,
+               train_batch_size=1, max_train_steps=steps, num_workers=2, remat=True,
+               do_sanity_check=False, logger_interval=1, checkpointing_steps=10 ** 9,
+               global_seed=42, output_dir=out_dir, cache_latents=True,
+               latents_cache_dir=os.path.join(root, "latents_cache"), latents_cache_items=items,
+               epi_loss_weight=0.002, validation_steps=2, validation_steps_num=3,
+               validation_data=dict(pose_files, prompts=["a scenic video"]))
+    init, _ = train.build_training_modules(cfg, dev, tok)
+    head = {k: p.detach().float().cpu() for k, p in init.unet.named_parameters()
+            if "auxiliary" in k}
+    del init
+    # the same training without the cache (and without validation): its s/step
+    for w in wrappers.values():
+        w.launches = 0
+    plain = train.run(dict(cfg, cache_latents=False, validation_steps=0,
+                           output_dir=out_dir + "_no_cache"),
+                      sources=[_SeededPairs(items, Fr, S)], tokenizer=tok)
+    out["train_no_cache"] = ({n: w.launches for n, w in wrappers.items()}, steps)
+    no_cache = sorted(plain["step_seconds"][1:])[(steps - 1) // 2]
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = train.run(cfg, sources=[_SeededPairs(items, Fr, S)], tokenizer=tok)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cache, losses, epis, secs = (res["latents_cache"], res["losses"], res["epi_losses"],
+                                 res["step_seconds"])
+    now = dict(res["state"].model.named_parameters())
+    moved = sum(not torch.equal(now[k].detach().float().cpu(), v) for k, v in head.items())
+    vdir = os.path.join(out_dir, "validation")
+    written = sorted(os.listdir(vdir)) if os.path.isdir(vdir) else []
+    again = train._latents_cache(cfg, None, None, out_dir, logging.getLogger("chip_smoke"))[1]
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    phase7 = (f"{sorted(train_seconds)[len(train_seconds) // 2]:.3f} s" if train_seconds
+              else "not run (--ckpt)")
+    per_item = cache["item_seconds"]
+    log(f"[extras] training from the files with the latents cache, the auxiliary head "
+        f"(additional_channel 64, epi_loss_weight 0.002) and validation every 2 steps: {steps} "
+        f"steps in {seconds:.2f} s (module build, cache and validation included); losses "
+        f"[{', '.join(f'{x:.5f}' for x in losses)}], epi losses "
+        f"[{', '.join(f'{x:.5f}' for x in epis)}], s/step [{', '.join(f'{x:.3f}' for x in secs)}]"
+        f", steady (median after the first) {steady:.3f} s with the cache against "
+        f"{no_cache:.3f} s without it (the same run otherwise, just before) and phase 7's "
+        f"{phase7} (no cache, no head, random weights); cache: {cache['items']} items built in "
+        f"{cache['seconds']:.2f} s (per item [{', '.join(f'{x:.2f}' for x in per_item)}] s, "
+        f"the first with the encoder's first launches), built again on a second look: "
+        f"{again['built']}; peak allocated {peak / 2**30:.2f} GiB (remat on); head "
+        f"tensors moved {moved}/{len(head)}; validation files {written}; launches {launches}")
+    missing = [n for n in KERNELS if launches[n] == 0]
+    if (len(losses) != steps or not all(math.isfinite(x) for x in losses + epis)
+            or not all(x > 0 for x in epis) or moved != len(head) or len(head) != 4
+            or not cache["built"] or cache["items"] != items or again["built"]
+            or not {"step-2.npy", "step-4.npy"} <= set(written) or missing):
+        raise RuntimeError(f"training with the extras: losses {losses}, epi {epis}, head moved "
+                           f"{moved}/{len(head)}, cache {cache} (again {again}), validation "
+                           f"{written}, kernels not launched {missing}")
+    out["train_extras"] = (launches, steps)
+    return out
+
+
 def _wrappers():
     """The op wrappers that launch each kernel; each carries its count."""
     from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn
@@ -1722,6 +2079,7 @@ class _SeededPairs:
             sample_n_frames=n_frames, sample_size=size)[0]
         self.plucker = cams["plucker_embedding"].astype(np.float32)   # [2n, S, S, 6]
         self.F_mats = cams["F_mats"].astype(np.float32)               # [2n, 3, 3]
+        self.poses = {k: cams[k].astype(np.float32) for k in ("ret_c2w", "ret_K_mats")}
         self.n_items, self.shape, self.seed = n_items, (2 * n_frames, size, size, 3), seed
 
     def __len__(self):
@@ -1733,7 +2091,7 @@ class _SeededPairs:
         rng = np.random.default_rng(self.seed + int(i))
         return {"pixel_values": rng.uniform(-1.0, 1.0, self.shape).astype(np.float32),
                 "text": self.captions[int(i) % len(self.captions)],
-                "plucker_embedding": self.plucker, "F_mats": self.F_mats}
+                "plucker_embedding": self.plucker, "F_mats": self.F_mats, **self.poses}
 
 
 def phase_train(torch, profile: bool):
@@ -1807,7 +2165,7 @@ def phase_train(torch, profile: bool):
             log(f"[train] one step remat={remat}: out of memory on the card")
     if profile:
         _profile_step(torch, state, batch, modules, gen, size)
-    return launches, steps
+    return launches, steps, secs[1:]
 
 
 def _folded(torch, np, data, n_frames):
@@ -1946,9 +2304,9 @@ def main() -> int:
     if profile:
         timed(_profile_sampler)
         timed(_profile_nview)
-    train, train_steps = timed(phase_train, profile=profile)
+    train, train_steps, train_seconds = timed(phase_train, profile=profile)
     ((ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps)), options = timed(
-        phase_ckpt, sampler, sampler_requests=2)
+        phase_ckpt, sampler, sampler_requests=2, train_seconds=train_seconds)
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
@@ -1958,10 +2316,11 @@ def main() -> int:
         # training built from checkpoint files); each path's own count is
         # beside it. Per step or call: a run's count over the UNet
         # calls or steps it took (a sampler's K4 count includes its VAE decode)
-        # phase options: each of its paths, and per UNet call or training step
+        # phases options and extras: each of their paths, and per UNet call,
+        # SparseCtrl call or training step
         (nview_loop, loop_calls), (nview_batched, batched_calls) = nview["loop"], nview["batched"]
-        opts = {f"launches_options_{path}": n[name] for path, (n, _) in options.items()}
-        opts.update({f"launches_per_call_options_{path}": n[name] / calls
+        opts = {f"launches_{path}": n[name] for path, (n, _) in options.items()}
+        opts.update({f"launches_per_call_{path}": n[name] / calls
                      for path, (n, calls) in options.items()})
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": (sampler[name] + nview_loop[name] + nview_batched[name]

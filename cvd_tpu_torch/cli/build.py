@@ -8,19 +8,24 @@ bundle when asked to.
 ``--random-weights`` builds the tiny model from the default initialization
 (epi modules start as the identity), ``--random-weights-full`` the SD1.5
 widths with every tensor drawn. The runtime image LoRA
-(``--image_lora_ckpt``), the sync-LoRA (``--sync_lora_rank``) and spatial
-extended attention are the JAX package's options. Model options whose code
-is not ported yet raise ``NotImplementedError`` naming their ROADMAP.md
-item, before anything is read: none is taken and ignored.
+(``--image_lora_ckpt``), the sync-LoRA (``--sync_lora_rank``), spatial
+extended attention and SparseCtrl (``--controlnet_ckpt``, built beside the
+UNet as ``modules.controlnet``; no pipeline consumes it, as in the JAX
+package) are the JAX package's options. ``--scan_layers`` is taken and does
+nothing (an XLA compile-time layer dedup). Model options whose code is not
+ported yet raise ``NotImplementedError`` naming their ROADMAP.md item,
+before anything is read: none is taken and ignored.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import time
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from cvd_tpu_torch.io.tokenizer import get_tokenizer
 from cvd_tpu_torch.models.clip_text import CLIPTextConfig
@@ -42,7 +47,8 @@ SMOKE_WIDTHS = (SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP)
 SD15_WIDTHS = (UNetConfig(), VAEConfig(), CLIPTextConfig())
 # the options that name weights or their layout: --random-weights[-full] refuses them
 _WEIGHT_OPTIONS = ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
-                   "epi_module_ckpt", "pose_adaptor_ckpt", "image_lora_ckpt", "model_config")
+                   "epi_module_ckpt", "pose_adaptor_ckpt", "image_lora_ckpt", "controlnet_ckpt",
+                   "model_config")
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
@@ -75,9 +81,12 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="rank of --image_lora_ckpt: > 16 absolute, else channels // rank "
                         "per layer")
     p.add_argument("--controlnet_ckpt", default=None,
-                   help="AnimateDiff SparseCtrl ckpt (not ported yet)")
+                   help="AnimateDiff SparseCtrl ckpt; imported strictly into a "
+                        "SparseControlNetModel (modules.controlnet) whose residuals the "
+                        "UNet takes (down/mid additional residuals)")
     p.add_argument("--controlnet_simplified_embedding", action="store_true",
-                   help="v3-RGB SparseCtrl layout (not ported yet)")
+                   help="v3-RGB SparseCtrl layout: one zero-initialized conv over the "
+                        "VAE latents and the mask as the conditioning embedding")
     p.add_argument("--sync_lora_rank", type=int, default=0,
                    help="sync-LoRA rank on the pose-conditioned temporal attention "
                         "(0 = off, >16 absolute, 1..16 resolves per layer)")
@@ -87,6 +96,9 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "blocks; 'dots' is not ported yet")
     p.add_argument("--model_config", default=None,
                    help="reference-format model config yaml")
+    p.add_argument("--scan_layers", action=argparse.BooleanOptionalAction, default=None,
+                   help="taken and ignored: the JAX package's lax.scan dedup of identical "
+                        "UNet layers is an XLA compile-time lever with no job here")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; a machine without a CUDA "
                         "device must ask for --device cpu)")
@@ -116,8 +128,6 @@ def refuse_unported(args) -> None:
                                     "(io/ldm_convert.py)", "item 5"),
         (has("civitai_lora_ckpt"), "--civitai_lora_ckpt: kohya / civitai LoRA fusion "
                                    "(io/ldm_convert.py)", "item 5"),
-        (has("controlnet_ckpt") or has("controlnet_simplified_embedding"),
-         "--controlnet_ckpt / --controlnet_simplified_embedding: SparseCtrl", "item 3"),
         (has("remat_policy", ""), f"--remat_policy {getattr(args, 'remat_policy', '')!r}: the "
                                   "'dots' / 'layer' remat policies", "item 4.7"),
     ]
@@ -138,6 +148,26 @@ def unet_options(args, unet_cfg: UNetConfig) -> UNetConfig:
         spatial_lora_rank=(r if r > 16 else -r) if getattr(args, "image_lora_ckpt", None) else 0,
         sync_lora_rank=getattr(args, "sync_lora_rank", 0) or 0,
         sync_lora_scale=getattr(args, "sync_lora_scale", 1.0))
+
+
+def load_sparse_controlnet(path: str, unet_cfg: UNetConfig, simplified: bool,
+                           device: torch.device, dtype: torch.dtype) -> nn.Module:
+    """A ``SparseControlNetModel`` at ``unet_cfg``'s widths in the layout of
+    the file (``simplified``: v3 RGB, 4 latent channels; else the pyramid
+    over 3 pixel channels), every parameter from the file (strict), on
+    ``device`` in ``dtype``, in eval mode with no gradients."""
+    from cvd_tpu_torch.io.checkpoints import load_sparse_controlnet_weights
+    from cvd_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+
+    with torch.device("meta"):
+        model = SparseControlNetModel(unet_cfg, conditioning_channels=4 if simplified else 3,
+                                      use_simplified_condition_embedding=simplified)
+    model = model.to_empty(device=device)
+    load_sparse_controlnet_weights(model, path)
+    model = model.to(dtype=dtype).eval().requires_grad_(False)
+    if torch.device(device).type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
 
 
 def build_modules(args, device: torch.device, vae_encoder: bool = False,
@@ -218,6 +248,13 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
         motion_lora_scale=getattr(args, "motion_lora_scale", 1.0),
         image_lora_ckpt=getattr(args, "image_lora_ckpt", None),
     )
+    if getattr(args, "controlnet_ckpt", None):
+        t0 = time.perf_counter()
+        modules.controlnet = load_sparse_controlnet(
+            args.controlnet_ckpt, modules.unet.config,
+            bool(getattr(args, "controlnet_simplified_embedding", False)), device, dtype)
+        loaded["controlnet"] = {"keys": len(modules.controlnet.state_dict()),
+                                "seconds": time.perf_counter() - t0}
     for name, r in loaded.items():
         print(f"[build] {name}: {r['keys']} keys in {r['seconds']:.2f} s", flush=True)
     if report is not None:
@@ -232,7 +269,8 @@ def validate_ckpts(args, widths=SD15_WIDTHS) -> int:
     weights. Prints one line per artifact; non-zero on any unmapped key."""
     from cvd_tpu_torch.io import manifests as M
     from cvd_tpu_torch.io.checkpoints import (
-        clip_rename, image_lora_state, merge_torch_state, motion_module_state, vae_legacy_rename,
+        clip_rename, image_lora_state, merge_torch_state, motion_module_state,
+        sparse_controlnet_state, vae_legacy_rename,
     )
     from cvd_tpu_torch.io.torch_io import load_diffusers_folder_weights, load_torch_state
 
@@ -304,6 +342,20 @@ def validate_ckpts(args, widths=SD15_WIDTHS) -> int:
               shapes_of(M.cameractrl_attention_processor_manifest()))
     if getattr(args, "image_lora_ckpt", None):
         check("image lora", m.unet, image_lora_state(args.image_lora_ckpt))
+    if getattr(args, "controlnet_ckpt", None):
+        from cvd_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+
+        simplified = bool(getattr(args, "controlnet_simplified_embedding", False))
+        with torch.device("meta"):
+            controlnet = SparseControlNetModel(unet_cfg, 4 if simplified else 3,
+                                               use_simplified_condition_embedding=simplified)
+        state = sparse_controlnet_state(args.controlnet_ckpt)
+        check("sparsectrl", controlnet, state)
+        missing = set(dict(controlnet.named_parameters())) - set(state)
+        if missing:
+            failures += 1
+            print(f"[validate-ckpts] sparsectrl: {len(missing)} parameters not in the file, "
+                  f"e.g. {sorted(missing)[0]}")
     print(f"[validate-ckpts] {'FAILED' if failures else 'all artifacts map cleanly'}")
     return 1 if failures else 0
 

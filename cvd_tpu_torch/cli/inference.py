@@ -16,7 +16,15 @@ the pose encoder's 16); ``--pab [--pab_ranges ...]`` turns on Pyramid
 Attention Broadcast.
 
 Each prompt writes ``<out_root>/<idx>/videos.npy`` (uint8 [2, F, H, W, 3])
-and, where ``imageio`` is installed, per-view mp4 and png frames.
+and, where ``imageio`` is installed, per-view png frames (``imgs/<v>/``)
+and ``vids/<v>.mp4``, the two views side by side (``vids/horizontal.mp4``)
+and one above the other (``vids/vertical.mp4``); without ffmpeg each mp4 is
+a gif. ``--save_trajectory`` writes ``poses/pose_img_<v>.png`` and
+``poses/ret_c2w_<v>.npy`` (needs matplotlib: without it the run stops before
+the model is built). The run log is ``<out_root>/log_p0.txt``; it names the
+files that were not written and why. ``--no_lora_validation`` and
+``--scan_layers`` are taken and do nothing, as in the JAX package;
+``--sharded`` is refused (ROADMAP.md, queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import os
 import time
 from typing import List
 
+import numpy as np
 import torch
 
 
@@ -62,17 +71,24 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
         SD15_WIDTHS, build_modules, refuse_unported, resolve_device,
     )
     from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
-    from cvd_tpu_torch.pipelines.simple import SimplePipeline
-    from cvd_tpu_torch.utils.video import (
-        have_imageio, save_npy, save_video, save_video_as_images,
-    )
-
     from cvd_tpu_torch.pipelines.pab import PABConfig
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+    from cvd_tpu_torch.utils.logging import setup_logger
+    from cvd_tpu_torch.utils.video import (
+        have_imageio, save_npy, save_video, save_video_as_images, save_videos_grid,
+    )
+    from cvd_tpu_torch.utils.visualize import have_matplotlib, save_trajectory_plot
 
     refuse_unported(args)
+    if args.sharded:
+        raise NotImplementedError("--sharded: sampling over a mesh of devices is not ported "
+                                  "(ROADMAP.md, queue 1, item 5)")
     if args.image_width != args.image_height:
         raise SystemExit("the epipolar attention assumes a square token grid: "
                          "use --image_width == --image_height")
+    if args.save_trajectory and not have_matplotlib():
+        raise RuntimeError("--save_trajectory plots the cameras with matplotlib, which is not "
+                           "installed")
     pab_config = None
     if args.pab:
         pab_config = PABConfig.from_string(args.pab_ranges) if args.pab_ranges else PABConfig()
@@ -84,11 +100,14 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
     captions, negatives, seeds = load_prompts(
         args.caption_file, args.use_negative_prompt, args.num_videos)
     device = resolve_device(args.device)
+    logger = setup_logger(args.out_root, name="cvd_tpu_torch.inference")
+    if not have_imageio():
+        logger.info("imageio is not installed: each prompt writes videos.npy only, no "
+                    "imgs/<v>/*.png and no vids/{<v>,horizontal,vertical}.mp4")
     t0 = time.perf_counter()
     modules, tokenizer = build_modules(args, device, tokenizer=tokenizer,
                                        widths=widths or SD15_WIDTHS)
-    print(f"[inference] built modules on {device} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    logger.info(f"[inference] built modules on {device} in {time.perf_counter() - t0:.1f} s")
     pipe = SimplePipeline(modules, F_mat_size=args.image_height, rand_slope_ff=True)
     dataset = ValRealEstate10KPoseFolded(
         validation_prompts=captions,
@@ -117,14 +136,28 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
                       multidiff_overlaps=args.multidiff_overlaps, pab_config=pab_config)
         videos = videos.cpu().numpy()
         seconds = time.perf_counter() - t0
-        print(f"[inference] [{idx}] {sample['validation_prompt']!r} seed={seed}: "
-              f"{seconds:.2f} s", flush=True)
+        logger.info(f"[inference] [{idx}] {sample['validation_prompt']!r} seed={seed}: "
+                    f"{seconds:.2f} s")
         out = os.path.join(args.out_root, str(idx))
         save_npy(videos, os.path.join(out, "videos.npy"))
         if have_imageio():
+            vids = os.path.join(out, "vids")
             for v in range(2):
                 save_video_as_images(videos[v], os.path.join(out, "imgs", str(v)))
-                save_video(videos[v], os.path.join(out, "vids", f"{v}.mp4"))
+                save_video(videos[v], os.path.join(vids, f"{v}.mp4"))
+            save_video(np.concatenate([videos[0], videos[1]], axis=2),
+                       os.path.join(vids, "horizontal.mp4"))
+            save_videos_grid(videos, os.path.join(vids, "vertical.mp4"), n_rows=2)
+        if args.save_trajectory:
+            # the JAX package's reshape: args.video_length poses a plot
+            save_trajectory_plot(sample["ret_c2w"], os.path.join(out, "poses"),
+                                 args.video_length)
+        written = sorted(os.path.relpath(os.path.join(d, f), out)
+                         for d, _, files in os.walk(out) for f in files)
+        frames = [w for w in written if w.startswith("imgs")]
+        logger.info(f"[inference] [{idx}] wrote under {out}: "
+                    + ", ".join(w for w in written if w not in frames)
+                    + (f" and {len(frames)} frames under imgs/" if frames else ""))
         results.append({"videos": videos, "seconds": seconds,
                         "unet_step_ms": list(pipe.unet_step_ms)})
     return results
@@ -156,6 +189,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pose_file_0", required=True)
     p.add_argument("--pose_file_1", required=True)
     p.add_argument("--num_videos", type=int, default=None)
+    p.add_argument("--no_lora_validation", action="store_true",
+                   help="taken and ignored, as in the JAX package")
+    p.add_argument("--save_trajectory", action="store_true",
+                   help="plot each view's cameras (poses/pose_img_<v>.png, needs matplotlib) "
+                        "and save them (poses/ret_c2w_<v>.npy)")
+    p.add_argument("--sharded", action="store_true",
+                   help="sampling over a mesh of devices: not ported (refused)")
     p.add_argument("--pab", action="store_true",
                    help="Pyramid Attention Broadcast: reuse cached attention outputs on "
                         "scheduled mid-trajectory steps (see pipelines/pab.py)")

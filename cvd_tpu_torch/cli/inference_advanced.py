@@ -14,8 +14,10 @@ writes ``<out_root>/<seed_id>_<idx>/videos.npy`` (uint8 [V, F, H, W, 3]) and
 a NeRF-style ``transforms.json`` (OpenCV -> OpenGL axes, reference
 :362-410) and, where ``imageio`` is installed, ``video.mp4`` / ``video.gif``
 (the views stacked) and ``images/<view>/%04d.png``. ``--pab
-[--pab_ranges ...]`` turns on Pyramid Attention Broadcast. Not ported yet,
-and refused (ROADMAP.md, queue 1): ``--sharded``, ``--step_chunk``.
+[--pab_ranges ...]`` turns on Pyramid Attention Broadcast. The run log is
+``<out_root>/log_p0.txt``. ``--scan_layers`` is taken and does nothing. Not
+ported yet, and refused (ROADMAP.md, queue 1): ``--sharded``,
+``--step_chunk``.
 """
 from __future__ import annotations
 
@@ -79,10 +81,12 @@ def _refuse(args) -> None:
     if args.mono_direction:
         # the reference rejects this path too (attention_processor.py:622)
         raise NotImplementedError("--mono_direction is not supported")
-    for flag, what in (("sharded", "sampling over a mesh of devices"),
-                       ("step_chunk", "the chunked scan (a Python loop has no use for it)")):
+    for flag, what in (("sharded", "sampling over a mesh of devices is not ported "
+                                   "(ROADMAP.md, queue 1, item 5)"),
+                       ("step_chunk", "the chunked scan is not ported: a Python loop has "
+                                      "no use for it (ROADMAP.md, queue 1, item 1)")):
         if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not ported (ROADMAP.md, queue 1)")
+            raise NotImplementedError(f"--{flag}: {what}")
 
 
 def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) -> List[dict]:
@@ -100,6 +104,7 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     from cvd_tpu_torch.geometry.plucker import ray_condition
     from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
     from cvd_tpu_torch.pipelines.pab import PABConfig
+    from cvd_tpu_torch.utils.logging import setup_logger
     from cvd_tpu_torch.utils.video import (
         have_imageio, save_npy, save_video, save_video_as_images,
     )
@@ -120,11 +125,15 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     c2w_t = torch.from_numpy(c2ws.astype(np.float32))
     K_t = torch.from_numpy(K.astype(np.float32))
 
+    logger = setup_logger(args.out_root, name="cvd_tpu_torch.inference_advanced")
+    if not have_imageio():
+        logger.info("imageio is not installed: each request writes videos.npy and "
+                    "transforms.json only, no video.{gif,mp4} and no images/<view>/*.png")
     t0 = time.perf_counter()
     modules, tokenizer = build_modules(args, device, tokenizer=tokenizer,
                                        widths=widths or SD15_WIDTHS)
-    print(f"[inference_advanced] built modules on {device} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    logger.info(f"[inference_advanced] built modules on {device} in "
+                f"{time.perf_counter() - t0:.1f} s")
     pipe = AdvancedPipeline(modules, F_mat_size=S, rand_slope_ff=True,
                             fix_firstframe=args.fix_firstframe,
                             accumulate_batched=accumulate_batched)
@@ -143,8 +152,8 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
                 generator=torch.Generator(device=device).manual_seed(seed))
             videos = videos.cpu().numpy()                      # [V, F, H, W, 3]
             seconds = time.perf_counter() - t0
-            print(f"[inference_advanced] [seed {seed_id} prompt {idx}] {prompt!r} "
-                  f"seed={seed}: {seconds:.2f} s", flush=True)
+            logger.info(f"[inference_advanced] [seed {seed_id} prompt {idx}] {prompt!r} "
+                        f"seed={seed}: {seconds:.2f} s")
 
             sub = os.path.join(args.out_root, f"{seed_id}_{idx:04d}")
             save_npy(videos, os.path.join(sub, "videos.npy"))
@@ -194,7 +203,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fix_firstframe", action="store_true")
     p.add_argument("--mono_direction", action="store_true",
                    help="not supported: the reference raises too")
-    p.add_argument("--sharded", action="store_true", help="not ported yet")
+    p.add_argument("--sharded", action="store_true",
+                   help="sampling over a mesh of devices: not ported (refused)")
     p.add_argument("--pab", action="store_true",
                    help="Pyramid Attention Broadcast: reuse attention outputs on scheduled "
                         "outer steps (see pipelines/pab.py)")

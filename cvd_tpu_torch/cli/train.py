@@ -19,13 +19,20 @@ the modules that ``model_config`` names; or ``random_weights: true``, the tiny s
 model from the default initialization, or ``random_weights_full: true``,
 the SD1.5 widths with every tensor drawn, on the device from a fixed seed.
 ``lora_rank`` is the image LoRA's rank, as in the JAX package (and so the
-sync-LoRA's divisor with an image LoRA); ``epi_loss_weight`` weighs a loss
-of the auxiliary q/k head, which no config with ``additional_channel: 0``
-has, so it changes nothing and ``epi_loss`` reports 0. Not ported yet, and
-raising NotImplementedError (ROADMAP queue 1): ``civitai_*``, datasets
-other than RealEstate10K, ``cache_latents``, ``validation_steps > 0`` /
-``validation_data``, ``--multihost``, remat policies other than ``""``,
-process workers.
+sync-LoRA's divisor with an image LoRA); ``epi_loss_weight`` weighs the
+epipolar distance loss of the auxiliary q/k head, which a model config with
+``additional_channel > 0`` adds (without it the loss is 0 and weighs
+nothing, as in the JAX package). ``cache_latents: true`` encodes the first
+``latents_cache_items`` clips once into ``latents_cache_dir`` (default
+``<output_dir>/latents_cache``; built on the first run, reused after) and
+trains from their posterior moments (``data/latents_cache.py``).
+``validation_steps: N`` samples ``validation_data``'s pose pair with the
+live weights every N steps (``validation_steps_num`` DDIM steps) into
+``<output_dir>/validation/step-<N>.npy`` and, where imageio is installed,
+``step-<N>.gif`` and ``step-<N>-epi.png``. Not ported yet, and raising
+NotImplementedError (ROADMAP queue 1): ``civitai_*``, datasets other than
+RealEstate10K, ``--multihost``, remat policies other than ``""``, process
+workers.
 """
 from __future__ import annotations
 
@@ -71,16 +78,9 @@ def _refuse_unported(cfg: dict) -> None:
     from cvd_tpu_torch.cli.build import refuse_unported
 
     name = (cfg.get("train_data") or {}).get("dataset_name", "realestate10k")
-    checks = [
-        (name not in ("realestate10k", "realestate10k_local"),
-         f"dataset_name {name!r}: only RealEstate10K is ported"),
-        (cfg.get("cache_latents", False), "cache_latents: the latents cache"),
-        ((cfg.get("validation_steps") or 0) > 0, "validation_steps > 0: validation sampling"),
-        (bool(cfg.get("validation_data")), "validation_data: validation sampling"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet {_ROADMAP}")
+    if name not in ("realestate10k", "realestate10k_local"):
+        raise NotImplementedError(f"dataset_name {name!r}: only RealEstate10K is ported "
+                                  f"{_ROADMAP}")
     refuse_unported(_model_args(cfg))
 
 
@@ -104,13 +104,83 @@ def _frozen_dtype(cfg: dict) -> Optional[torch.dtype]:
             "float32": torch.float32, "f32": torch.float32}[name]
 
 
+def run_validation(modules, tokenizer, cfg: dict, out_dir: str, step: int, logger):
+    """Sample ``validation_data``'s pose pair (its first prompt) with the
+    live training weights, as the JAX package does (cli/train.py:25-75): the
+    training UNet itself under ``torch.no_grad`` (no copy; its mode is
+    restored after), ``validation_steps_num`` DDIM steps from a generator of
+    its own seeded with ``step`` (no number is drawn from the training
+    generators). Writes ``validation/step-<step>.npy`` (uint8 [2, F, H, W, 3])
+    and, with imageio, the 2-row ``step-<step>.gif`` and the epipolar overlay
+    of the middle frames, ``step-<step>-epi.png``. Without ``pose_file_0``
+    nothing runs, as in the JAX package."""
+    from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+    from cvd_tpu_torch.utils.video import have_imageio, save_npy, save_videos_grid
+    from cvd_tpu_torch.utils.visualize import check_fundamental
+
+    vcfg = cfg.get("validation_data") or {}
+    if not vcfg.get("pose_file_0"):
+        return
+    n, size = cfg.get("sample_n_frames", 16), cfg.get("sample_size", 256)
+    sample = ValRealEstate10KPoseFolded(
+        validation_prompts=vcfg.get("prompts", ["a scenic video"]),
+        pose_file_0=vcfg["pose_file_0"], pose_file_1=vcfg["pose_file_1"],
+        sample_n_frames=n, sample_size=size)[0]
+    unet = modules.unet
+    device = unet.conv_in.weight.device
+    was_training = unet.training
+    unet.eval()
+    try:
+        vids = SimplePipeline(modules, F_mat_size=size)(
+            torch.from_numpy(tokenizer([sample["validation_prompt"]])),
+            torch.from_numpy(tokenizer([""])),
+            torch.from_numpy(sample["plucker_embedding"]).float().reshape(2, n, size, size, 6),
+            torch.from_numpy(sample["F_mats"]).float().reshape(2, n, 3, 3),
+            num_inference_steps=cfg.get("validation_steps_num", 25),
+            generator=torch.Generator(device=device).manual_seed(step))
+    finally:
+        unet.train(was_training)
+    vids = vids.cpu().numpy()
+    vdir = os.path.join(out_dir, "validation")
+    save_npy(vids, os.path.join(vdir, f"step-{step}.npy"))
+    if have_imageio():
+        import imageio
+
+        save_videos_grid(vids, os.path.join(vdir, f"step-{step}.gif"), n_rows=2)
+        overlay = check_fundamental(vids[0, n // 2], vids[1, n // 2], sample["F_mats"][n // 2])
+        imageio.imwrite(os.path.join(vdir, f"step-{step}-epi.png"), overlay)
+        logger.info(f"validation at step {step}: {vdir}/step-{step}.{{npy,gif}}, -epi.png")
+    else:
+        logger.info(f"validation at step {step}: {vdir}/step-{step}.npy; step-{step}.gif and "
+                    f"step-{step}-epi.png not written: imageio is not installed")
+
+
+def _latents_cache(cfg: dict, dataset, modules, out_dir: str, logger):
+    """The latents cache of ``dataset`` (cvd_tpu/cli/train.py:198-227): built
+    on the first run into ``latents_cache_dir``, capped at
+    ``latents_cache_items``, reused after. -> (the cached dataset, {"dir",
+    "built", "items", "seconds", "item_seconds"})."""
+    from cvd_tpu_torch.data.latents_cache import CachedLatentsDataset, build_latents_cache
+
+    cdir = cfg.get("latents_cache_dir") or os.path.join(out_dir, "latents_cache")
+    report = {"dir": cdir, "built": False, "items": 0, "seconds": 0.0, "item_seconds": []}
+    if not os.path.isdir(cdir) or not any(f.endswith(".npz") for f in os.listdir(cdir)):
+        logger.info(f"building latents cache at {cdir}")
+        report.update(built=True, **build_latents_cache(
+            dataset, modules, cdir, num_items=cfg.get("latents_cache_items"),
+            log=logger.info))
+    return CachedLatentsDataset(cdir), report
+
+
 def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=None) -> dict:
     """The training loop. ``sources``: map-style datasets with the sample
     keys of ``RealEstate10KPoseFolded`` (default: the one ``train_data``
     names). ``tokenizer``: an object to tokenize with in place of the one the
     weights come with. ``widths``: ``build_modules``'s, for checkpoint files
-    narrower than SD1.5's. Returns {"state", "modules", "losses", "step_seconds",
-    "global_step", "epoch", "out_dir"}."""
+    narrower than SD1.5's. Returns {"state", "modules", "losses", "epi_losses",
+    "step_seconds", "global_step", "epoch", "out_dir", "latents_cache"
+    (``_latents_cache``'s report, or None)}."""
     from cvd_tpu_torch.cli.build import resolve_device
     from cvd_tpu_torch.data.loader import DataLoader
     from cvd_tpu_torch.data.realestate10k import RealEstate10KPoseFolded
@@ -141,6 +211,10 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
             sample_n_frames=n_frames, sample_size=sample_size, seed=seed)]
     if len(sources) != 1:
         raise NotImplementedError(f"hybrid (several) data sources are not ported yet {_ROADMAP}")
+    cache = None
+    if cfg.get("cache_latents", False):
+        cached, cache = _latents_cache(cfg, sources[0], modules, out_dir, logger)
+        sources = [cached]
     loader = DataLoader(sources[0], batch_size=cfg.get("train_batch_size", 1),
                         num_workers=cfg.get("num_workers", 8),
                         worker_type=cfg.get("worker_type", "thread"), seed=seed)
@@ -179,8 +253,9 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
     def fold_batch(batch, texts):
         if "plucker_embedding" not in batch:
             raise NotImplementedError(f"unposed (WebVid) batches are not ported yet {_ROADMAP}")
+        moments = ("latent_mean", "latent_logvar") if "latent_mean" in batch else ("pixel_values",)
         return {"text_ids": torch.from_numpy(np.concatenate([tokenizer(texts)] * 2, axis=0)),
-                "pixel_values": fold(batch["pixel_values"]),
+                **{k: fold(batch[k]) for k in moments},
                 "plucker": fold(batch["plucker_embedding"]),
                 "F_mats": fold(batch["F_mats"])}
 
@@ -212,23 +287,25 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
     batches = endless()
     steps_per_epoch = max(1, len(loader))
     draws = global_step
-    losses, step_seconds = [], []
+    losses, epi_losses, step_seconds = [], [], []
+    val_every = cfg.get("validation_steps") or 0
     logger.info("training starts")
     while global_step < max_steps:
         t_data = time.perf_counter()
         batch = next(batches)
         draws += 1
         texts = ["" if pyrng.random() < null_ratio else t for t in batch["text"]]
-        if cfg.get("do_sanity_check", True) and global_step == 0:
-            sanity_dump(batch)
+        if cfg.get("do_sanity_check", True) and global_step == 0 and "pixel_values" in batch:
+            sanity_dump(batch)    # cached-latents batches carry no pixels
         device_batch = fold_batch(batch, texts)
         t0 = time.perf_counter()
         m = train_step(state, device_batch, modules, generator, F_mat_size=sample_size,
-                       remat=remat)
+                       remat=remat, epi_loss_weight=cfg.get("epi_loss_weight", 0.002))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         step_seconds.append(time.perf_counter() - t0)
         losses.append(m["loss"])
+        epi_losses.append(m["epi_loss"])
         global_step += 1
         if global_step % log_every == 0:
             logger.info(f"iter {global_step}/{max_steps} loss {m['loss']:.4f} "
@@ -237,6 +314,8 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
                         f"ETA {format_time(step_seconds[-1] * (max_steps - global_step))}")
             metrics_log.log(global_step, loss=m["loss"], epi_loss=m["epi_loss"],
                             grad_norm=m["grad_norm"])
+        if val_every and global_step % val_every == 0:
+            run_validation(modules, tokenizer, cfg, out_dir, global_step, logger)
         if global_step % ckpt_every == 0:
             ck = os.path.join(out_dir, "checkpoints")
             save(os.path.join(ck, f"step-{global_step}.pt"), state, epoch)
@@ -245,9 +324,9 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
             logger.info(f"saved checkpoint at step {global_step}")
         epoch = draws // steps_per_epoch
     logger.info("training done")
-    return {"state": state, "modules": modules, "losses": losses,
+    return {"state": state, "modules": modules, "losses": losses, "epi_losses": epi_losses,
             "step_seconds": step_seconds, "global_step": global_step, "epoch": epoch,
-            "out_dir": out_dir}
+            "out_dir": out_dir, "latents_cache": cache}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -11,14 +11,18 @@ Mirrors get_pipeline's load order and strictness (inference_epi.py:72-145):
   4. CameraCtrl pose-adaptor ckpt -> pose encoder + qkv_merge processors
   5. the runtime image LoRA (CameraCtrl's RealEstate10K LoRA) -> the
      ``processor.to_*_lora`` deltas of the spatial attentions
+  6. AnimateDiff's SparseCtrl ckpt -> ``SparseControlNetModel``
+     (``load_sparse_controlnet_weights``; no reference entry point loads it)
 The sync-LoRA of a sync-trained epi ckpt rides in its ``unet_trainable_dict``
-and lands through 3 when the UNet is built with it. The port's modules carry the checkpoints' own names and torch's layouts, so
+and lands through 3 when the UNet is built with it, as do the auxiliary q/k
+head's ``conv_auxiliary_{query,key}`` of a checkpoint that training with the
+head wrote (a UNet without the head refuses them, as any unknown key). The port's modules carry the checkpoints' own names and torch's layouts, so
 nothing is transposed and a key lands on the parameter of the same name.
 Every loader holds the coverage contract of the reference's load-time
 asserts (inference_epi.py:97-122): each checkpoint key it accepts lands on
 a parameter of equal shape or is a named skipped buffer, else ``KeyError``.
 Each returns the keys it consumed. Not ported yet: civitai single-file
-models and SparseCtrl (ROADMAP.md, queue 1).
+models (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -179,6 +183,31 @@ def load_motion_module_weights(
 def load_epi_module_weights(unet: nn.Module, path: str) -> List[str]:
     """CVD epi ckpt: dict with 'unet_trainable_dict' (inference_epi.py:107-113)."""
     return merge_torch_state(unet, load_torch_state(path, sub_dict="unet_trainable_dict"))
+
+
+def sparse_controlnet_state(path: str) -> Dict[str, torch.Tensor]:
+    """A SparseCtrl file's state: the top-level dict, or its ``state_dict``."""
+    state = load_torch_state(path)
+    if not any(k.startswith(("conv_in", "down_blocks")) for k in state):
+        state = load_torch_state(path, sub_dict="state_dict")
+    return state
+
+
+def load_sparse_controlnet_weights(model: nn.Module, path: str) -> List[str]:
+    """AnimateDiff SparseCtrl ckpt (``v3_sd15_sparsectrl_{rgb,scribble}.ckpt``,
+    the state at the top level or under ``state_dict``) into a
+    ``SparseControlNetModel`` of the file's layout, in place and strictly:
+    every key of the file lands (or is a skipped buffer) and every parameter
+    of the model is written, else ``KeyError``. The port's module names are
+    the file's, so no rename is needed (the JAX package's
+    ``sparsectrl_rename`` maps them onto its flat layer names)."""
+    consumed = merge_torch_state(model, sparse_controlnet_state(path))
+    written = {k for k in consumed if not any(s in k for s in SKIP_SUBSTRINGS)}
+    missing = sorted(set(dict(model.named_parameters())) - written)
+    if missing:
+        raise KeyError(f"{len(missing)} SparseCtrl parameters not in {path}; first 10:\n"
+                       + "\n".join(missing[:10]))
+    return consumed
 
 
 def load_pose_adaptor_weights(unet: nn.Module, pose_encoder: nn.Module, path: str) -> List[str]:

@@ -29,10 +29,6 @@ def load_model_config(path: str, F_mat_size: Optional[int] = None,
     mm = u.get("motion_module_kwargs", {})
     epi = u.get("epi_module_kwargs", {})
     ap = raw.get("attention_processor_kwargs", {})
-    if u.get("additional_channel", 0) > 0:
-        raise NotImplementedError(
-            "unet_additional_kwargs.additional_channel > 0: the auxiliary q/k head is not "
-            "ported yet (ROADMAP.md, queue 1, item 4.3)")
 
     # temporal attentions named '0', '1', ... get pose conditioning
     names = str(ap.get("temporal_attn_names", "0")).split(",")
@@ -55,6 +51,7 @@ def load_model_config(path: str, F_mat_size: Optional[int] = None,
         epi_zero_initialize=epi.get("zero_initialize", True),
         pose_cond_attn_indices=pose_indices if ap.get("add_temporal", True) else (),
         pose_scale=ap.get("scale", 1.0),
+        additional_channel=u.get("additional_channel", 0),
     )
 
     pe = raw.get("pose_encoder_kwargs", {})

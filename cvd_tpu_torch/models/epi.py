@@ -163,9 +163,13 @@ class EpiSelfAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x: torch.Tensor, cond: EpiConditioning,
-                pre_ln: nn.LayerNorm) -> torch.Tensor:
+                pre_ln: nn.LayerNorm, maps: Optional[dict] = None) -> torch.Tensor:
         """``x`` is UNNORMALIZED: ``pre_ln`` folds into the projections
-        (LayerNorm is per token, so it commutes with the partner gather)."""
+        (LayerNorm is per token, so it commutes with the partner gather).
+        ``maps``: a dict that receives the attention's ``query`` [B, N, C] and
+        ``key``, the partner rows' keys [B, N, C] (gathered by the route on
+        the kernel path): the auxiliary q/k head's input. Without it nothing
+        is gathered or kept."""
         B, N, C = x.shape
         feat_size = int(round(N ** 0.5))
         if feat_size * feat_size != N:
@@ -185,10 +189,12 @@ class EpiSelfAttention(nn.Module):
             q, k, v = project(x, weights)
             coords_xy = pixel_grid_coords(feat_size, cond.F_mat_size, x.device)[:, :2].T
             norm_lines, band, alpha = lines_and_band(lines, feat_size, cond.F_mat_size)
+            route = cond.route(B, x.device)
             out = epi_flash_attention(q, k, v, norm_lines, coords_xy.contiguous(), band,
-                                      alpha, heads=self.heads,
-                                      kv_index=cond.route(B, x.device))
+                                      alpha, heads=self.heads, kv_index=route)
             v_self = v
+            if maps is not None:
+                k = k[route.long()]
         else:
             (q,) = project(x, weights[:1])
             k, v = project(gather_partner_tokens(x, cond.kv_index), weights[1:])
@@ -209,6 +215,8 @@ class EpiSelfAttention(nn.Module):
             ff = v_self.reshape(views, t, f, N, C)[:, :, :1].mean(0, keepdim=True)
             out = torch.cat([ff.expand(views, t, 1, N, C),
                              out.reshape(views, t, f, N, C)[:, :, 1:]], dim=2).reshape(B, N, C)
+        if maps is not None:
+            maps.update(query=q, key=k)
         return linear(self.to_out[0], out)
 
 
@@ -224,11 +232,17 @@ class EpiTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
         self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None,
+                qk: Optional[list] = None) -> torch.Tensor:
         """pab: the request's PAB cache, class "epi": a reused attention
-        skips its lines, bias set-up and projections as well."""
+        skips its lines, bias set-up and projections as well. ``qk``: a list
+        that receives each attention's {"query", "key"} (zeros where PAB
+        reused the attention, as in the JAX package)."""
         for norm, attn in zip(self.norms, self.attention_blocks):
-            x = x + pab_run(pab, attn, "epi", lambda: attn(x, cond, pre_ln=norm))
+            maps = None if qk is None else {}
+            x = x + pab_run(pab, attn, "epi", lambda: attn(x, cond, pre_ln=norm, maps=maps))
+            if qk is not None:
+                qk.append(maps or {"query": torch.zeros_like(x), "key": torch.zeros_like(x)})
         return self.ff(x, pre_ln=self.ff_norm) + x
 
 
@@ -247,11 +261,13 @@ class EpiTransformer(nn.Module):
             for _ in range(num_transformer_blocks)])
         self.proj_out = nn.Linear(C, C)
 
-    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None,
+                qk: Optional[list] = None) -> torch.Tensor:
+        """``qk``: a list that receives every attention's q/k maps."""
         B, Fr, H, W, C = x.shape
         h = linear(self.proj_in, group_norm_per_frame(self.norm, x).reshape(B * Fr, H * W, C))
         for blk in self.transformer_blocks:
-            h = blk(h, cond, pab)
+            h = blk(h, cond, pab, qk)
         return linear(self.proj_out, h).reshape(B, Fr, H, W, C) + x
 
 
@@ -263,5 +279,6 @@ class EpiModule(nn.Module):
         super().__init__()
         self.epi_transformer = EpiTransformer(*args, **kwargs)
 
-    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None) -> torch.Tensor:
-        return self.epi_transformer(x, cond, pab)
+    def forward(self, x: torch.Tensor, cond: EpiConditioning, pab=None,
+                qk: Optional[list] = None) -> torch.Tensor:
+        return self.epi_transformer(x, cond, pab, qk)

@@ -307,6 +307,44 @@ class Upsample2D(nn.Module):
         return self.conv(x.permute(0, 2, 3, 1))
 
 
+class FusionBlock2D(nn.Module):
+    """First-frame feature fusion (``fuse_first_frame``): concat(first frame,
+    frame t) -> a 1x1 resnet over 2C -> 3C channels (GroupNorm + SiLU on
+    kernel K4, eps 1e-6) -> a zero-initialized ``conv_out`` emitting
+    (scale_1, scale_2, shift), and
+
+        out_t = scale_1 * first + (1 + scale_2) * frame_t + shift
+
+    for the frames after the first. A fresh block is the identity (its
+    ``conv_out`` starts at zero: ``UNet3DConditionModel.zero_initialized``).
+    first [B, 1, H, W, C], post [B, F-1, H, W, C], temb [B, Ct] -> the fused
+    post frames."""
+
+    def __init__(self, channels: int, temb_channels: int = 1280, groups: int = 32,
+                 eps: float = 1e-6):
+        super().__init__()
+        C = channels
+        self.norm1 = FusedGroupNorm(2 * C, groups, eps, act="silu")
+        self.conv1 = Conv2d(2 * C, 3 * C, 1, 1, 0)
+        self.time_emb_proj = nn.Linear(temb_channels, 3 * C)
+        self.norm2 = FusedGroupNorm(3 * C, groups, eps, act="silu")
+        self.conv2 = Conv2d(3 * C, 3 * C, 1, 1, 0)
+        self.conv_shortcut = Conv2d(2 * C, 3 * C, 1, 1, 0)
+        self.conv_out = Conv2d(3 * C, 3 * C, 1, 1, 0)
+
+    def forward(self, first: torch.Tensor, post: torch.Tensor,
+                temb: torch.Tensor) -> torch.Tensor:
+        B, Fm1 = post.shape[:2]
+        rep_first = first.expand_as(post)
+        inp = torch.cat([rep_first, post], dim=-1).reshape((B * Fm1,) + post.shape[2:-1]
+                                                           + (2 * post.shape[-1],))
+        h = self.conv1(self.norm1(inp))
+        h = h + self.time_emb_proj(F.silu(temb.repeat_interleave(Fm1, dim=0)))[:, None, None, :]
+        h = self.conv_out(self.conv_shortcut(inp) + self.conv2(self.norm2(h)))
+        scale_1, scale_2, shift = h.reshape(post.shape[:-1] + (-1,)).chunk(3, dim=-1)
+        return scale_1 * rep_first + (1.0 + scale_2) * post + shift
+
+
 class BasicTransformerBlock(nn.Module):
     """diffusers BasicTransformerBlock (spatial): self attn, cross attn, ff.
     Each LayerNorm folds into the following projection (kernel K5), unless

@@ -15,7 +15,15 @@ and spatial extended attention are the JAX package's options of the same
 names; ``pab`` is a request's Pyramid Attention Broadcast cache
 (``pipelines/pab.py``). Not ported yet: the layer scan
 (``scan_identical_layers``, an XLA compile lever), the ``layer`` remat unit
-and the ``dots`` policy, first-frame fusion and the auxiliary q/k head.
+and the ``dots`` policy.
+
+``fuse_first_frame`` adds the first-frame fusion blocks (``down_fusers.0``
+after ``conv_in``, ``mid_fuser`` after the mid block); a SparseCtrl model's
+residuals come in as ``down_block_additional_residuals`` /
+``mid_block_additional_residual``; ``additional_channel > 0`` adds the
+auxiliary q/k head (``conv_auxiliary_{query,key}``, 1x1 convolutions over
+the last epi attention's query and gathered key maps), which training's
+epipolar loss reads through ``return_extras=True``.
 """
 from __future__ import annotations
 
@@ -23,12 +31,13 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cvd_tpu_torch.models.epi import EpiConditioning, EpiModule
 from cvd_tpu_torch.models.layers import (
-    Conv2d, Downsample2D, FusedGroupNorm, ResnetBlock2D, TimestepEmbedding,
+    Conv2d, Downsample2D, FusedGroupNorm, FusionBlock2D, ResnetBlock2D, TimestepEmbedding,
     Transformer2DModel, Upsample2D, sinusoidal_time_embedding,
 )
 from cvd_tpu_torch.models.motion import MotionModule
@@ -76,6 +85,12 @@ class UNetConfig:
     # IMAGE-LoRA rank (unet.py:1092), 4 being its training default
     sync_lora_rank: int = 0
     sync_lora_scale: float = 1.0
+    # first-frame feature fusion (reference unet.py:107,141-153; no released
+    # config sets it)
+    fuse_first_frame: bool = False
+    # output channels of the auxiliary q/k head for the epipolar training
+    # loss (reference unet.py:1429-1443); 0: no head
+    additional_channel: int = 0
 
 
 def _lora_rank(cfg: UNetConfig, channels: int) -> int:
@@ -143,7 +158,8 @@ class _Block(nn.Module):
     def layer(self, j: int, x: torch.Tensor, temb_f: torch.Tensor,
               context_f: Optional[torch.Tensor], pose_feature: Optional[torch.Tensor],
               epi_cond: Optional[EpiConditioning], lora_scale: float = 1.0,
-              pab=None) -> torch.Tensor:
+              pab=None, qk: Optional[list] = None) -> torch.Tensor:
+        """``qk``: a list that receives the epi attentions' q/k maps."""
         B = x.shape[0]
         h = self.resnets[j](_fold(x), temb_f)
         if self.attentions is not None:
@@ -152,8 +168,14 @@ class _Block(nn.Module):
         if self.motion_modules is not None:
             x = self.motion_modules[j](x, pose_feature, pab)
         if self.epi_modules is not None:
-            x = self.epi_modules[j](x, epi_cond, pab)
+            x = self.epi_modules[j](x, epi_cond, pab, qk)
         return x
+
+    def last_qk(self, want_qk: bool, j: int) -> Optional[list]:
+        """The list for layer ``j``'s q/k maps: the block's last layer's,
+        where they are wanted (the auxiliary head reads the last epi
+        attention of the UNet)."""
+        return [] if want_qk and j == len(self.resnets) - 1 else None
 
 
 class CrossAttnDownBlock(_Block):
@@ -164,15 +186,19 @@ class CrossAttnDownBlock(_Block):
         self.downsamplers = (nn.ModuleList([Downsample2D(channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None):
-        res_states = []
+    def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None,
+                want_qk=False):
+        """-> (x, the states the up path takes, the last layer's q/k maps
+        where ``want_qk``, else None)."""
+        res_states, qk = [], None
         for j in range(len(self.resnets)):
-            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab)
+            qk = self.last_qk(want_qk, j)
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk)
             res_states.append(x)
         if self.downsamplers is not None:
             x = _unfold(self.downsamplers[0](_fold(x)), x.shape[0])
             res_states.append(x)
-        return x, res_states
+        return x, res_states, qk
 
 
 class MidBlock(_Block):
@@ -180,9 +206,11 @@ class MidBlock(_Block):
         super().__init__(cfg, [channels], channels, temb_dim, True, use_motion, use_epi)
         self.resnets.append(ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups))
 
-    def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None):
-        x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab)
-        return _unfold(self.resnets[1](_fold(x), temb_f), x.shape[0])
+    def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None,
+                want_qk=False):
+        qk = [] if want_qk else None
+        x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk)
+        return _unfold(self.resnets[1](_fold(x), temb_f), x.shape[0]), qk
 
 
 class CrossAttnUpBlock(_Block):
@@ -193,13 +221,15 @@ class CrossAttnUpBlock(_Block):
         self.upsamplers = nn.ModuleList([Upsample2D(channels)]) if add_upsample else None
 
     def forward(self, x, res_states, temb_f, context_f, pose_feature, epi_cond,
-                lora_scale=1.0, pab=None):
+                lora_scale=1.0, pab=None, want_qk=False):
+        qk = None
         for j in range(len(self.resnets)):
+            qk = self.last_qk(want_qk, j)
             x = torch.cat([x, res_states[-1 - j]], dim=-1)
-            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab)
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk)
         if self.upsamplers is not None:
             x = _unfold(self.upsamplers[0](_fold(x)), x.shape[0])
-        return x
+        return x, qk
 
 
 class UNet3DConditionModel(nn.Module):
@@ -212,6 +242,9 @@ class UNet3DConditionModel(nn.Module):
         temb_dim = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
         self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, 1, 1)
+
+        if cfg.fuse_first_frame:
+            self.down_fusers = nn.ModuleList([FusionBlock2D(ch[0], temb_dim)])
 
         res_channels: List[int] = [ch[0]]
         down = []
@@ -227,6 +260,8 @@ class UNet3DConditionModel(nn.Module):
         self.mid_block = MidBlock(cfg, ch[-1], temb_dim,
                                   cfg.use_motion_module and cfg.motion_module_mid_block,
                                   cfg.use_epi_module and cfg.epi_module_mid_block)
+        if cfg.fuse_first_frame:
+            self.mid_fuser = FusionBlock2D(ch[-1], temb_dim)
         rev = list(reversed(ch))
         up, cur = [], rev[0]
         for i, c in enumerate(rev):
@@ -243,14 +278,24 @@ class UNet3DConditionModel(nn.Module):
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = FusedGroupNorm(ch[0], cfg.norm_num_groups, 1e-5, act="silu")
         self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, 1, 1)
+        # the position, in the order of the call (down blocks, mid, up
+        # blocks), of the block that runs the last epi module
+        blocks = [*self.down_blocks, self.mid_block, *self.up_blocks]
+        with_epi = [i for i, b in enumerate(blocks) if b.epi_modules is not None]
+        self._last_epi_block = with_epi[-1] if with_epi else -1
+        if cfg.additional_channel > 0 and with_epi:
+            c = blocks[with_epi[-1]].resnets[0].conv1.out_channels
+            self.conv_auxiliary_query = Conv2d(c, cfg.additional_channel, 1, 1, 0)
+            self.conv_auxiliary_key = Conv2d(c, cfg.additional_channel, 1, 1, 0)
 
     def zero_initialized(self) -> List[str]:
         """Names of the parameters a fresh model starts at zero: the pose
         merge layers (``qkv_merge``; biases start at zero anyway), the ``up``
-        of every LoRA delta (image and sync), the epi modules' ``proj_out``
-        with ``epi_zero_initialize`` and the motion modules' with
-        ``motion_zero_initialize``."""
-        ends = ["qkv_merge.weight", "_lora.up.weight", "_lora_sync.up.weight"]
+        of every LoRA delta (image and sync), the first-frame fusion blocks'
+        ``conv_out``, the epi modules' ``proj_out`` with ``epi_zero_initialize``
+        and the motion modules' with ``motion_zero_initialize``."""
+        ends = ["qkv_merge.weight", "_lora.up.weight", "_lora_sync.up.weight",
+                "down_fusers.0.conv_out.weight", "mid_fuser.conv_out.weight"]
         if self.config.epi_zero_initialize:
             ends.append("epi_transformer.proj_out.weight")
         if self.config.motion_zero_initialize:
@@ -267,11 +312,23 @@ class UNet3DConditionModel(nn.Module):
         remat: bool = False,
         lora_scale: float = 1.0,
         pab=None,
-    ) -> torch.Tensor:
+        down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
+        mid_block_additional_residual: Optional[torch.Tensor] = None,
+        return_extras: bool = False,
+    ):
         """``remat``: recompute each block's activations in the backward
         instead of keeping them (only while autograd records).
         ``lora_scale``: the image LoRA's scale for this call. ``pab``: the
-        request's PAB cache, its reuse flags set for this call."""
+        request's PAB cache, its reuse flags set for this call. The two
+        residual inputs (a SparseCtrl model's outputs, [B, F, h, w, c] each)
+        are added to the down path's states after the down blocks and to the
+        mid block's output after its fuser. ``return_extras``: return
+        (out, {"auxiliary", "epi_qk"}) instead of out: the auxiliary head's
+        [B, F, s, s, 2 * additional_channel] (query channels, then key; None
+        without the head) and the q/k maps of the last epi module's
+        attentions (the JAX package lists every epi attention's; its head
+        reads the last)."""
+        cfg = self.config
         B, Fr = sample.shape[:2]
         recompute = remat and torch.is_grad_enabled()
 
@@ -284,24 +341,58 @@ class UNet3DConditionModel(nn.Module):
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(B)
-        t_emb = sinusoidal_time_embedding(timesteps, self.config.block_out_channels[0])
-        temb_f = self.time_embedding(t_emb.to(dtype)).repeat_interleave(Fr, dim=0)
+        t_emb = sinusoidal_time_embedding(timesteps, cfg.block_out_channels[0])
+        temb = self.time_embedding(t_emb.to(dtype))
+        temb_f = temb.repeat_interleave(Fr, dim=0)
         context_f = encoder_hidden_states.to(dtype).repeat_interleave(Fr, dim=0)
         if pose_features is None:
             pose_features = [None] * 4
 
+        def fuse(fuser, x):
+            return torch.cat([x[:, :1], fuser(x[:, :1], x[:, 1:], temb)], dim=1)
+
+        def want(position):
+            return return_extras and position == self._last_epi_block
+
+        qk = None
         x = _unfold(self.conv_in(_fold(sample.to(dtype))), B)
+        if cfg.fuse_first_frame:
+            x = fuse(self.down_fusers[0], x)
         res_stack = [x]
         for i, block in enumerate(self.down_blocks):
-            x, res = run(block, x, temb_f, context_f, pose_features[i], epi_cond,
-                         lora_scale, pab)
+            x, res, maps = run(block, x, temb_f, context_f, pose_features[i], epi_cond,
+                               lora_scale, pab, want(i))
             res_stack += res
-        x = run(self.mid_block, x, temb_f, context_f, pose_features[-1], epi_cond,
-                lora_scale, pab)
+            qk = maps or qk
+        if down_block_additional_residuals is not None:
+            res_stack = [r + extra.to(r.dtype)
+                         for r, extra in zip(res_stack, down_block_additional_residuals)]
+        x, maps = run(self.mid_block, x, temb_f, context_f, pose_features[-1], epi_cond,
+                      lora_scale, pab, want(len(self.down_blocks)))
+        qk = maps or qk
+        if cfg.fuse_first_frame:
+            x = fuse(self.mid_fuser, x)
+        if mid_block_additional_residual is not None:
+            x = x + mid_block_additional_residual.to(x.dtype)
         for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
             res, res_stack = res_stack[-n:], res_stack[:-n]
-            x = run(block, x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond,
-                    lora_scale, pab)
+            x, maps = run(block, x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond,
+                          lora_scale, pab, want(len(self.down_blocks) + 1 + i))
+            qk = maps or qk
         h = self.conv_norm_out(_fold(x))
-        return _unfold(self.conv_out(h), B)
+        out = _unfold(self.conv_out(h), B)
+        if not return_extras:
+            return out
+        auxiliary = None
+        if cfg.additional_channel > 0 and qk:
+            # 1x1 convolutions over the token maps, weights cast at use (f32
+            # masters in training)
+            q, k = qk[-1]["query"], qk[-1]["key"]
+            s = int(round(q.shape[1] ** 0.5))
+            heads = [F.linear(t, conv.weight.reshape(conv.out_channels, -1).to(t.dtype),
+                              conv.bias.to(t.dtype)).reshape(B, Fr, s, s, -1)
+                     for t, conv in ((q, self.conv_auxiliary_query),
+                                     (k, self.conv_auxiliary_key))]
+            auxiliary = torch.cat(heads, dim=-1)
+        return out, {"auxiliary": auxiliary, "epi_qk": qk}

@@ -82,6 +82,11 @@ class PipelineModules:
     clip: CLIPTextEncoder
     pose_encoder: CameraPoseEncoder
     scheduler: DDIMScheduler
+    # an optional SparseCtrl model (``models/sparse_controlnet.py``), set by
+    # ``cli/build.py --controlnet_ckpt``; its residuals go into the UNet's
+    # down / mid additional-residual inputs. No pipeline consumes it, as in
+    # the JAX package (common.py:38-41)
+    controlnet: Optional[nn.Module] = None
 
     @classmethod
     def create(

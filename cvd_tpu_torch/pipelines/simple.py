@@ -91,8 +91,11 @@ class SimplePipeline:
 
         uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
         text = torch.cat([uncond, cond, uncond, cond], dim=0).to(dtype)
+        # the pose encoder in its own dtype: a training bundle's (validation)
+        # differs from the UNet's bf16 frozen weights
+        pose_dtype = m.pose_encoder.encoder_conv_in.weight.dtype
         pose_feats = [_cfg4(p.to(dtype)) for p in
-                      m.pose_encoder(plucker.to(device=device, dtype=dtype))]
+                      m.pose_encoder(plucker.to(device=device, dtype=pose_dtype))]
         F4 = _cfg4(F_mats.to(device=device, dtype=torch.float32))     # [4, F, 3, 3]
 
         def window_cond(start: int):

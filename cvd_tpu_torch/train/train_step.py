@@ -4,21 +4,23 @@
 
 encode (VAE, frozen, frame chunks of 8) -> noise + per-video timesteps ->
 ``add_noise`` -> frozen CLIP and pose encoder -> UNet with the epipolar
-conditioning (one first-frame slope per step) -> f32 MSE against the noise
--> backward into the trainable set -> clip, AdamW, LR schedule. The image
+conditioning (one first-frame slope per step) -> f32 MSE against the noise,
+plus ``epi_loss_weight`` times the epipolar distance loss of the auxiliary
+q/k head where the UNet has one (``additional_channel > 0``) -> backward
+into the trainable set -> clip, AdamW, LR schedule. The image
 LoRA, where the UNet has one, runs at scale 1: these are posed batches
 (the JAX package sets it to 0 only for unposed ones, train_step.py:84-91).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from cvd_tpu_torch.models.epi import EpiConditioning
 from cvd_tpu_torch.pipelines.common import VAE_SCALE, PipelineModules, encode_images
-from cvd_tpu_torch.train.losses import masked_mse_loss
+from cvd_tpu_torch.train.losses import epi_distance_loss, masked_mse_loss
 from cvd_tpu_torch.train.state import TrainState
 
 
@@ -39,9 +41,13 @@ def loss_and_grads(
     rand_slope_ff: bool = True,
     num_train_timesteps: int = 1000,
     remat: bool = True,
-) -> torch.Tensor:
-    """The step's loss, after its backward has left the gradients in the
-    trainable parameters' ``.grad``.
+    epi_loss_weight: float = 0.002,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the step's loss, its epipolar distance loss), after the backward has
+    left the gradients in the trainable parameters' ``.grad``. The loss is
+    the MSE plus ``epi_loss_weight`` times the epipolar loss; without the
+    auxiliary head the epipolar loss is 0 and weighs nothing (as in the JAX
+    package, train_step.py:139-147).
 
     batch (leading dim = 2 * folded pairs, video-major as the reference's
     ``torch.cat(x.chunk(2, dim=1))``, train_epi_control.py:516):
@@ -87,20 +93,28 @@ def loss_and_grads(
     # one first-frame slope per step, drawn here: a remat replay of a block
     # must rebuild the lines the loss saw (JAX fixes slope_key per step)
     slope = (_draw(torch.rand, (1,), generator, device) * math.pi if rand_slope_ff else None)
-    epi_cond = EpiConditioning(
-        F_mats=batch["F_mats"].to(device=device, dtype=torch.float32).reshape(B * F, 3, 3),
-        F_mat_size=F_mat_size, video_length=F, rand_slope_ff=rand_slope_ff, slope=slope)
-    pred = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=remat, lora_scale=1.0)
-    loss = masked_mse_loss(pred.float(), noise)
+    F_mats = batch["F_mats"].to(device=device, dtype=torch.float32).reshape(B * F, 3, 3)
+    epi_cond = EpiConditioning(F_mats=F_mats, F_mat_size=F_mat_size, video_length=F,
+                               rand_slope_ff=rand_slope_ff, slope=slope)
+    epi_loss = torch.zeros((), device=device)
+    if unet.config.additional_channel > 0:
+        pred, extras = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=remat,
+                            lora_scale=1.0, return_extras=True)
+        loss = masked_mse_loss(pred.float(), noise)
+        if extras["auxiliary"] is not None:
+            epi_loss = epi_distance_loss(extras["auxiliary"], F_mats, F_mat_size)
+            loss = loss + epi_loss_weight * epi_loss
+    else:
+        pred = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=remat, lora_scale=1.0)
+        loss = masked_mse_loss(pred.float(), noise)
     loss.backward()
-    return loss.detach()
+    return loss.detach(), epi_loss.detach()
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], modules: PipelineModules,
                generator: Optional[torch.Generator] = None, **kwargs) -> Dict[str, float]:
     """One optimization step (``loss_and_grads`` + clip + AdamW); updates
-    ``state`` in place. Returns {"loss", "epi_loss", "grad_norm"}; the epi
-    loss is 0 while the auxiliary q/k head is not ported."""
-    loss = loss_and_grads(state, batch, modules, generator, **kwargs)
+    ``state`` in place. Returns {"loss", "epi_loss", "grad_norm"}."""
+    loss, epi_loss = loss_and_grads(state, batch, modules, generator, **kwargs)
     grad_norm = state.apply_gradients()
-    return {"loss": float(loss), "epi_loss": 0.0, "grad_norm": float(grad_norm)}
+    return {"loss": float(loss), "epi_loss": float(epi_loss), "grad_norm": float(grad_norm)}

@@ -1,6 +1,6 @@
 """Video export (port of ``cvd_tpu/utils/video.py``). Videos are always
-written as a uint8 ``.npy``; mp4 and png files are written only where
-``imageio`` is installed."""
+written as a uint8 ``.npy``; mp4 / gif and png files are written only where
+``imageio`` is installed (an mp4 becomes a gif without an ffmpeg plugin)."""
 from __future__ import annotations
 
 import importlib.util
@@ -31,6 +31,9 @@ def save_video(video: np.ndarray, path: str, fps: int = 8) -> None:
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     frames = [to_uint8(f) for f in video]
+    if path.endswith(".gif"):
+        imageio.mimsave(path, frames, duration=1000 / fps, loop=0)
+        return
     try:
         imageio.mimsave(path, frames, fps=fps)
     except (ValueError, RuntimeError, ImportError):

@@ -115,7 +115,7 @@ NOWHERE = dict(ori_model_path="/nonexistent/sd", motion_module_ckpt="/nonexisten
 
 # the options of REFUSED that are ported now: each is taken, and reaches the model
 PORTED = ("image_lora_ckpt", "image_lora_rank", "sync_lora_rank", "sync_lora_scale",
-          "spatial_extended_attention")
+          "spatial_extended_attention", "controlnet_ckpt", "controlnet_simplified_embedding")
 
 
 def _check_ported(paths, tmp_path, name, value):
@@ -130,7 +130,16 @@ def _check_ported(paths, tmp_path, name, value):
         lora = {k: torch.randn(v.shape, generator=g) for k, v in shapes.items() if "_lora." in k}
         value = str(tmp_path / "lora.ckpt")
         torch.save({"lora_state_dict": lora}, value)
-    unet = _build(paths, **{name: value}).unet
+    if name == "controlnet_ckpt":   # a SparseCtrl file of the pyramid layout, drawn
+        from cvd_tpu_torch.models.sparse_controlnet import SparseControlNetModel
+        from cvd_tpu_torch.pipelines.common import random_init_
+
+        sparsectrl = random_init_(SparseControlNetModel(SMOKE_WIDTHS[0]),
+                                  torch.Generator().manual_seed(6)).state_dict()
+        value = str(tmp_path / "sparsectrl.ckpt")
+        torch.save(sparsectrl, value)
+    modules = _build(paths, **{name: value})
+    unet = modules.unet
     sd = unet.state_dict()
     has_lora = any("_lora." in k for k in sd)
     has_sync = any("_lora_sync." in k for k in sd)
@@ -144,6 +153,12 @@ def _check_ported(paths, tmp_path, name, value):
         assert unet.config.spatial_extended_attention and not has_lora
         blk = unet.down_blocks[0].attentions[0].transformer_blocks[0]
         assert blk.extended_attention and not blk.fused
+    elif name == "controlnet_ckpt":    # built beside the UNet from the file
+        got = modules.controlnet.state_dict()
+        assert set(got) == set(sparsectrl)
+        assert all(torch.equal(got[k], v) for k, v in sparsectrl.items())
+    elif name == "controlnet_simplified_embedding":   # the layout, without a file: no model
+        assert modules.controlnet is None and not has_lora and not has_sync
     else:   # the image LoRA's rank without its file, sync scale 0 without a rank: no-ops
         assert not has_lora and not has_sync
 
@@ -233,10 +248,12 @@ def test_entry_points_refuse_unported_options_first(entry, tmp_path):
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if entry == "inference":
-            inference.main(_inference_args(NOWHERE, out, controlnet_ckpt="/nonexistent/c.ckpt",
+            inference.main(_inference_args(NOWHERE, out,
+                                           civitai_base_model="/nonexistent/m.safetensors",
                                            caption_file="/nonexistent/prompts.json"))
         elif entry == "inference_advanced":
-            inference_advanced.main(_advanced_args(NOWHERE, out, controlnet_ckpt="/nonexistent/c",
+            inference_advanced.main(_advanced_args(NOWHERE, out,
+                                                   civitai_base_model="/nonexistent/m",
                                                    caption_file="/nonexistent/prompts.json"))
         else:
             train.run(_train_cfg(NOWHERE, out, civitai_base_model="/nonexistent/m.safetensors"))

@@ -214,16 +214,34 @@ _LORA_CASES = {
 
 @pytest.mark.parametrize("artifact", ["sd15_unet", "motion_module", "epi_module",
                                       "attention_processor", "sd15_vae", "sd15_clip",
-                                      "pose_encoder", *_LORA_CASES])
+                                      "pose_encoder", *_LORA_CASES, "sparsectrl",
+                                      "sparsectrl_simplified"])
 def test_manifest_keys_are_the_ports_state_dict_keys(artifact, full_size):
     """Every key of the manifest, after its rename, is a key of the port's
     full-size ``state_dict()`` with the same shape, or a named skipped
     buffer: held key by key, not through the importer. The sync-LoRA (ranks
     4 and 32) and the image LoRA (``--image_lora_rank 2``) against a
-    ``meta`` UNet built with them, which has no other LoRA key."""
+    ``meta`` UNet built with them, which has no other LoRA key; SparseCtrl
+    (both layouts) against a ``meta`` ``SparseControlNetModel`` of the same
+    layout, which the file fills whole."""
     from cvd_tpu_torch.io import manifests as M
     from cvd_tpu_torch.io.checkpoints import SKIP_SUBSTRINGS
+    from cvd_tpu_torch.models.sparse_controlnet import SparseControlNetModel
     from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
+
+    if artifact.startswith("sparsectrl"):
+        simplified = artifact.endswith("simplified")
+        manifest = M.animatediff_sparsectrl_manifest(simplified)
+        with torch.device("meta"):
+            sd = SparseControlNetModel(conditioning_channels=4 if simplified else 3,
+                                       use_simplified_condition_embedding=simplified).state_dict()
+        assert len(manifest) == (486 if simplified else 500)
+        params = {k: s for k, s in manifest.items() if "pos_encoder" not in k}
+        assert len(manifest) - len(params) == 8   # one PE buffer a motion module
+        assert set(sd) == set(params)
+        for key, shape in params.items():
+            assert tuple(sd[key].shape) == tuple(shape), key
+        return
 
     if artifact in _LORA_CASES:
         fn, args, options, n_keys = _LORA_CASES[artifact]
@@ -740,10 +758,26 @@ def test_model_config_sets_what_the_yaml_says(tmp_path):
     assert cfg.motion_zero_initialize and cfg.epi_module_resolutions == (1, 2)
     assert cfg.pose_scale == 0.5 and pose["temporal_pe_max_len"] == 24
     assert sched.beta_schedule == "scaled_linear" and sched.clip_sample
+    # the auxiliary q/k head: built from the yaml, its keys load from an epi
+    # checkpoint (training writes them there) and nowhere else
+    from cvd_tpu_torch.io.checkpoints import load_epi_module_weights
+    from cvd_tpu_torch.models.unet import UNet3DConditionModel
+
     raw["unet_additional_kwargs"]["additional_channel"] = 4
     path.write_text(yaml.safe_dump(raw))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_model_config(str(path))
+    cfg, _, _, _ = load_model_config(str(path), base=SMOKE_UNET)
+    assert cfg.additional_channel == 4
+    unet = UNet3DConditionModel(cfg)
+    head = {k: torch.randn(v.shape) for k, v in unet.state_dict().items() if "auxiliary" in k}
+    assert sorted(head) == ["conv_auxiliary_key.bias", "conv_auxiliary_key.weight",
+                            "conv_auxiliary_query.bias", "conv_auxiliary_query.weight"]
+    assert head["conv_auxiliary_query.weight"].shape == (4, 32, 1, 1)
+    ckpt = tmp_path / "epi.ckpt"
+    torch.save({"epoch": 0, "global_step": 1, "unet_trainable_dict": head}, ckpt)
+    assert sorted(load_epi_module_weights(unet, str(ckpt))) == sorted(head)
+    assert all(torch.equal(unet.state_dict()[k], v) for k, v in head.items())
+    with pytest.raises(KeyError, match="conv_auxiliary"):
+        load_epi_module_weights(UNet3DConditionModel(SMOKE_UNET), str(ckpt))
 
 
 @pytest.mark.parametrize("fields", [

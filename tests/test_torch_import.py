@@ -1,6 +1,6 @@
 """cvd_tpu_torch imports torch and numpy only: never jax, flax or cvd_tpu,
-and ``safetensors`` / ``transformers`` (which a GPU machine may lack) only
-inside the functions that need them."""
+and ``safetensors`` / ``transformers`` / ``matplotlib`` / ``imageio`` (which a
+GPU machine may lack) only inside the functions that need them."""
 import os
 import subprocess
 import sys
@@ -17,10 +17,12 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cvd_tpu"))
 assert not bad, bad
 assert "triton" not in sys.modules, "triton must be imported only at kernel launch"
-lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("safetensors", "transformers"))
+lazy = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("safetensors", "transformers", "matplotlib", "imageio"))
 assert not lazy, lazy
 for new in ("io.manifests", "io.torch_io", "io.checkpoints", "io.model_config", "io.lora",
-            "io.tokenizer", "cli.build", "cli.merge_lora", "pipelines.pab"):
+            "io.tokenizer", "cli.build", "cli.merge_lora", "pipelines.pab",
+            "models.sparse_controlnet", "data.latents_cache", "utils.visualize"):
     assert "cvd_tpu_torch." + new in names, new
 # the port's own copy of the PAB schedules, not a re-export of cvd_tpu's
 assert sys.modules["cvd_tpu_torch.pipelines.pab"].__file__.endswith(

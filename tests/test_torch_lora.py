@@ -258,9 +258,9 @@ def test_train_step_with_both_loras_matches_jax(jax_bundle, port_bundle):
     before = {n: p.detach().clone() for n, p in unet.named_parameters()}
     state = create_train_state(unet, learning_rate=1e-3)
     try:
-        loss = loss_and_grads(state, {k: t(v) for k, v in _batch().items()}, port_bundle,
-                              noise=t(noise), timesteps=t(timesteps), F_mat_size=256,
-                              rand_slope_ff=False, remat=True)
+        loss, _ = loss_and_grads(state, {k: t(v) for k, v in _batch().items()}, port_bundle,
+                                 noise=t(noise), timesteps=t(timesteps), F_mat_size=256,
+                                 rand_slope_ff=False, remat=True)
         assert abs(float(loss) - float(metrics["loss"])) <= 1e-5 * abs(float(metrics["loss"]))
         params = dict(unet.named_parameters())
         sync = [n for n in state.trainable if "_lora_sync." in n]

@@ -139,7 +139,8 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
     assert all(int(s["step"]) == 3 for s in opt.values())
 
 
-PORTED = ("sync_lora_rank", "epi_loss_weight", "lora_rank", "sync_lora_scale")
+PORTED = ("sync_lora_rank", "epi_loss_weight", "lora_rank", "sync_lora_scale",
+          "cache_latents", "validation_steps", "validation_data")
 
 
 @pytest.mark.parametrize("override", [
@@ -159,7 +160,9 @@ def test_unported_options_raise(tmp_path, re10k_root, override):
     trainable set where a rank asks for it (lora_rank alone is the image
     LoRA's rank, which needs its file; epi_loss_weight weighs a loss no
     config with additional_channel 0 has; a sync scale without a rank is
-    off), as in cvd_tpu."""
+    off), as in cvd_tpu; the latents cache is built and trained from;
+    validation every 10 steps does not run in one step, and its data alone
+    is read only when it runs."""
     from cvd_tpu_torch.cli import train
 
     key = next(iter(override))
@@ -169,6 +172,10 @@ def test_unported_options_raise(tmp_path, re10k_root, override):
         assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
         sync = [n for n in out["state"].trainable if "_lora_sync." in n]
         assert bool(sync) == (key == "sync_lora_rank")
+        cache = out["latents_cache"]
+        assert (cache is not None and cache["built"] and cache["items"] == 1) == (
+            key == "cache_latents")
+        assert not (tmp_path / "run" / "validation").exists()
         return
     cfg = _config(tmp_path, "/nonexistent")
     cfg.update(override)
