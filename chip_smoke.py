@@ -136,10 +136,31 @@ Phases (any failure raises and exits non-zero):
    and phase 7's (no cache, no head), the cache's seconds per item, the peak
    memory.
 
+11. training: (a) one unposed training step of the narrow UNet (H mats of a
+   random homography, one slope per row, warped masks, an image LoRA at
+   scale 0) at 256 px, remat on, card vs CPU from the same weights, batch,
+   noise, timesteps and slopes: loss to 1e-5 relative, trainable gradients
+   at >= 60 dB, none zero on the card, K1-K7 launched; (b)
+   ``cli.train.run`` on hybrid data (posed_ratio 0.5: phase 7's seeded
+   pairs and seeded frames made into pseudo-pairs by
+   ``data.webvid.homography_pair``) at SD1.5 width, bf16 frozen, 256 px, 16
+   frames, 6 steps, remat on, ``worker_type: process`` with 2 workers:
+   finite losses, both kinds drawn, K1 and K6 launched on the unposed
+   steps, frozen weights bit-identical to a fresh build's, trainable ones
+   moved; s/step and launches per step of each kind; (c) with that model,
+   two gradient computations (no update) on one posed batch for remat off,
+   ``block`` with ``""``, ``dots``, ``dots_no_batch`` and ``dots_small``, and
+   ``layer`` with ``""``: peak memory, s/step, launches per step, gradients
+   at >= 60 dB against ``block ""``; (d) two steps of ``run`` at (b)'s size
+   (SD1.5 width, bf16 frozen, 256 px, 16 frames, remat on) with
+   ``multihost`` as a world of one over NCCL: the losses bit for bit those of
+   the same run without it, the peak memory of each, the process group
+   destroyed.
+
 The second-to-last line is the per-kernel JSON record (times, bound,
 library yardstick, launches summed over the main paths and per UNet step or
-call of each sampler and per training step, and each path of phases 9 and
-10); the last line is ``{"ok": true, "device": {...}}``.
+call of each sampler and per training step, and each path of phases 9, 10
+and 11); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2168,6 +2189,347 @@ def phase_train(torch, profile: bool):
     return launches, steps, secs[1:]
 
 
+class _SeededFrames:
+    """In-memory unposed clips: frames uniform in [-1, 1] from the item's
+    seed made into a pseudo-pair by the port's homography pair-maker
+    (``data.webvid.homography_pair``, the homography from ``random.Random``
+    of the item), captions from assets/example_prompts.json."""
+
+    def __init__(self, n_items: int, n_frames: int, size: int, seed: int = 100):
+        from cvd_tpu_torch.cli.inference import load_prompts
+
+        self.captions = load_prompts(os.path.join(HERE, "assets", "example_prompts.json"),
+                                     False)[0]
+        self.n_items, self.shape, self.seed = n_items, (n_frames, size, size, 3), seed
+
+    def __len__(self):
+        return self.n_items
+
+    def __getitem__(self, i):
+        import random
+
+        import numpy as np
+
+        from cvd_tpu_torch.data.webvid import homography_pair
+
+        rng = np.random.default_rng(self.seed + int(i))
+        frames = rng.uniform(-1.0, 1.0, self.shape).astype(np.float32)
+        return {**homography_pair(frames, random.Random(self.seed + int(i))),
+                "text": self.captions[int(i) % len(self.captions)]}
+
+
+def _unposed_batch(torch, np, Fr, S, seed):
+    """A pre-encoded unposed training batch: latents, text ids, the H mats of
+    one random homography (H, then H^-1), warped masks."""
+    import random
+
+    from cvd_tpu_torch.data.webvid import random_homography
+
+    rng = np.random.default_rng(seed)
+    H = random_homography(random.Random(seed), S)
+    H_mats = np.stack([H] * Fr + [np.linalg.inv(H)] * Fr).astype(np.float32)
+    return {
+        "latents": torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4))
+                                    .astype(np.float32)),
+        "text_ids": torch.from_numpy(rng.integers(0, 49408, (2, 77))),
+        "H_mats": torch.from_numpy(H_mats.reshape(2, Fr, 3, 3)),
+        "warped_masks": torch.from_numpy((rng.random((2, Fr, S // 8, S // 8, 1)) > 0.2)
+                                         .astype(np.float32)),
+    }
+
+
+def _training_reference(torch, np):
+    """(a) one unposed step of the narrow UNet (with an image LoRA, which
+    runs at scale 0) at 256 px, card vs CPU from the same weights, batch,
+    noise, timesteps and per-row slopes, remat on."""
+    import dataclasses
+
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.train.state import create_train_state
+    from cvd_tpu_torch.train.train_step import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Fr, S = 2, 256
+    batch = _unposed_batch(torch, np, Fr, S, seed=4)
+    rng = np.random.default_rng(5)
+    pinned = dict(noise=torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4))
+                                         .astype(np.float32)),
+                  timesteps=torch.from_numpy(np.array([333, 912])),
+                  slope=torch.from_numpy(rng.uniform(0, np.pi, 2 * Fr).astype(np.float32)),
+                  F_mat_size=S, remat=True)
+    unet_cfg = dataclasses.replace(SMOKE_UNET, spatial_lora_rank=2)
+    cpu = PipelineModules.create(unet_cfg, SMOKE_VAE, SMOKE_CLIP, device="cpu",
+                                 generator=torch.Generator().manual_seed(6), random_full=True)
+    gpu = PipelineModules.create(unet_cfg, SMOKE_VAE, SMOKE_CLIP, device="cuda")
+    for name in ("unet", "clip", "pose_encoder"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    wrappers = _wrappers()
+    results = []
+    for m in (cpu, gpu):
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        state = create_train_state(m.unet)
+        loss, _ = loss_and_grads(state, batch, m, **pinned)
+        params = dict(m.unet.named_parameters())
+        grads = {n: params[n].grad.detach().cpu().numpy() for n in state.trainable}
+        results.append((float(loss), grads,
+                        sorted(n for n, fn in wrappers.items() if fn.launches > before[n])))
+    (want_loss, want, _), (got_loss, got, used) = results
+    ref = np.concatenate([want[n].ravel() for n in want])
+    err = np.concatenate([got[n].ravel() for n in want]) - ref
+    snr = 10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-30))
+    zero = sorted(n for n, g in got.items() if not np.any(g))
+    rel = abs(got_loss - want_loss) / abs(want_loss)
+    log(f"[training] (a) narrow UNet unposed step 256 px f32 (H mats, per-row slopes, warped "
+        f"masks, image LoRA at scale 0), remat on: loss card {got_loss:.7f} CPU "
+        f"{want_loss:.7f} (rel {rel:.1e}); trainable gradients ({len(want)} tensors) SNR "
+        f"{snr:.1f} dB; zero on the card: {len(zero)} (kernels used: {', '.join(used)})")
+    missing = [n for n in KERNELS if n not in used]
+    if not (rel <= 1e-5 and snr >= 60.0) or zero or missing:
+        raise RuntimeError(f"unposed train step card vs CPU: loss rel {rel:.1e}, SNR "
+                           f"{snr:.1f} dB, zero gradients {zero[:5]}, kernels not launched "
+                           f"{missing}")
+
+
+def _training_hybrid(torch, np, wrappers):
+    """(b) ``cli.train.run`` on hybrid data at SD1.5 width with process
+    workers. -> (launches, steps, per-kind launches per step, the run's
+    result)."""
+    from cvd_tpu_torch.cli import train
+    from cvd_tpu_torch.train import train_step as ts
+    from cvd_tpu_torch.train.state import create_train_state
+
+    steps, Fr, S = 6, 16, 256
+    cfg = dict(random_weights_full=True, bf16=True, sample_size=S, sample_n_frames=Fr,
+               train_batch_size=1, max_train_steps=steps, num_workers=2, worker_type="process",
+               remat=True, do_sanity_check=True, logger_interval=1, checkpointing_steps=10 ** 9,
+               global_seed=42, output_dir=os.path.join(HERE, "build", "chip_smoke_training"),
+               train_data=dict(dataset_name="hybrid", posed_ratio=0.5))
+    ratio = cfg["train_data"]["posed_ratio"]
+    sources = [("posed", _SeededPairs(4, Fr, S), ratio),
+               ("unposed", _SeededFrames(4, Fr, S), 1.0 - ratio)]
+    per_kind = {"posed": [], "unposed": []}
+    real = ts.train_step
+
+    def watched(state, batch, *a, **kw):
+        """the loop's train_step, its launches and seconds kept per kind"""
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        out = real(state, batch, *a, **kw)
+        torch.cuda.synchronize()
+        per_kind["unposed" if "H_mats" in batch else "posed"].append(
+            (time.perf_counter() - t0, {n: w.launches - before[n] for n, w in wrappers.items()}))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    ts.train_step = watched
+    t0 = time.perf_counter()
+    try:
+        res = train.run(cfg, sources=sources)
+    finally:
+        ts.train_step = real
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses, kinds = res["losses"], res["kinds"]
+    means = {}
+    for kind, rows in per_kind.items():
+        if rows:
+            steady = sorted(t for t, _ in rows[1:]) or [rows[0][0]]
+            means[kind] = {n: sum(c[n] for _, c in rows) / len(rows) for n in wrappers}
+            log(f"[training] (b) {kind} steps: {len(rows)}, s/step "
+                f"[{', '.join(f'{t:.3f}' for t, _ in rows)}] (median after the first "
+                f"{steady[len(steady) // 2]:.3f} s), launches per step {means[kind]}")
+    log(f"[training] (b) hybrid run (posed_ratio {ratio}) at SD1.5 width, bf16 frozen, {S} px, "
+        f"{Fr} frames, remat on, process workers x{cfg['num_workers']}: {steps} steps in "
+        f"{seconds:.2f} s (module build included), kinds {kinds}, losses "
+        f"[{', '.join(f'{x:.5f}' for x in losses)}], peak allocated {peak / 2**30:.2f} GiB, "
+        f"launches {launches}")
+    unposed = means.get("unposed", {})
+    if (len(losses) != steps or not all(math.isfinite(x) for x in losses)
+            or set(kinds) != {"posed", "unposed"} or not unposed
+            or unposed["epi_flash_attention"] == 0 or unposed["epi_flash_attention_bwd"] == 0
+            or [n for n in KERNELS if launches[n] == 0]):
+        raise RuntimeError(f"hybrid run: losses {losses}, kinds {kinds}, unposed launches "
+                           f"{unposed}, launches {launches}")
+    # the frozen weights bit-identical to a fresh build's, the trainable ones moved
+    init, _ = train.build_training_modules(cfg, torch.device("cuda"))
+    create_train_state(init.unet, frozen_dtype=torch.bfloat16)
+    now = dict(res["state"].model.named_parameters())
+    trainable = set(res["state"].trainable)
+    moved = sum(not torch.equal(p, now[n]) for n, p in init.unet.named_parameters()
+                if n in trainable)
+    changed = [n for n, p in init.unet.named_parameters()
+               if n not in trainable and not torch.equal(p, now[n])]
+    log(f"[training] (b) trainable tensors moved {moved}/{len(trainable)}, frozen tensors "
+        f"changed {len(changed)}/{len(now) - len(trainable)}")
+    del init
+    if moved != len(trainable) or changed:
+        raise RuntimeError(f"hybrid run: trainable moved {moved}/{len(trainable)}, frozen "
+                           f"changed {changed[:5]}")
+    return launches, steps, means, res
+
+
+# (name, remat_unit or None for remat off, remat_policy)
+REMAT_SETTINGS = (("off", None, ""), ('block ""', "block", ""), ("block dots", "block", "dots"),
+                  ("block dots_no_batch", "block", "dots_no_batch"),
+                  ("block dots_small", "block", "dots_small"), ('layer ""', "layer", ""))
+
+
+def _training_remat(torch, np, res, wrappers):
+    """(c) two steps' gradients (no update) of the hybrid run's SD1.5 model on
+    one posed batch for every remat setting: peak memory, s/step and launches
+    per step; each setting's gradients against block "" (>= 60 dB).
+    -> {setting: (launches, steps)}."""
+    import dataclasses
+
+    from cvd_tpu_torch.train.train_step import loss_and_grads
+
+    Fr, S = 16, 256
+    state, modules = res["state"], res["modules"]
+    unet = modules.unet
+    base = unet.config
+    batch = _folded(torch, np, _SeededPairs(1, Fr, S), Fr)
+    grads, out, rows = {}, {}, []
+    try:
+        for name, unit, policy in REMAT_SETTINGS:
+            unet.config = dataclasses.replace(base, remat_unit=unit or "block",
+                                              remat_policy=policy)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                # the same draws every time: a fresh generator of one seed
+                loss, _ = loss_and_grads(state, batch, modules,
+                                         torch.Generator(device="cuda").manual_seed(0),
+                                         F_mat_size=S, remat=unit is not None)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                # to the host one tensor at a time: no copy of the gradients
+                # stays on the card into the next computation's peak
+                grads[name] = np.concatenate([p.grad.float().cpu().numpy().ravel()
+                                              for p in state.trainable_params()])
+                state.optimizer.zero_grad(set_to_none=True)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out[name] = ({n: w.launches for n, w in wrappers.items()}, 2)
+            rows.append((name, peak, secs, float(loss)))
+    finally:
+        unet.config = base
+    ref = grads['block ""']
+    bad = []
+    for name, peak, secs, loss in rows:
+        snr = _snr_db(np, ref, grads[name])
+        per_step = {n: c / 2 for n, c in out[name][0].items()}
+        log(f"[training] (c) remat {name}: peak allocated {peak:.2f} GiB, s/step "
+            f"[{', '.join(f'{t:.3f}' for t in secs)}] (steady {secs[-1]:.3f}), loss "
+            f"{loss:.6f}, gradients vs block \"\" SNR {snr:.1f} dB, launches per step "
+            f"{per_step}")
+        if not snr >= 60.0:
+            bad.append((name, snr))
+    if bad:
+        raise RuntimeError(f"remat settings whose gradients differ from block \"\": {bad}")
+    return out
+
+
+def _training_multihost(torch):
+    """(d) two steps of ``run(..., multihost=True)`` as a world of one over
+    NCCL at (b)'s size (SD1.5 width, every tensor drawn, bf16 frozen, 256 px,
+    16 frames, remat on) against the same run without it: the losses bit for
+    bit; the peak memory of each run.
+    -> (launches of the multihost run, steps)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cvd_tpu_torch.cli import train
+
+    Fr, S, steps = 16, 256, 2
+    cfg = dict(random_weights_full=True, bf16=True, sample_size=S, sample_n_frames=Fr,
+               train_batch_size=1, max_train_steps=steps, num_workers=2, remat=True,
+               do_sanity_check=False, logger_interval=1, checkpointing_steps=10 ** 9,
+               global_seed=42)
+
+    def run(name, **kw):
+        """-> (losses, kinds, rank, world size, step seconds, peak GiB)"""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = train.run(dict(cfg, output_dir=os.path.join(HERE, "build", name)),
+                        sources=[("posed", _SeededPairs(2, Fr, S), 0.5),
+                                 ("unposed", _SeededFrames(2, Fr, S), 0.5)], **kw)
+        torch.cuda.synchronize()
+        out = (res["losses"], res["kinds"], res["rank"], res["world_size"],
+               res["step_seconds"], torch.cuda.max_memory_allocated() / 2 ** 30)
+        del res
+        torch.cuda.empty_cache()
+        return out
+
+    wrappers = _wrappers()
+    plain = run("chip_smoke_plain")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        multi = run("chip_smoke_multi", multihost=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = {n: w.launches for n, w in wrappers.items()}
+    log(f"[training] (d) --multihost as a world of one over NCCL (rank {multi[2]} of "
+        f"{multi[3]}), SD1.5 width, bf16 frozen, {S} px, {Fr} frames, remat on: losses "
+        f"{multi[0]} ({multi[1]}) against {plain[0]} without it; s/step "
+        f"[{', '.join(f'{t:.3f}' for t in multi[4])}] against "
+        f"[{', '.join(f'{t:.3f}' for t in plain[4])}]; peak allocated {multi[5]:.2f} GiB "
+        f"against {plain[5]:.2f} GiB; process group destroyed: {not dist.is_initialized()}")
+    if (multi[0] != plain[0] or multi[3] != 1 or dist.is_initialized()
+            or len(multi[0]) != steps):
+        raise RuntimeError(f"multihost world of one: {multi[0]} vs {plain[0]}")
+    return launches, steps
+
+
+def phase_training(torch):
+    """Unposed and hybrid training, the remat settings and --multihost (the
+    module docstring, 11). -> {path: (launches, steps)}."""
+    import numpy as np
+
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    _training_reference(torch, np)
+    log(f"[time] training (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, steps, per_kind, res = _training_hybrid(torch, np, wrappers)
+    log(f"[time] training (b): {time.perf_counter() - t0:.1f} s")
+    out = {"hybrid": (launches, steps)}
+    out.update({f"hybrid_{kind}": (counts, 1) for kind, counts in per_kind.items()})
+    t0 = time.perf_counter()
+    out.update({"remat_" + name.replace('""', "").strip().replace(" ", "_"): n
+                for name, n in _training_remat(torch, np, res, wrappers).items()})
+    log(f"[time] training (c): {time.perf_counter() - t0:.1f} s")
+    del res
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["multihost"] = _training_multihost(torch)
+    log(f"[time] training (d): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _folded(torch, np, data, n_frames):
     """The training loop's folded device batch for item 0 (text unchanged)."""
     from cvd_tpu_torch.io.tokenizer import HashTokenizer
@@ -2307,6 +2669,10 @@ def main() -> int:
     train, train_steps, train_seconds = timed(phase_train, profile=profile)
     ((ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps)), options = timed(
         phase_ckpt, sampler, sampler_requests=2, train_seconds=train_seconds)
+    training = timed(phase_training)
+    # the training phase's entry-point runs count toward "launches"; its
+    # per-kind means and the remat settings' loss_and_grads runs stand beside
+    runs = {path: training[path] for path in ("hybrid", "multihost")}
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
@@ -2322,10 +2688,14 @@ def main() -> int:
         opts = {f"launches_{path}": n[name] for path, (n, _) in options.items()}
         opts.update({f"launches_per_call_{path}": n[name] / calls
                      for path, (n, calls) in options.items()})
+        opts.update({f"launches_training_{path}": n[name] for path, (n, _) in runs.items()})
+        opts.update({f"launches_per_training_{path}_step": n[name] / steps
+                     for path, (n, steps) in training.items() if path not in runs})
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": (sampler[name] + nview_loop[name] + nview_batched[name]
                                      + train[name] + ckpt_sampler[name] + ckpt_train[name]
-                                     + sum(n[name] for n, _ in options.values())),
+                                     + sum(n[name] for n, _ in options.values())
+                                     + sum(n[name] for n, _ in runs.values())),
                         **opts,
                         "launches_ckpt_sampler": ckpt_sampler[name],
                         "launches_ckpt_train": ckpt_train[name],

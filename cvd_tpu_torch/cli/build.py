@@ -92,8 +92,14 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "(0 = off, >16 absolute, 1..16 resolves per layer)")
     p.add_argument("--sync_lora_scale", type=float, default=1.0)
     p.add_argument("--remat_policy", default="",
-                   help="training remat checkpoint policy: '' = replay whole "
-                        "blocks; 'dots' is not ported yet")
+                   help="what a training remat unit saves: '' nothing (every op "
+                        "replayed in the backward), 'dots' the matrix product and "
+                        "convolution outputs, 'dots_no_batch' the 2-D products only, "
+                        "'dots_small' those of 'dots' of at most "
+                        "CVD_TPU_REMAT_SAVE_MAX_BYTES bytes (default 96 MiB); the three "
+                        "'dots' values exist for the JAX package's configs: on an H100 "
+                        "each took more memory and more time than remat_unit 'layer' "
+                        "with '' (PERF.md, section 5)")
     p.add_argument("--model_config", default=None,
                    help="reference-format model config yaml")
     p.add_argument("--scan_layers", action=argparse.BooleanOptionalAction, default=None,
@@ -128,8 +134,6 @@ def refuse_unported(args) -> None:
                                     "(io/ldm_convert.py)", "item 5"),
         (has("civitai_lora_ckpt"), "--civitai_lora_ckpt: kohya / civitai LoRA fusion "
                                    "(io/ldm_convert.py)", "item 5"),
-        (has("remat_policy", ""), f"--remat_policy {getattr(args, 'remat_policy', '')!r}: the "
-                                  "'dots' / 'layer' remat policies", "item 4.7"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -138,7 +142,8 @@ def refuse_unported(args) -> None:
 
 def unet_options(args, unet_cfg: UNetConfig) -> UNetConfig:
     """``unet_cfg`` with what the options set: the pose-adaptor scale, spatial
-    extended attention, the sync-LoRA and, with ``--image_lora_ckpt``, the
+    extended attention, the sync-LoRA, the remat unit and policy (training's
+    ``remat_unit`` / ``remat_policy``) and, with ``--image_lora_ckpt``, the
     image LoRA's rank (``r`` if > 16, else channels // r per layer,
     cvd_tpu/cli/build.py:158-163)."""
     r = getattr(args, "image_lora_rank", 2)
@@ -147,7 +152,9 @@ def unet_options(args, unet_cfg: UNetConfig) -> UNetConfig:
         spatial_extended_attention=bool(getattr(args, "spatial_extended_attention", False)),
         spatial_lora_rank=(r if r > 16 else -r) if getattr(args, "image_lora_ckpt", None) else 0,
         sync_lora_rank=getattr(args, "sync_lora_rank", 0) or 0,
-        sync_lora_scale=getattr(args, "sync_lora_scale", 1.0))
+        sync_lora_scale=getattr(args, "sync_lora_scale", 1.0),
+        remat_unit=getattr(args, "remat_unit", "block"),
+        remat_policy=getattr(args, "remat_policy", "") or "")
 
 
 def load_sparse_controlnet(path: str, unet_cfg: UNetConfig, simplified: bool,

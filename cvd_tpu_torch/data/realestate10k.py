@@ -96,7 +96,8 @@ class RealEstate10KPoseFolded:
         for pose_file in sorted(glob.glob(os.path.join(txt_dir, "*.txt"))):
             clip = os.path.basename(pose_file)[: -len(".txt")]
             if clip + ".mp4" in captions:
-                self.dataset.append({"clip_path": os.path.join(video_dir, clip),
+                self.dataset.append({"clip_name": clip,
+                                     "clip_path": os.path.join(video_dir, clip),
                                      "pose_file": pose_file,
                                      "caption": captions[clip + ".mp4"][0]})
 

@@ -7,15 +7,17 @@ motion modules and CVD epi (cross-video sync) modules (port of
 
 Layout is channels-last video [B, F, H, W, C]; per-frame 2D ops fold frames
 into the batch. Module names reproduce the reference state-dict keys
-(``down_blocks.{i}.resnets.{j}...``). ``remat=True`` recomputes each UNet
-block in the backward (``torch.utils.checkpoint``, the JAX package's
-``remat_unit="block"`` with no saving policy). The runtime image LoRA
+(``down_blocks.{i}.resnets.{j}...``). ``remat=True`` recomputes activations
+in the backward (``torch.utils.checkpoint``) per ``remat_unit`` (each UNet
+block, or each sublayer: resnet, spatial transformer, motion module, epi
+module) under ``remat_policy`` (what a unit saves: nothing, or the outputs
+of the matrix products and convolutions, as the JAX package's
+``jax.checkpoint_policies``). The runtime image LoRA
 (``spatial_lora_rank``, scaled per call by ``lora_scale``), the sync-LoRA
 and spatial extended attention are the JAX package's options of the same
 names; ``pab`` is a request's Pyramid Attention Broadcast cache
-(``pipelines/pab.py``). Not ported yet: the layer scan
-(``scan_identical_layers``, an XLA compile lever), the ``layer`` remat unit
-and the ``dots`` policy.
+(``pipelines/pab.py``). Not ported: the layer scan
+(``scan_identical_layers``, an XLA compile lever).
 
 ``fuse_first_frame`` adds the first-frame fusion blocks (``down_fusers.0``
 after ``conv_in``, ``mid_fuser`` after the mid block); a SparseCtrl model's
@@ -28,12 +30,16 @@ epipolar loss reads through ``return_extras=True``.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import functools
+import os
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from cvd_tpu_torch.models.epi import EpiConditioning, EpiModule
 from cvd_tpu_torch.models.layers import (
@@ -91,6 +97,93 @@ class UNetConfig:
     # output channels of the auxiliary q/k head for the epipolar training
     # loss (reference unet.py:1429-1443); 0: no head
     additional_channel: int = 0
+    # what ``remat=True`` checkpoints: whole UNet blocks, or each sublayer
+    remat_unit: str = "block"
+    # what a checkpointed unit keeps for the backward (REMAT_POLICIES)
+    remat_policy: str = ""
+
+    def __post_init__(self):
+        # a typo would silently change the memory / recompute trade-off
+        if self.remat_unit not in REMAT_UNITS:
+            raise ValueError(f"remat_unit={self.remat_unit!r}: expected one of {REMAT_UNITS}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={self.remat_policy!r}: expected one of "
+                             f"{REMAT_POLICIES}")
+
+
+REMAT_UNITS = ("block", "layer")
+# "" saves nothing (every op of a unit runs again in the backward); "dots"
+# saves the outputs of the matrix products and convolutions
+# (jax.checkpoint_policies.dots_saveable), "dots_no_batch" those of the 2-D
+# products only (dots_with_no_batch_dims_saveable), "dots_small" those of
+# "dots" of at most CVD_TPU_REMAT_SAVE_MAX_BYTES bytes (default 96 MiB). The
+# hand-written kernels' autograd Functions are no aten product: every policy
+# runs them again.
+REMAT_POLICIES = ("", "dots", "dots_no_batch", "dots_small")
+_aten = torch.ops.aten
+_PRODUCTS_2D = (_aten.mm.default, _aten.addmm.default)
+_PRODUCTS = _PRODUCTS_2D + (_aten.bmm.default, _aten.baddbmm.default,
+                            _aten.convolution.default)
+
+
+def _product_bytes(op, args) -> int:
+    """The bytes of a product's output, from its inputs' shapes."""
+    if op == _aten.convolution.default:
+        x, w, _, stride, padding, dilation, transposed, output_padding, groups = args[:9]
+        spatial = [
+            (n - 1) * s - 2 * p + d * (k - 1) + o + 1 if transposed
+            else (n + 2 * p - d * (k - 1) - 1) // s + 1
+            for n, k, s, p, d, o in zip(x.shape[2:], w.shape[2:], stride, padding, dilation,
+                                        output_padding)]
+        shape = [x.shape[0], w.shape[1] * groups if transposed else w.shape[0], *spatial]
+    else:
+        a, b = args[-2:]                          # mm, bmm; addmm, baddbmm add an input first
+        shape = [*a.shape[:-1], b.shape[-1]]
+    n = 1
+    for d in shape:
+        n *= d
+    return n * args[0].element_size()
+
+
+def _save_policy(name: str) -> Callable:
+    """The selective-checkpoint policy of ``REMAT_POLICIES[name]``."""
+    saved = _PRODUCTS_2D if name == "dots_no_batch" else _PRODUCTS
+    limit = (int(os.environ.get("CVD_TPU_REMAT_SAVE_MAX_BYTES", 96 * 1024 * 1024))
+             if name == "dots_small" else None)
+
+    def policy(ctx, op, *args, **kwargs):
+        keep = op in saved and (limit is None or _product_bytes(op, args) <= limit)
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _remat_unit(policy: str) -> Callable:
+    """-> unit(fn, *args): fn(*args), its activations recomputed in the
+    backward, keeping what ``policy`` saves."""
+    kw = {}
+    if policy:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_policy(policy))
+
+    def unit(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return unit
+
+
+def _with_qk(epi: nn.Module) -> Callable:
+    """The epi module as a function that returns its attentions' q/k maps
+    beside its output, so that they come out of a checkpointed unit."""
+    def run(x, cond, pab):
+        maps: list = []
+        return epi(x, cond, pab, maps), maps
+
+    return run
 
 
 def _lora_rank(cfg: UNetConfig, channels: int) -> int:
@@ -158,17 +251,22 @@ class _Block(nn.Module):
     def layer(self, j: int, x: torch.Tensor, temb_f: torch.Tensor,
               context_f: Optional[torch.Tensor], pose_feature: Optional[torch.Tensor],
               epi_cond: Optional[EpiConditioning], lora_scale: float = 1.0,
-              pab=None, qk: Optional[list] = None) -> torch.Tensor:
-        """``qk``: a list that receives the epi attentions' q/k maps."""
+              pab=None, qk: Optional[list] = None, unit: Callable = _call) -> torch.Tensor:
+        """``qk``: a list that receives the epi attentions' q/k maps.
+        ``unit``: runs each sublayer (``remat_unit="layer"``: checkpointed)."""
         B = x.shape[0]
-        h = self.resnets[j](_fold(x), temb_f)
+        h = unit(self.resnets[j], _fold(x), temb_f)
         if self.attentions is not None:
-            h = self.attentions[j](h, context_f, lora_scale, pab)
+            h = unit(self.attentions[j], h, context_f, lora_scale, pab)
         x = _unfold(h, B)
         if self.motion_modules is not None:
-            x = self.motion_modules[j](x, pose_feature, pab)
+            x = unit(self.motion_modules[j], x, pose_feature, pab)
         if self.epi_modules is not None:
-            x = self.epi_modules[j](x, epi_cond, pab, qk)
+            if qk is None:
+                x = unit(self.epi_modules[j], x, epi_cond, pab)
+            else:
+                x, maps = unit(_with_qk(self.epi_modules[j]), x, epi_cond, pab)
+                qk.extend(maps)
         return x
 
     def last_qk(self, want_qk: bool, j: int) -> Optional[list]:
@@ -187,13 +285,14 @@ class CrossAttnDownBlock(_Block):
                              if add_downsample else None)
 
     def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None,
-                want_qk=False):
+                want_qk=False, unit=_call):
         """-> (x, the states the up path takes, the last layer's q/k maps
         where ``want_qk``, else None)."""
         res_states, qk = [], None
         for j in range(len(self.resnets)):
             qk = self.last_qk(want_qk, j)
-            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk)
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk,
+                           unit)
             res_states.append(x)
         if self.downsamplers is not None:
             x = _unfold(self.downsamplers[0](_fold(x)), x.shape[0])
@@ -207,10 +306,11 @@ class MidBlock(_Block):
         self.resnets.append(ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups))
 
     def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None,
-                want_qk=False):
+                want_qk=False, unit=_call):
         qk = [] if want_qk else None
-        x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk)
-        return _unfold(self.resnets[1](_fold(x), temb_f), x.shape[0]), qk
+        x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk,
+                       unit)
+        return _unfold(unit(self.resnets[1], _fold(x), temb_f), x.shape[0]), qk
 
 
 class CrossAttnUpBlock(_Block):
@@ -221,12 +321,13 @@ class CrossAttnUpBlock(_Block):
         self.upsamplers = nn.ModuleList([Upsample2D(channels)]) if add_upsample else None
 
     def forward(self, x, res_states, temb_f, context_f, pose_feature, epi_cond,
-                lora_scale=1.0, pab=None, want_qk=False):
+                lora_scale=1.0, pab=None, want_qk=False, unit=_call):
         qk = None
         for j in range(len(self.resnets)):
             qk = self.last_qk(want_qk, j)
             x = torch.cat([x, res_states[-1 - j]], dim=-1)
-            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk)
+            x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk,
+                           unit)
         if self.upsamplers is not None:
             x = _unfold(self.upsamplers[0](_fold(x)), x.shape[0])
         return x, qk
@@ -316,8 +417,9 @@ class UNet3DConditionModel(nn.Module):
         mid_block_additional_residual: Optional[torch.Tensor] = None,
         return_extras: bool = False,
     ):
-        """``remat``: recompute each block's activations in the backward
-        instead of keeping them (only while autograd records).
+        """``remat``: recompute activations in the backward instead of
+        keeping them, per the config's ``remat_unit`` and ``remat_policy``
+        (only while autograd records).
         ``lora_scale``: the image LoRA's scale for this call. ``pab``: the
         request's PAB cache, its reuse flags set for this call. The two
         residual inputs (a SparseCtrl model's outputs, [B, F, h, w, c] each)
@@ -330,12 +432,10 @@ class UNet3DConditionModel(nn.Module):
         reads the last)."""
         cfg = self.config
         B, Fr = sample.shape[:2]
-        recompute = remat and torch.is_grad_enabled()
-
-        def run(block, *args):
-            if recompute:
-                return checkpoint(block, *args, use_reentrant=False)
-            return block(*args)
+        unit = (_remat_unit(cfg.remat_policy) if remat and torch.is_grad_enabled()
+                else _call)
+        # the unit wraps whole blocks, or each sublayer inside them
+        run, sub = (unit, _call) if cfg.remat_unit == "block" else (_call, unit)
 
         dtype = self.conv_in.weight.dtype
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -361,14 +461,14 @@ class UNet3DConditionModel(nn.Module):
         res_stack = [x]
         for i, block in enumerate(self.down_blocks):
             x, res, maps = run(block, x, temb_f, context_f, pose_features[i], epi_cond,
-                               lora_scale, pab, want(i))
+                               lora_scale, pab, want(i), sub)
             res_stack += res
             qk = maps or qk
         if down_block_additional_residuals is not None:
             res_stack = [r + extra.to(r.dtype)
                          for r, extra in zip(res_stack, down_block_additional_residuals)]
         x, maps = run(self.mid_block, x, temb_f, context_f, pose_features[-1], epi_cond,
-                      lora_scale, pab, want(len(self.down_blocks)))
+                      lora_scale, pab, want(len(self.down_blocks)), sub)
         qk = maps or qk
         if cfg.fuse_first_frame:
             x = fuse(self.mid_fuser, x)
@@ -378,7 +478,7 @@ class UNet3DConditionModel(nn.Module):
             n = len(block.resnets)
             res, res_stack = res_stack[-n:], res_stack[:-n]
             x, maps = run(block, x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond,
-                          lora_scale, pab, want(len(self.down_blocks) + 1 + i))
+                          lora_scale, pab, want(len(self.down_blocks) + 1 + i), sub)
             qk = maps or qk
         h = self.conv_norm_out(_fold(x))
         out = _unfold(self.conv_out(h), B)

@@ -4,8 +4,9 @@
   masks (train_epi_control.py:605).
 * ``epi_distance_loss`` — the JAX package's re-derivation of the missing
   reference loss: soft-argmax correspondences from the auxiliary query/key
-  maps must land on the epipolar lines of F. It is called only when the
-  UNet returns the auxiliary q/k head, which is not ported yet.
+  maps must land on the epipolar lines of F. The train step takes it only
+  where the UNet has the auxiliary q/k head (``additional_channel > 0``)
+  and the batch has F mats (a posed batch).
 """
 from __future__ import annotations
 

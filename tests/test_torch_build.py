@@ -115,7 +115,8 @@ NOWHERE = dict(ori_model_path="/nonexistent/sd", motion_module_ckpt="/nonexisten
 
 # the options of REFUSED that are ported now: each is taken, and reaches the model
 PORTED = ("image_lora_ckpt", "image_lora_rank", "sync_lora_rank", "sync_lora_scale",
-          "spatial_extended_attention", "controlnet_ckpt", "controlnet_simplified_embedding")
+          "spatial_extended_attention", "controlnet_ckpt", "controlnet_simplified_embedding",
+          "remat_policy")
 
 
 def _check_ported(paths, tmp_path, name, value):
@@ -157,6 +158,8 @@ def _check_ported(paths, tmp_path, name, value):
         got = modules.controlnet.state_dict()
         assert set(got) == set(sparsectrl)
         assert all(torch.equal(got[k], v) for k, v in sparsectrl.items())
+    elif name == "remat_policy":   # reaches the UNetConfig; only a training remat reads it
+        assert unet.config.remat_policy == value and not has_lora and not has_sync
     elif name == "controlnet_simplified_embedding":   # the layout, without a file: no model
         assert modules.controlnet is None and not has_lora and not has_sync
     else:   # the image LoRA's rank without its file, sync scale 0 without a rank: no-ops

@@ -22,7 +22,8 @@ lazy = sorted(m for m in sys.modules
 assert not lazy, lazy
 for new in ("io.manifests", "io.torch_io", "io.checkpoints", "io.model_config", "io.lora",
             "io.tokenizer", "cli.build", "cli.merge_lora", "pipelines.pab",
-            "models.sparse_controlnet", "data.latents_cache", "utils.visualize"):
+            "models.sparse_controlnet", "data.latents_cache", "utils.visualize",
+            "data.webvid", "data.remote"):
     assert "cvd_tpu_torch." + new in names, new
 # the port's own copy of the PAB schedules, not a re-export of cvd_tpu's
 assert sys.modules["cvd_tpu_torch.pipelines.pab"].__file__.endswith(

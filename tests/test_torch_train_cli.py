@@ -3,16 +3,18 @@ weights, 64 px, 2 frames, 2 steps, on a RealEstate10K-layout dataset
 written from a seed (a copy of assets/pose_files/example_dolly.txt, seeded
 80x64 PNG frames so resize and crop run, and the captions file). Also the
 dataset reader and loader, checkpoints against cvd_tpu's export keys,
-resume, and the options that are not ported yet."""
+resume, the training options and the ones that are refused."""
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
 import torch
 import yaml
 
+sys.path.insert(0, os.path.dirname(__file__))
 torch.set_num_threads(2)
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
@@ -40,6 +42,13 @@ def re10k_root(tmp_path_factory):
     with open(root / "annotation_json" / "train_captions.json", "w") as f:
         json.dump({f"{CLIP}.mp4": ["a quiet living room, slow dolly"]}, f)
     return root
+
+
+@pytest.fixture(scope="module")
+def webvid_root(tmp_path_factory):
+    from test_torch_webvid import _write_webvid
+
+    return _write_webvid(tmp_path_factory.mktemp("webvid"))
 
 
 def _config(tmp_path, root, **kw):
@@ -76,18 +85,21 @@ def test_realestate10k_folded_sample(re10k_root):
     np.testing.assert_allclose(s["ret_c2w"][2], np.eye(4), atol=1e-5)
 
 
-def test_data_loader_batches_and_raises_for_process_workers():
+@pytest.mark.parametrize("worker_type", ["thread", "process"])
+def test_data_loader_batches_with_thread_and_process_workers(worker_type):
+    """Both worker types batch a list of samples alike (process workers under
+    a time limit: tests/test_torch_multihost.py's ``_within``)."""
+    from test_torch_multihost import _within
+
     from cvd_tpu_torch.data.loader import DataLoader
 
     data = [{"x": np.full((2,), i, np.float32), "text": str(i)} for i in range(5)]
-    loader = DataLoader(data, batch_size=2, num_workers=2, seed=1)
-    batches = list(loader)
+    loader = DataLoader(data, batch_size=2, num_workers=2, seed=1, worker_type=worker_type)
+    batches = _within(60, lambda: list(loader))
     assert len(loader) == len(batches) == 2
     assert all(b["x"].shape == (2, 2) and len(b["text"]) == 2 for b in batches)
     seen = np.concatenate([b["x"][:, 0] for b in batches])
     assert len(set(seen.tolist())) == 4
-    with pytest.raises(NotImplementedError):
-        DataLoader(data, batch_size=2, worker_type="process")
 
 
 def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
@@ -140,35 +152,49 @@ def test_train_cli_runs_saves_and_resumes(tmp_path, re10k_root):
 
 
 PORTED = ("sync_lora_rank", "epi_loss_weight", "lora_rank", "sync_lora_scale",
-          "cache_latents", "validation_steps", "validation_data")
+          "cache_latents", "validation_steps", "validation_data", "train_data",
+          "remat_policy", "worker_type")
 
 
 @pytest.mark.parametrize("override", [
-    {"train_data": {"dataset_name": "webvid10m", "root_path": "/nonexistent"}},
+    {"train_data": {"dataset_name": "webvid10m"}},
     {"cache_latents": True},
     {"validation_steps": 10},
     {"sync_lora_rank": 4},
-    {"remat_policy": "dots"},
+    {"remat_policy": "dots", "remat": True},
     {"random_weights": False},
     {"epi_loss_weight": 0.002},
     {"lora_rank": 4},
     {"sync_lora_scale": 0.5},
     {"validation_data": {"pose_file_0": "a.txt", "pose_file_1": "b.txt"}},
-])
-def test_unported_options_raise(tmp_path, re10k_root, override):
+    {"worker_type": "process"},
+    {"remat_policy": "dots"},
+    {"civitai_lora_ckpt": "/nonexistent/lora.safetensors"},
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items())[:60])
+def test_training_options_are_taken_or_refused(tmp_path, re10k_root, webvid_root, override):
     """An option of PORTED is taken: one step runs, with the sync-LoRA in the
     trainable set where a rank asks for it (lora_rank alone is the image
     LoRA's rank, which needs its file; epi_loss_weight weighs a loss no
     config with additional_channel 0 has; a sync scale without a rank is
     off), as in cvd_tpu; the latents cache is built and trained from;
     validation every 10 steps does not run in one step, and its data alone
-    is read only when it runs."""
+    is read only when it runs; WebVid data gives an unposed step; remat_policy
+    with remat on is taken (without it, it is refused: it would do nothing);
+    process workers load the step. Without random weights the build asks for
+    checkpoints; the civitai options are not ported yet."""
+    from test_torch_multihost import _within
+
     from cvd_tpu_torch.cli import train
 
     key = next(iter(override))
-    if key in PORTED:
-        out = train.run(_config(tmp_path, re10k_root, max_train_steps=1, checkpointing_steps=10,
-                                do_sanity_check=False, **override))
+    if key in PORTED and override != {"remat_policy": "dots"}:
+        if key == "train_data":
+            override = {"train_data": dict(override["train_data"], root_path=str(webvid_root))}
+        cfg = _config(tmp_path, re10k_root, max_train_steps=1, checkpointing_steps=10,
+                      do_sanity_check=False, **override)
+        out = _within(120, lambda: train.run(cfg))     # process workers fork
+        assert out["kinds"] == ["unposed" if key == "train_data" else "posed"]
+        assert out["modules"].unet.config.remat_policy == override.get("remat_policy", "")
         assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
         sync = [n for n in out["state"].trainable if "_lora_sync." in n]
         assert bool(sync) == (key == "sync_lora_rank")
@@ -179,8 +205,7 @@ def test_unported_options_raise(tmp_path, re10k_root, override):
         return
     cfg = _config(tmp_path, "/nonexistent")
     cfg.update(override)
-    # without random weights the build asks for checkpoints: none is named
-    error = ValueError if override == {"random_weights": False} else NotImplementedError
+    error = NotImplementedError if key == "civitai_lora_ckpt" else ValueError
     with pytest.raises(error):
         train.run(cfg)
 
@@ -224,19 +249,42 @@ def test_frozen_weights_default_to_bfloat16():
     assert _frozen_dtype({"frozen_weights_dtype": "float32", "bf16": True}) == torch.float32
 
 
-def test_multihost_raises(tmp_path):
+def test_multihost_takes_torchruns_group(tmp_path, re10k_root, monkeypatch):
+    """``--multihost`` as a world of one over gloo (torchrun's environment
+    set by hand): two steps, the process group gone after the run (under a
+    time limit: a process group that waits for a peer fails the test)."""
+    import socket
+
+    import torch.distributed as dist
+    from test_torch_multihost import _within
+
     from cvd_tpu_torch.cli import train
 
-    with pytest.raises(NotImplementedError):
-        train.main(["--config", _write(tmp_path, _config(tmp_path, "/nonexistent")),
-                    "--multihost"])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    argv = ["--config", _write(tmp_path, _config(tmp_path, re10k_root, do_sanity_check=False)),
+            "--multihost"]
+    out = _within(120, lambda: train.main(argv))
+    assert (out["rank"], out["world_size"], len(out["losses"])) == (0, 1, 2)
+    assert np.isfinite(out["losses"]).all() and not dist.is_initialized()
 
 
-def test_unposed_batches_raise():
-    from cvd_tpu_torch.train.train_step import train_step
+def test_unposed_batches_train(tmp_path):
+    """A folded unposed batch (H mats and warped masks, no Plücker maps)
+    trains: finite loss, the epi weights moved."""
+    from test_torch_webvid import _Frames
 
-    with pytest.raises(NotImplementedError):
-        train_step(None, {"H_mats": torch.zeros(2, 2, 3, 3)}, None)
+    from cvd_tpu_torch.cli import train
+
+    out = train.run(dict(random_weights=True, device="cpu", sample_size=64, sample_n_frames=2,
+                         max_train_steps=1, num_workers=1, checkpointing_steps=10,
+                         do_sanity_check=False, output_dir=str(tmp_path / "run")),
+                    sources=[("unposed", _Frames(2), 1.0)])
+    assert out["kinds"] == ["unposed"] and np.isfinite(out["losses"]).all()
 
 
 def test_train_run_refuses_a_silent_cpu_run(monkeypatch, tmp_path, re10k_root):
