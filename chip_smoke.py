@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py [--profile]
-    python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5, 8, 9 and 10 only; prints no result, exit 4)
+    python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5, 8, 9, 10 and 12 only; prints no result, exit 4)
 
 Phases (any failure raises and exits non-zero):
 
@@ -157,10 +157,35 @@ Phases (any failure raises and exits non-zero):
    the same run without it, the peak memory of each, the process group
    destroyed.
 
+12. civitai: from phase 8's files, at SD1.5 width, bf16, 256 px, 16 frames:
+   (a) a civitai single-file model written from the LDM manifests
+   (``ldm_sd15_{unet,vae,clip}_manifest``, float16 from a seed of its own,
+   ``torch.save``d under ``state_dict``) and a kohya LoRA (rank 8, ``.alpha``
+   entries, every spatial attention projection, ``proj_in`` / ``proj_out`` as
+   1x1 convolutions and ``ff``, and the text encoder's ``lora_te_*``
+   projections); (b) ``build_modules`` with ``--civitai_base_model`` and
+   ``--civitai_lora_ckpt``: every spatial UNet, VAE and text-encoder tensor
+   equal to the file's cast to bf16, the LoRA's targets to W + 0.6 * (alpha /
+   r) * up @ down, the text encoder not fused, the motion, epi and pose
+   tensors bit-identical to a build without the civitai files; (c)
+   ``cli.inference.main`` with both options, one request of 10 steps, and
+   again with ``--pab``: both saved as ``.npy`` and compared by
+   ``cli.eval_parity --json`` (mean and min PSNR: with random weights, PAB's
+   drift, not quality); (d) ``schedulers.inversion.ddim_invert`` of that
+   request's final latents through the UNet (the conditional rows) and a
+   sampling from the inverted noise: the round trip's error, everything
+   finite; (g) ``utils.profiling.trace`` over one UNet call at 4 CFG rows:
+   the port's kernels summed from the trace file; (e) two steps of
+   ``cli.train.run`` with the ``civitai_*`` keys: finite losses, trainable
+   tensors moved, frozen ones the civitai file's; (f)
+   ``utils.flops.unet_apply_flops(4, 16, 32)`` over phase 5's median UNet
+   step, as achieved TFLOP/s beside the card's name and power limit. K1-K5
+   launched on (c) and (d), K1-K7 on (e), each path counted from 0.
+
 The second-to-last line is the per-kernel JSON record (times, bound,
 library yardstick, launches summed over the main paths and per UNet step or
-call of each sampler and per training step, and each path of phases 9, 10
-and 11); the last line is ``{"ok": true, "device": {...}}``.
+call of each sampler and per training step, and each path of phases 9, 10,
+11 and 12); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1097,15 +1122,6 @@ def _vae_file_key(key):
     return key
 
 
-def _clip_file_key(key):
-    """``CLIPTextEncoder``'s key under transformers' name."""
-    if key == "position_embedding":
-        return "text_model.embeddings.position_embedding.weight"
-    if key.startswith("token_embedding"):
-        return "text_model.embeddings." + key
-    return ("text_model.encoder." if key.startswith("layers.") else "text_model.") + key
-
-
 def _save_artifacts(torch, root, unet, vae, clip, motion, epi, pose_encoder, processors,
                     lora=None):
     """Write state dicts, keyed as the released files are, as those files:
@@ -1150,6 +1166,7 @@ def _reference_ckpt(torch, np, cpu, inputs):
     import tempfile
 
     from cvd_tpu_torch.cli import build, inference
+    from cvd_tpu_torch.io.checkpoints import clip_hf_name
     from cvd_tpu_torch.io.tokenizer import HashTokenizer
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
 
@@ -1163,7 +1180,7 @@ def _reference_ckpt(torch, np, cpu, inputs):
     try:
         paths = _save_artifacts(
             torch, root, base, {_vae_file_key(k): v for k, v in cpu.vae.state_dict().items()},
-            {_clip_file_key(k): v for k, v in cpu.clip.state_dict().items()}, motion, epi,
+            {clip_hf_name(k): v for k, v in cpu.clip.state_dict().items()}, motion, epi,
             cpu.pose_encoder.state_dict(), processors)
         args = _model_args(inference, paths)
         built = {dev: build.build_modules(args, torch.device(dev), tokenizer=HashTokenizer(),
@@ -1446,20 +1463,24 @@ def _ckpt_runs(torch, np, root, sampler, sampler_requests):
     return ((launches, len(ms)), (train_launches, steps)), paths, one_prompt
 
 
-def phase_ckpt(torch, sampler, sampler_requests, train_seconds=None):
+def phase_ckpt(torch, sampler, sampler_requests, train_seconds=None, unet_ms=None, smi=""):
     """From checkpoint files at SD1.5 width (the module docstring, 8), then
-    phases ``options`` (9) and ``extras`` (10) from the same files.
-    ``sampler``: the launch counts of phase 5's ``sampler_requests`` requests;
-    ``train_seconds``: phase 7's steady step times (None: not run).
+    phases ``options`` (9), ``extras`` (10) and ``civitai`` (12) from the same
+    files. ``sampler``: the launch counts of phase 5's ``sampler_requests``
+    requests; ``train_seconds``: phase 7's steady step times (None: not run);
+    ``unet_ms``: phase 5's median UNet step, ``smi``: the card's name and
+    power limit (for phase ``civitai``'s achieved TFLOP/s).
     -> ((sampler launches, UNet steps), (training launches, steps)), and
-    phases ``options``' and ``extras``' {path: (launches, UNet calls or steps)}."""
+    phases ``options``', ``extras``' and ``civitai``'s {path: (launches, UNet
+    calls or steps)}."""
     import shutil
     import tempfile
 
     import numpy as np
 
     free = shutil.disk_usage(tempfile.gettempdir()).free
-    need = 7 * 2 ** 30   # 2.2 G parameters in float16 and the options' files, and room
+    # 2.2 G parameters in float16, the options' files and the civitai model and LoRA, and room
+    need = 10 * 2 ** 30
     if free < need:
         raise RuntimeError(f"{free / 2**30:.1f} GiB free under {tempfile.gettempdir()}: the "
                            f"checkpoint files need {need / 2**30:.0f} GiB")
@@ -1475,6 +1496,10 @@ def phase_ckpt(torch, sampler, sampler_requests, train_seconds=None):
         opts.update({f"extras_{path}": n for path, n in
                      _extras_runs(torch, np, root, paths, train_seconds).items()})
         log(f"[time] phase_extras: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        opts.update({path: n for path, n in
+                     _civitai_runs(torch, np, root, paths, one_prompt, unet_ms, smi).items()})
+        log(f"[time] phase_civitai: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if os.path.exists(root):
@@ -1905,6 +1930,327 @@ def _extras_runs(torch, np, root, paths, train_seconds):
     return out
 
 
+CIVITAI_ALPHA = 0.6   # apply_civitai_lora's default, as the entry points fuse
+KOHYA_RANK = 8
+# the layers a kohya SD1.5 LoRA trains: the spatial attentions' projections,
+# the transformers' 1x1-conv proj_in / proj_out and ff; the text encoder's
+# attention projections
+KOHYA_UNET = (".to_q.weight", ".to_k.weight", ".to_v.weight", ".to_out.0.weight",
+              ".proj_in.weight", ".proj_out.weight", ".ff.net.0.proj.weight",
+              ".ff.net.2.weight")
+KOHYA_TE = (".q_proj.weight", ".k_proj.weight", ".v_proj.weight", ".out_proj.weight")
+
+
+def _civitai_files(torch, root):
+    """(a) A civitai single-file model (the LDM manifests, float16, a seed of
+    its own, ``torch.save``d under ``state_dict``) and a kohya LoRA over it
+    (rank 8, ``.alpha`` entries) under ``root``. -> (model path, LoRA path,
+    the model's state, the LoRA's state, the UNet's LoRA targets)."""
+    from cvd_tpu_torch.io import manifests as M
+    from cvd_tpu_torch.io.ldm_convert import convert_ldm_clip_state, convert_ldm_unet_state
+
+    g = torch.Generator(device="cuda").manual_seed(20262)
+    f16 = torch.float16
+    ldm = {}
+    for manifest in (M.ldm_sd15_unet_manifest(), M.ldm_sd15_vae_manifest(),
+                     M.ldm_sd15_clip_manifest()):
+        ldm.update(M.random_state(manifest, g, f16))
+    pairs, targets = {}, []
+    for prefix, state, ends in (("lora_unet_", convert_ldm_unet_state(ldm), KOHYA_UNET),
+                                ("lora_te_", convert_ldm_clip_state(ldm), KOHYA_TE)):
+        for key, w in state.items():
+            if not key.endswith(ends):
+                continue
+            stem = prefix + key[: -len(".weight")].replace(".", "_")
+            tail = tuple(w.shape[2:])   # a 1x1 conv's LoRA is a 1x1 conv too
+            pairs[f"{stem}.lora_down.weight"] = (KOHYA_RANK, w.shape[1]) + tail
+            pairs[f"{stem}.lora_up.weight"] = (w.shape[0], KOHYA_RANK) + tail
+            if prefix == "lora_unet_":
+                targets.append(key)
+    lora = M.random_state(pairs, g, f16)
+    for i, stem in enumerate(sorted({k.split(".")[0] for k in pairs})):
+        lora[f"{stem}.alpha"] = torch.tensor(float(1 + i % 8), dtype=f16)
+    model, lora_path = os.path.join(root, "civitai_model.ckpt"), os.path.join(root, "kohya.ckpt")
+    torch.save({"state_dict": ldm, "global_step": 123}, model)
+    torch.save(lora, lora_path)
+    return model, lora_path, ldm, lora, targets
+
+
+def _civitai_expected(torch, ldm, lora, targets, dev):
+    """What the sampler's bundle must hold after the civitai build: {module:
+    {key: tensor on the card in bf16}}: the file's tensors cast, the LoRA's
+    targets as W + 0.6 * (alpha / r) * up @ down computed as the fusion does
+    (products in f32 on the card, the bf16 weight as W)."""
+    from cvd_tpu_torch.io.checkpoints import SKIP_SUBSTRINGS, clip_rename, vae_legacy_rename
+    from cvd_tpu_torch.io.ldm_convert import (
+        convert_ldm_clip_state, convert_ldm_unet_state, convert_ldm_vae_state,
+    )
+
+    bf16 = torch.bfloat16
+    unet = {k: v.to(dev).to(bf16) for k, v in convert_ldm_unet_state(ldm).items()}
+    for key in targets:
+        stem = "lora_unet_" + key[: -len(".weight")].replace(".", "_")
+        up, down = lora[f"{stem}.lora_up.weight"], lora[f"{stem}.lora_down.weight"]
+        w = unet[key]
+        scale = CIVITAI_ALPHA * float(lora[f"{stem}.alpha"]) / KOHYA_RANK
+        unet[key] = (w.reshape(w.shape[0], -1).float() + scale * (
+            up.reshape(up.shape[0], -1).to(dev).float()
+            @ down.reshape(KOHYA_RANK, -1).to(dev).float())).to(bf16).reshape(w.shape)
+    vae = {}
+    for k, v in convert_ldm_vae_state(ldm).items():
+        k = vae_legacy_rename(k)
+        if k.startswith(("decoder.", "post_quant_conv.")):   # the sampler's VAE decodes only
+            vae[k] = v.reshape(v.shape[:2]) if ".attentions." in k and v.ndim == 4 else v
+    clip = {clip_rename(k): v for k, v in convert_ldm_clip_state(ldm).items()
+            if not any(s in k for s in SKIP_SUBSTRINGS)}
+    return {"unet": unet, "vae": {k: v.to(dev).to(bf16) for k, v in vae.items()},
+            "clip": {k: v.to(dev).to(bf16) for k, v in clip.items()}}
+
+
+def _civitai_runs(torch, np, root, paths, one_prompt, unet_ms, smi):
+    """Phase ``civitai`` (the module docstring, 12). -> {path: (launches,
+    UNet calls or training steps)}."""
+    import contextlib
+    import io
+
+    from cvd_tpu_torch.cli import build, eval_parity, inference, train
+    from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+    from cvd_tpu_torch.io.torch_io import load_torch_state
+    from cvd_tpu_torch.models.epi import EpiConditioning
+    from cvd_tpu_torch.models.pose_adaptor import PoseAdaptor
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+    from cvd_tpu_torch.schedulers.inversion import ddim_invert
+    from cvd_tpu_torch.utils.flops import unet_apply_flops
+    from cvd_tpu_torch.utils.profiling import kernel_summary, trace
+
+    tok, dev, bf16 = HashTokenizer(), torch.device("cuda"), torch.bfloat16
+    model_config = os.path.join(HERE, "configs", "inference_config.yaml")
+    wrappers = _wrappers()
+    out = {}
+
+    def counted(path, fn, calls=None):
+        """Run ``fn`` with every count set to 0 just before and read just
+        after; -> fn's result. ``calls``: fn's result -> its UNet calls."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        out[path] = ({n: w.launches for n, w in wrappers.items()}, calls(res) if calls else 1)
+        return res
+
+    # (a) the two files
+    t0 = time.perf_counter()
+    model, lora_path, ldm, lora, targets = _civitai_files(torch, root)
+    log(f"[civitai] (a) a civitai model ({len(ldm)} keys, {os.path.getsize(model) / 2**30:.2f} "
+        f"GiB float16) and a rank-{KOHYA_RANK} kohya LoRA ({len(lora)} keys: "
+        f"{len(targets)} UNet layers, {sum(k.startswith('lora_te_') for k in lora) // 3} text "
+        f"encoder layers) written in {time.perf_counter() - t0:.1f} s")
+    files = dict(paths, civitai_base_model=model, civitai_lora_ckpt=lora_path)
+    common = ("--bf16", "--model_config", model_config, "--motion_lora_scale", str(LORA_SCALE),
+              "--image_height", "256", "--image_width", "256", "--video_length", "16",
+              "--use_negative_prompt")
+
+    # (b) the build, and every weight against the files
+    args = _model_args(inference, files, *common, "--num_inference_steps", "10",
+                       "--out_root", os.path.join(HERE, "build", "chip_smoke_civitai"),
+                       caption_file=one_prompt)
+    report = {}
+    t0 = time.perf_counter()
+    modules, _ = build.build_modules(args, dev, tokenizer=tok, report=report)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    plain, _ = build.build_modules(_model_args(inference, paths, *common, caption_file=one_prompt),
+                                   dev, tokenizer=tok)
+    expected = _civitai_expected(torch, ldm, lora, targets, dev)
+    bad = {}
+    for name, want in expected.items():
+        params = dict(getattr(modules, name).named_parameters())
+        if name != "unet" and set(params) != set(want):
+            raise RuntimeError(f"civitai {name}: parameters {sorted(set(params) ^ set(want))[:5]}")
+        bad[name] = [k for k, t in want.items() if not torch.equal(params[k], t)]
+    ours = dict(modules.unet.named_parameters())
+    theirs = dict(plain.unet.named_parameters())
+    others = [k for k in ours if k not in expected["unet"]]
+    moved = [k for k in others if not torch.equal(ours[k], theirs[k])]
+    pose = [k for k, p in modules.pose_encoder.named_parameters()
+            if not torch.equal(p, dict(plain.pose_encoder.named_parameters())[k])]
+    log(f"[civitai] (b) build with --civitai_base_model and --civitai_lora_ckpt: {t_build:.1f} s ("
+        + ", ".join(f"{n} {r['keys']} keys {r['seconds']:.2f} s" for n, r in report.items())
+        + f"); every spatial UNet ({len(expected['unet'])}), VAE ({len(expected['vae'])}) and "
+        f"text-encoder ({len(expected['clip'])}) tensor equal to the file's cast to bf16, the "
+        f"{len(targets)} LoRA targets to W + {CIVITAI_ALPHA} * (alpha / {KOHYA_RANK}) * up @ "
+        f"down, bit for bit: differing {({n: len(b) for n, b in bad.items()})}; the text "
+        f"encoder not fused (its tensors the file's); motion / epi / pose tensors "
+        f"({len(others)} UNet, {len(dict(modules.pose_encoder.named_parameters()))} pose "
+        f"encoder) off phase ckpt's build: {len(moved) + len(pose)}")
+    if any(bad.values()) or moved or pose or report["civitai_lora"]["keys"] != len(targets):
+        raise RuntimeError(f"civitai build: differing {({n: b[:3] for n, b in bad.items()})}, "
+                           f"motion / epi / pose moved {(moved + pose)[:5]}")
+    del plain, expected, ours, theirs
+    torch.cuda.empty_cache()
+
+    # (c) one 2-view request of 10 steps, and with --pab; eval_parity on the two
+    videos = {}
+    for path, extra in (("sampler", ()), ("pab", ("--pab",))):
+        a = _model_args(inference, files, *common, *extra, "--num_inference_steps", "10",
+                        "--out_root", os.path.join(HERE, "build", f"chip_smoke_civitai_{path}"),
+                        caption_file=one_prompt)
+        t0 = time.perf_counter()
+        (rec,) = counted(f"civitai_{path}", lambda: inference.main(a, tokenizer=tok),
+                         lambda recs: len(recs[0]["unet_step_ms"]))
+        v = rec["videos"]
+        launches = out[f"civitai_{path}"][0]
+        log(f"[civitai] (c) request{' with --pab' if extra else ''}: {rec['seconds']:.2f} s "
+            f"({time.perf_counter() - t0:.2f} s with the civitai build), UNet steps median "
+            f"{float(np.median(rec['unet_step_ms'][1:])):.1f} ms, launches per UNet call "
+            f"{ {n: round(launches[n] / len(rec['unet_step_ms']), 1) for n in FORWARD} }")
+        missing = [n for n in FORWARD if launches[n] == 0]
+        if v.shape != (2, 16, 256, 256, 3) or not np.isfinite(v).all() or missing:
+            raise RuntimeError(f"civitai request {path}: {v.shape}, finite "
+                               f"{np.isfinite(v).all()}, kernels not launched {missing}")
+        videos[path] = os.path.join(root, f"civitai_{path}.npy")
+        np.save(videos[path], v.reshape(-1, *v.shape[2:]))
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        code = eval_parity.main(["--ref", videos["sampler"], "--test", videos["pab"], "--json"])
+    parity = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    log(f"[civitai] (c) eval_parity --json, PAB against no PAB over 32 frames: PSNR mean "
+        f"{parity['psnr_mean_db']} dB, min {parity['psnr_min_db']} dB, SSIM mean "
+        f"{parity['ssim_mean']}, exit {code} at 35 dB (random weights: this measures PAB's "
+        f"drift from the request without it, not quality)")
+
+    # (d) invert (c)'s final latents through the UNet, then sample again from the noise
+    sample = ValRealEstate10KPoseFolded(
+        validation_prompts=json.load(open(one_prompt))["captions"][:1],
+        pose_file_0=args.pose_file_0, pose_file_1=args.pose_file_1, sample_n_frames=16,
+        sample_size=256)[0]
+    prompt = torch.from_numpy(tok([sample["validation_prompt"]]))
+    negative = torch.from_numpy(tok(json.load(open(one_prompt))["negative_prompts"][:1]))
+    plucker = torch.from_numpy(sample["plucker_embedding"]).float().reshape(2, 16, 256, 256, 6)
+    F_mats = torch.from_numpy(sample["F_mats"]).float().reshape(2, 16, 3, 3)
+    pipe = SimplePipeline(modules, F_mat_size=256, rand_slope_ff=True)
+
+    def sampled(latents=None):
+        return pipe(prompt, negative, plucker, F_mats, num_inference_steps=10,
+                    generator=torch.Generator(device=dev).manual_seed(args.global_seed),
+                    latents=latents, decode=False)
+
+    adaptor = PoseAdaptor(modules, F_mat_size=256, rand_slope_ff=False)
+    with torch.no_grad():
+        text = modules.clip(prompt.to(dev)).repeat(2, 1, 1)   # the conditional rows only
+        pl, fm = plucker.to(dev, bf16), F_mats.to(dev)
+
+    def eps_fn(lat, t):
+        with torch.no_grad():
+            return adaptor(lat, torch.full((2,), t, device=dev), text, pl, fm).float()
+
+    state = modules.scheduler.set_timesteps(10)
+
+    def invert_and_resample():
+        final = sampled()
+        noise, trajectory = ddim_invert(eps_fn, modules.scheduler, state, final)
+        return final, noise, trajectory, sampled(noise)
+
+    t0 = time.perf_counter()
+    final, noise, trajectory, again = counted(
+        "civitai_inversion", invert_and_resample, lambda r: 3 * 10)
+    seconds = time.perf_counter() - t0
+    launches = out["civitai_inversion"][0]
+    err = float((again - final).abs().max()) / float(final.abs().max())
+    finite = all(bool(torch.isfinite(x).all()) for x in (final, noise, trajectory, again))
+    log(f"[civitai] (d) ddim_invert of the request's final latents ({tuple(final.shape)}) through "
+        f"the UNet (conditional rows, 10 steps), then sampling from the inverted noise: "
+        f"{seconds:.2f} s for the 30 UNet calls; round trip max |again - final| / max |final| "
+        f"{err:.4f}, inverted noise std {float(noise.std()):.4f}, trajectory "
+        f"{tuple(trajectory.shape)}; finite {finite}; launches {launches}")
+    missing = [n for n in FORWARD if launches[n] == 0]
+    if not finite or trajectory.shape[0] != 10 or missing:
+        raise RuntimeError(f"civitai inversion: finite {finite}, kernels not launched {missing}")
+    # (g) utils.profiling.trace over one UNet call
+    rng = np.random.default_rng(0)
+    lat = torch.from_numpy(rng.standard_normal((4, 16, 32, 32, 4)).astype(np.float32)).to(dev)
+    ctx = torch.from_numpy(rng.standard_normal((4, 77, 768)).astype(np.float32)).to(dev)
+    feats = [torch.from_numpy(rng.standard_normal((4, 16, 32 >> i, 32 >> i, c))
+                              .astype(np.float32)).to(dev, bf16)
+             for i, c in enumerate((320, 640, 1280, 1280))]
+    def unet_call():
+        cond = EpiConditioning(F_mats=fm.reshape(32, 3, 3).repeat(2, 1, 1), video_length=16,
+                               rand_slope_ff=False)
+        with torch.no_grad():
+            return modules.unet(lat, 500, ctx, feats, cond)
+
+    unet_call()
+    torch.cuda.synchronize()
+    trace_dir = _profile_dir("civitai_unet_call")
+    with trace(trace_dir) as prof:
+        t0 = time.perf_counter()
+        unet_call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    sums = {fam: sum(e["dur"] for e in events if fam in e["name"]) / 1e3 for fam in PORT_KERNELS}
+    summary = kernel_summary(prof, wall, 1, "one UNet call (4 CFG rows x 16 frames)",
+                             PORT_KERNELS)
+    log(f"[civitai] (g) utils.profiling.trace over one UNet call: {path} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} kernel events, "
+        f"{sum(e['dur'] for e in events) / 1e3:.1f} ms of kernels in {wall * 1e3:.1f} ms wall); "
+        f"port kernels summed from the file (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sums.items() if v))
+    for line in summary["lines"][:1] + summary["lines"][-len(PORT_KERNELS):]:
+        log(f"[civitai] (g) {line}")
+    if not events or not any(sums.values()):
+        raise RuntimeError("the trace holds no kernel of the port")
+    del modules, pipe, adaptor, final, noise, trajectory, again, feats, lat, ctx
+    torch.cuda.empty_cache()
+
+    # (e) two training steps with the civitai_* config keys
+    steps = 2
+    cfg = dict(files, model_config=model_config, motion_lora_scale=LORA_SCALE, bf16=True,
+               sample_size=256, sample_n_frames=16, train_batch_size=1, max_train_steps=steps,
+               num_workers=2, remat=True, do_sanity_check=False, logger_interval=1,
+               checkpointing_steps=10 ** 9, global_seed=42,
+               output_dir=os.path.join(HERE, "build", "chip_smoke_civitai_train"))
+    torch.cuda.reset_peak_memory_stats()
+    run = counted("civitai_train", lambda: train.run(
+        cfg, sources=[_SeededPairs(steps, 16, 256)], tokenizer=tok), lambda r: steps)
+    epi = load_torch_state(paths["epi_module_ckpt"], "unet_trainable_dict")
+    now = dict(run["state"].model.named_parameters())
+    still = [k for k, t in epi.items() if torch.equal(now[k].cpu(), t.float())]
+    civitai_kept = [k for k in ("conv_in.weight", "mid_block.resnets.0.conv1.weight")
+                    if torch.equal(now[k], ldm["model.diffusion_model." + {
+                        "conv_in.weight": "input_blocks.0.0.weight",
+                        "mid_block.resnets.0.conv1.weight": "middle_block.0.in_layers.2.weight",
+                    }[k]].to(dev).to(now[k].dtype))]
+    launches = out["civitai_train"][0]
+    log(f"[civitai] (e) cli.train.run with civitai_base_model and civitai_lora_ckpt: losses "
+        f"[{', '.join(f'{x:.5f}' for x in run['losses'])}], s/step "
+        f"[{', '.join(f'{x:.3f}' for x in run['step_seconds'])}], peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; trainable tensors moved "
+        f"{len(epi) - len(still)}/{len(epi)}; frozen spatial weights the civitai file's "
+        f"{len(civitai_kept)}/2 checked; launches {launches}")
+    missing = [n for n in KERNELS if launches[n] == 0]
+    if (len(run["losses"]) != steps or not all(math.isfinite(x) for x in run["losses"])
+            or still or len(civitai_kept) != 2 or missing):
+        raise RuntimeError(f"civitai training: losses {run['losses']}, not moved {still[:5]}, "
+                           f"kernels not launched {missing}")
+    del run, now
+    torch.cuda.empty_cache()
+
+    # (f) the FLOPs of one UNet call of the sampler, over phase 5's median step
+    t0 = time.perf_counter()
+    flops = unet_apply_flops(4, 16, 32)
+    log(f"[civitai] (f) unet_apply_flops(4, 16, 32) on meta: {flops:.0f} FLOPs "
+        f"({time.perf_counter() - t0:.1f} s to count); over phase 5's median UNet step "
+        f"{unet_ms:.1f} ms: {flops / (unet_ms / 1e3) / 1e12:.1f} TFLOP/s achieved, "
+        f"{flops / (unet_ms / 1e3) / 989e12:.1%} of the bf16 peak of ops/work.py; card {smi}")
+
+    return out
+
+
 def _wrappers():
     """The op wrappers that launch each kernel; each carries its count."""
     from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn
@@ -1958,7 +2304,8 @@ def phase_slice(torch):
     if len(records) != 2 or missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
     unet_steps = sum(len(rec["unet_step_ms"]) for rec in records)
-    return launches, unet_steps
+    steady = [ms for rec in records for ms in rec["unet_step_ms"][1:]]
+    return launches, unet_steps, float(np.median(steady))
 
 
 def phase_nview(torch):
@@ -2041,13 +2388,13 @@ def _profile_nview(torch):
     bf16 (4 views, 16 frames, 256 px, accumulate_step 2, no decode), after a
     warm-up run: 4 calls at 8 CFG rows (the loop), then 2 at 16 (batched)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from cvd_tpu_torch.models.clip_text import CLIPTextConfig
     from cvd_tpu_torch.models.unet import UNetConfig
     from cvd_tpu_torch.models.vae import VAEConfig
     from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
     from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.utils.profiling import trace
 
     modules = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cuda",
                                      dtype=torch.bfloat16, random_full=True,
@@ -2064,7 +2411,7 @@ def _profile_nview(torch):
         pipe(**inputs)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace(_profile_dir(f"nview_{rows}rows")) as prof:
             t0 = time.perf_counter()
             pipe(**inputs)
             torch.cuda.synchronize()
@@ -2544,45 +2891,39 @@ def _folded(torch, np, data, n_frames):
             "F_mats": fold(s["F_mats"])}
 
 
+def _profile_dir(name):
+    """Where ``utils.profiling.trace`` writes a profiled window's Chrome
+    trace: under build/ (git-ignored; too large to bring back)."""
+    return os.path.join(HERE, "build", "profiles", name)
+
+
 def _report_profile(prof, wall, steps, what, path):
-    """Device time by kernel of a profiled window of ``steps`` steps: the sums
-    per step on the log, the whole table in chiprun_out/."""
-    events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    host_us = sum(e.self_cpu_time_total for e in events)
-    table = events.table(sort_by="self_device_time_total", row_limit=60)
+    """Device time by kernel of a profiled window of ``steps`` steps
+    (``utils.profiling.kernel_summary``): the sums per step on the log, the
+    whole table in chiprun_out/."""
+    from cvd_tpu_torch.utils.profiling import kernel_summary
+
+    summary = kernel_summary(prof, wall, steps, what, PORT_KERNELS)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, path), "w") as f:
         f.write(f"{what}: {steps} step(s), wall {wall * 1e3:.1f} ms, kernel time "
-                f"{device_us / 1e3:.1f} ms\n{table}\n")
-    log(f"[profile] {what}, per step: wall {wall * 1e3 / steps:.1f} ms, kernel time "
-        f"{device_us / 1e3 / steps:.1f} ms (idle share "
-        f"{1 - device_us / 1e3 / (wall * 1e3):.1%}), host self time "
-        f"{host_us / 1e3 / steps:.1f} ms")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
-        log(f"[profile] {e.self_device_time_total / 1e3 / steps:9.2f} ms  "
-            f"x{e.count / steps:<7.1f} {e.key[:90]}")
-    # the port's own kernels, summed over their instantiations
-    for family in PORT_KERNELS:
-        own = [e for e in kernels if family in e.key]
-        if own:
-            log(f"[profile] {sum(e.self_device_time_total for e in own) / 1e3 / steps:9.2f} ms  "
-                f"x{sum(e.count for e in own) / steps:<7.1f} every {family}*")
+                f"{summary['device_ms'] * steps:.1f} ms\n{summary['table']}\n")
+    for line in summary["lines"]:
+        log(f"[profile] {line}")
 
 
 def _profile_sampler(torch):
     """torch.profiler over three bf16 UNet steps of the sampler at SD1.5
     width (4 CFG rows x 16 frames, 256 px, no decode), after a warm-up run."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from cvd_tpu_torch.models.clip_text import CLIPTextConfig
     from cvd_tpu_torch.models.unet import UNetConfig
     from cvd_tpu_torch.models.vae import VAEConfig
     from cvd_tpu_torch.pipelines.common import PipelineModules
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
+    from cvd_tpu_torch.utils.profiling import trace
 
     modules = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cuda",
                                      dtype=torch.bfloat16, random_full=True,
@@ -2600,7 +2941,7 @@ def _profile_sampler(torch):
     inputs["generator"] = torch.Generator(device="cuda").manual_seed(0)  # the epi slope
     pipe(**inputs, num_inference_steps=steps, decode=False)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(_profile_dir("sampler_step")) as prof:
         t0 = time.perf_counter()
         pipe(**inputs, num_inference_steps=steps, decode=False)
         torch.cuda.synchronize()
@@ -2615,11 +2956,11 @@ def _profile_step(torch, state, batch, modules, gen, size):
     """torch.profiler over one remat-on step: device time by kernel, device
     busy time against the step's wall time (chiprun_out/)."""
     from cvd_tpu_torch.train.train_step import train_step
-    from torch.profiler import ProfilerActivity, profile
+    from cvd_tpu_torch.utils.profiling import trace
 
     train_step(state, batch, modules, gen, F_mat_size=size)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(_profile_dir("train_step")) as prof:
         t0 = time.perf_counter()
         train_step(state, batch, modules, gen, F_mat_size=size)
         torch.cuda.synchronize()
@@ -2653,22 +2994,23 @@ def main() -> int:
     t_nvcc, t_build = phase_build(torch)
     if "--ckpt" in sys.argv[1:]:
         timed(phase_reference)
-        sampler, _ = timed(phase_slice)
-        timed(phase_ckpt, sampler, sampler_requests=2)
+        sampler, _, unet_ms = timed(phase_slice)
+        timed(phase_ckpt, sampler, sampler_requests=2, unet_ms=unet_ms, smi=smi)
         log(f"[total] {time.perf_counter() - t_all:.1f} s; a partial run (--ckpt): no result")
         log(smi)
         return 4
     report = timed(phase_kernels)
     timed(phase_reference)
     timed(phase_train_reference)
-    sampler, unet_steps = timed(phase_slice)
+    sampler, unet_steps, unet_ms = timed(phase_slice)
     nview = timed(phase_nview)
     if profile:
         timed(_profile_sampler)
         timed(_profile_nview)
     train, train_steps, train_seconds = timed(phase_train, profile=profile)
     ((ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps)), options = timed(
-        phase_ckpt, sampler, sampler_requests=2, train_seconds=train_seconds)
+        phase_ckpt, sampler, sampler_requests=2, train_seconds=train_seconds, unet_ms=unet_ms,
+        smi=smi)
     training = timed(phase_training)
     # the training phase's entry-point runs count toward "launches"; its
     # per-kind means and the remat settings' loss_and_grads runs stand beside

@@ -11,10 +11,13 @@ widths with every tensor drawn. The runtime image LoRA
 (``--image_lora_ckpt``), the sync-LoRA (``--sync_lora_rank``), spatial
 extended attention and SparseCtrl (``--controlnet_ckpt``, built beside the
 UNet as ``modules.controlnet``; no pipeline consumes it, as in the JAX
-package) are the JAX package's options. ``--scan_layers`` is taken and does
-nothing (an XLA compile-time layer dedup). Model options whose code is not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md item,
-before anything is read: none is taken and ignored.
+package) are the JAX package's options. ``--civitai_base_model`` (an SD1.x
+single-file LDM checkpoint: ``.ckpt``, or ``.safetensors`` with the
+``safetensors`` package) replaces the SD folder's UNet, VAE and text-encoder
+weights, and ``--civitai_lora_ckpt`` (a kohya LoRA) is fused into the UNet
+at 0.6 (``io/ldm_convert.py``), after the other files, in the JAX package's
+order. ``--scan_layers`` is taken and does nothing (an XLA compile-time
+layer dedup).
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ SD15_WIDTHS = (UNetConfig(), VAEConfig(), CLIPTextConfig())
 # the options that name weights or their layout: --random-weights[-full] refuses them
 _WEIGHT_OPTIONS = ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
                    "epi_module_ckpt", "pose_adaptor_ckpt", "image_lora_ckpt", "controlnet_ckpt",
-                   "model_config")
+                   "civitai_base_model", "civitai_lora_ckpt", "model_config")
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
@@ -64,8 +67,13 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--image_lora_ckpt", default=None,
                    help="runtime image LoRA (CameraCtrl's RealEstate10K LoRA), kept "
                         "unfused on the spatial attentions")
-    p.add_argument("--civitai_lora_ckpt", default=None, help="not ported yet")
-    p.add_argument("--civitai_base_model", default=None, help="not ported yet")
+    p.add_argument("--civitai_lora_ckpt", default=None,
+                   help="kohya / civitai LoRA (lora_unet_* / lora_te_* pairs), fused into "
+                        "the UNet's weights at alpha 0.6 after every other file")
+    p.add_argument("--civitai_base_model", default=None,
+                   help="civitai / LDM single-file SD1.x model (.ckpt; .safetensors needs "
+                        "the safetensors package): its UNet, VAE and text encoder replace "
+                        "the SD folder's")
     p.add_argument("--random-weights", action="store_true", dest="random_weights",
                    help="tiny random-weight smoke mode (no checkpoints needed)")
     p.add_argument("--random-weights-full", action="store_true",
@@ -122,24 +130,6 @@ def resolve_device(requested: Optional[str]) -> torch.device:
     return torch.device("cuda")
 
 
-def refuse_unported(args) -> None:
-    """Raise for every model option whose code is not ported yet, naming its
-    ROADMAP.md item. Reads no file."""
-    def has(name, off=None):
-        value = getattr(args, name, off)
-        return value is not None and value is not False and value != off
-
-    checks = [
-        (has("civitai_base_model"), "--civitai_base_model: single-file LDM checkpoints "
-                                    "(io/ldm_convert.py)", "item 5"),
-        (has("civitai_lora_ckpt"), "--civitai_lora_ckpt: kohya / civitai LoRA fusion "
-                                   "(io/ldm_convert.py)", "item 5"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {item})")
-
-
 def unet_options(args, unet_cfg: UNetConfig) -> UNetConfig:
     """``unet_cfg`` with what the options set: the pose-adaptor scale, spatial
     extended attention, the sync-LoRA, the remat unit and policy (training's
@@ -189,8 +179,9 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
     (so a module that no checkpoint is given for starts as the reference's
     fresh one: without ``--epi_module_ckpt`` the epi modules are the
     identity, a LoRA's ``up`` zero) and then filled from ``--ori_model_path``
-    and the motion, epi, pose-adaptor and image-LoRA checkpoints, with the SD
-    folder's CLIP tokenizer.
+    and the motion, epi, pose-adaptor, image-LoRA and SparseCtrl checkpoints,
+    then the civitai base model and LoRA, with the SD folder's CLIP
+    tokenizer.
 
     ``vae_encoder`` and ``unet_dtype`` are what training adds: the VAE's
     encoder, and the UNet held in f32 whatever ``--bf16`` says (a checkpoint's
@@ -199,7 +190,6 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
     or the random-weights mode would give (a machine without the CLIP
     vocabulary). ``report``: a dict that receives, per checkpoint artifact,
     the keys consumed and the seconds taken."""
-    refuse_unported(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     random_full = getattr(args, "random_weights_full", False)
     generator = torch.Generator(device=device).manual_seed(0)
@@ -262,6 +252,21 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
             bool(getattr(args, "controlnet_simplified_embedding", False)), device, dtype)
         loaded["controlnet"] = {"keys": len(modules.controlnet.state_dict()),
                                 "seconds": time.perf_counter() - t0}
+    # the civitai base model and its LoRA come last, as in the JAX package
+    # (cvd_tpu/cli/build.py:245-252)
+    if getattr(args, "civitai_base_model", None):
+        from cvd_tpu_torch.io.ldm_convert import load_civitai_base_model
+
+        t0 = time.perf_counter()
+        keys = load_civitai_base_model(modules, args.civitai_base_model)
+        loaded["civitai_base_model"] = {"keys": sum(keys.values()),
+                                        "seconds": time.perf_counter() - t0}
+    if getattr(args, "civitai_lora_ckpt", None):
+        from cvd_tpu_torch.io.ldm_convert import apply_civitai_lora
+
+        t0 = time.perf_counter()
+        loaded["civitai_lora"] = {"keys": apply_civitai_lora(modules, args.civitai_lora_ckpt),
+                                  "seconds": time.perf_counter() - t0}
     for name, r in loaded.items():
         print(f"[build] {name}: {r['keys']} keys in {r['seconds']:.2f} s", flush=True)
     if report is not None:
@@ -376,7 +381,6 @@ def main(argv=None):
                         "full-size parameter shapes (no weights loaded)")
     args = p.parse_args(argv)
     if args.validate:
-        refuse_unported(args)
         raise SystemExit(validate_ckpts(args))
     p.error("nothing to do (pass --validate-ckpts)")
 

@@ -24,7 +24,7 @@ a gif. ``--save_trajectory`` writes ``poses/pose_img_<v>.png`` and
 the model is built). The run log is ``<out_root>/log_p0.txt``; it names the
 files that were not written and why. ``--no_lora_validation`` and
 ``--scan_layers`` are taken and do nothing, as in the JAX package;
-``--sharded`` is refused (ROADMAP.md, queue 1, item 5).
+``--sharded`` is refused (ROADMAP.md, queue 1, item 5.5).
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
     ``widths``: ``build_modules``'s, for checkpoint files narrower than
     SD1.5's."""
     from cvd_tpu_torch.cli.build import (
-        SD15_WIDTHS, build_modules, refuse_unported, resolve_device,
+        SD15_WIDTHS, build_modules, resolve_device,
     )
     from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
     from cvd_tpu_torch.pipelines.pab import PABConfig
@@ -79,10 +79,9 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
     )
     from cvd_tpu_torch.utils.visualize import have_matplotlib, save_trajectory_plot
 
-    refuse_unported(args)
     if args.sharded:
         raise NotImplementedError("--sharded: sampling over a mesh of devices is not ported "
-                                  "(ROADMAP.md, queue 1, item 5)")
+                                  "(ROADMAP.md, queue 1, item 5.5)")
     if args.image_width != args.image_height:
         raise SystemExit("the epipolar attention assumes a square token grid: "
                          "use --image_width == --image_height")

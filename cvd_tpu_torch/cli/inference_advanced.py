@@ -82,7 +82,7 @@ def _refuse(args) -> None:
         # the reference rejects this path too (attention_processor.py:622)
         raise NotImplementedError("--mono_direction is not supported")
     for flag, what in (("sharded", "sampling over a mesh of devices is not ported "
-                                   "(ROADMAP.md, queue 1, item 5)"),
+                                   "(ROADMAP.md, queue 1, item 5.5)"),
                        ("step_chunk", "the chunked scan is not ported: a Python loop has "
                                       "no use for it (ROADMAP.md, queue 1, item 1)")):
         if getattr(args, flag):
@@ -98,7 +98,7 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     place of the one the weights come with. ``widths``: ``build_modules``'s,
     for checkpoint files narrower than SD1.5's."""
     from cvd_tpu_torch.cli.build import (
-        SD15_WIDTHS, build_modules, refuse_unported, resolve_device,
+        SD15_WIDTHS, build_modules, resolve_device,
     )
     from cvd_tpu_torch.cli.inference import load_prompts
     from cvd_tpu_torch.geometry.plucker import ray_condition
@@ -110,7 +110,6 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     )
 
     _refuse(args)
-    refuse_unported(args)
     pab_config = None
     if args.pab:
         pab_config = PABConfig.from_string(args.pab_ranges) if args.pab_ranges else PABConfig()

@@ -54,8 +54,10 @@ the first run, reused after) and trains from their posterior moments
 ``validation_data``'s pose pair with the live weights every N steps
 (``validation_steps_num`` DDIM steps) into
 ``<output_dir>/validation/step-<N>.npy`` and, where imageio is installed,
-``step-<N>.gif`` and ``step-<N>-epi.png``. Not ported yet, and raising
-NotImplementedError (ROADMAP queue 1, item 5): ``civitai_*``.
+``step-<N>.gif`` and ``step-<N>-epi.png``. ``civitai_base_model`` and
+``civitai_lora_ckpt`` swap in a civitai single-file model and fuse a kohya
+LoRA, after the other files, as ``--civitai_*`` do (``cli/build.py``); the
+frozen UNet then holds the civitai weights.
 """
 from __future__ import annotations
 
@@ -103,12 +105,9 @@ def _model_args(cfg: dict) -> argparse.Namespace:
 
 def _refuse_unported(cfg: dict) -> None:
     """Raise for what the config asks and the port cannot do, before
-    anything is built or read: an option not ported yet
-    (NotImplementedError), an unknown ``dataset_name`` (SystemExit, as in the
-    JAX package) and remat settings that ``remat: false`` would ignore
+    anything is built or read: an unknown ``dataset_name`` (SystemExit, as in
+    the JAX package) and remat settings that ``remat: false`` would ignore
     (ValueError)."""
-    from cvd_tpu_torch.cli.build import refuse_unported
-
     name = (cfg.get("train_data") or {}).get("dataset_name", "realestate10k")
     if name not in _DATASETS:
         raise SystemExit(f"Unsupported dataset_name: {name!r} (one of {sorted(_DATASETS)})")
@@ -116,7 +115,6 @@ def _refuse_unported(cfg: dict) -> None:
                                         cfg.get("remat_unit", "block") != "block"):
         raise ValueError(f"remat_policy {cfg.get('remat_policy')!r} / remat_unit "
                          f"{cfg.get('remat_unit')!r} act only with remat: true (remat is off)")
-    refuse_unported(_model_args(cfg))
 
 
 def _datasets(cfg: dict, n_frames: int, size: int, seed: int) -> list:

@@ -75,6 +75,19 @@ def clip_rename(key: str) -> str:
     return key
 
 
+def clip_hf_name(key: str) -> str:
+    """``CLIPTextEncoder`` key -> transformers' (the inverse of
+    ``clip_rename``): the released file's name, and what a kohya
+    ``lora_te_*`` key names."""
+    if key == "position_embedding":
+        return "text_model.embeddings.position_embedding.weight"
+    if key.startswith("token_embedding"):
+        return "text_model.embeddings." + key
+    if key.startswith("layers."):
+        return "text_model.encoder." + key
+    return "text_model." + key
+
+
 @torch.no_grad()
 def merge_torch_state(
     module: nn.Module,

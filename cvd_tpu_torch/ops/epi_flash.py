@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from cvd_tpu_torch.ops import _build
+from cvd_tpu_torch.ops import PLAIN_DEVICES, _build
 from cvd_tpu_torch.ops.attention import attention_with_bias
 
 _SIGNATURE = {"epi_flash_fwd": [
@@ -234,7 +234,7 @@ def epi_flash_attention(
 ) -> torch.Tensor:
     """Epipolar cross-video attention in the native [B, N, C] layout."""
     geom = (norm_lines, coords, band, alpha)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return _plain(q, k, v, geom, kv_index, heads)
     if q.device.type != "cuda":
         raise ValueError(f"epi_flash_attention: no kernel for {q.device}")
@@ -250,7 +250,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int = 8) -> torch.Tensor:
     """Plain multi-head attention, q/k/v [B, L, C]; no [L, L] tensor in
     device memory and no head-split transposes."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return _plain(q, k, v, None, None, heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
@@ -275,7 +275,7 @@ def epi_flash_attention_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
     """(dq, dk, dv) of ``epi_flash_attention`` from the forward's saved out
     and lse [B, H, Lq] (kernel K6 on CUDA; autograd of ``_plain`` on the
     CPU, which needs neither)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return _plain_bwd(q, k, v, geom, kv_index, heads, g)
     grads = _launch_bwd(q, k, v, geom, kv_index, heads, out, lse, g)
     epi_flash_attention_bwd.launches += 1
@@ -284,7 +284,7 @@ def epi_flash_attention_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
 
 def flash_attention_bwd(q, k, v, geom, kv_index, heads, out, lse, g):
     """(dq, dk, dv) of ``flash_attention`` (kernel K6 without bias)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return _plain_bwd(q, k, v, None, None, heads, g)
     grads = _launch_bwd(q, k, v, None, None, heads, out, lse, g)
     flash_attention_bwd.launches += 1

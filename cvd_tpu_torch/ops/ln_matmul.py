@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from cvd_tpu_torch.ops import _build
+from cvd_tpu_torch.ops import PLAIN_DEVICES, _build
 from cvd_tpu_torch.ops.norms import _vjp_of
 
 _SIGNATURE = {"ln_matmul_fwd": [
@@ -173,7 +173,7 @@ def layer_norm_matmul(
     """(LayerNorm(x) @ W_i^T + b_i for each W_i), x [..., C], W_i [K_i, C];
     one fused kernel over the concatenated weights on CUDA."""
     sizes = [w.shape[0] for w in weights]
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         out = _reference(x, gamma, beta, weights, biases, eps)
     elif x.device.type == "cuda":
         inputs = (x, gamma, beta, *weights, *biases)

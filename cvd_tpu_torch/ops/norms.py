@@ -46,6 +46,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from cvd_tpu_torch.ops import PLAIN_DEVICES
+
 
 def _reference(x3: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                groups: int, eps: float, act: Optional[str]) -> torch.Tensor:
@@ -318,7 +320,7 @@ def group_norm(
     if act not in (None, "silu"):
         raise ValueError(f"act={act!r}")
     x3 = x.reshape(R, -1, C)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return _reference(x3, gamma, beta, num_groups, float(eps), act).reshape(x.shape)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: no kernel for {x.device}")

@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from cvd_tpu_torch.ops import _build
+from cvd_tpu_torch.ops import PLAIN_DEVICES, _build
 from cvd_tpu_torch.ops.epi_flash import _check_rows, _needs_grad
 
 _P, _L, _I = _build.P, _build.L, _build.I
@@ -192,7 +192,7 @@ def temporal_flash_attention(
     heads: int = 8,
 ) -> torch.Tensor:
     """Per-pixel attention over the frame axis in pixel-major layout."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return temporal_attention_plain(q, k, v, mask, heads)
     if q.device.type != "cuda":
         raise ValueError(f"temporal_flash_attention: no kernel for {q.device}")
@@ -208,7 +208,7 @@ def temporal_flash_attention_bwd(q, k, v, mask, heads, g):
     """(dq, dk, dv) of ``temporal_flash_attention`` for the output
     gradient ``g`` (kernel K7 on CUDA; autograd of the plain version on the
     CPU)."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             out = temporal_attention_plain(*leaves, mask, heads)

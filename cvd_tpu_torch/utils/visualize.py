@@ -1,7 +1,7 @@
-"""Camera trajectory plots and the epipolar sanity overlay (port of
-``save_trajectory_plot`` and ``check_fundamental`` in
-``cvd_tpu/utils/visualize.py``). ``check_fundamental`` is numpy only: the
-training loop's first-step sanity dump and its validation draw it.
+"""Camera trajectory plots, the epipolar sanity overlay and the learned
+correspondences (port of ``cvd_tpu/utils/visualize.py``).
+``check_fundamental`` and ``visualize_correspondence`` are numpy only: the
+training loop's first-step sanity dump and its validation draw the first.
 ``save_trajectory_plot`` needs matplotlib, imported inside it
 (``have_matplotlib`` says whether it can run)."""
 from __future__ import annotations
@@ -82,4 +82,51 @@ def check_fundamental(image_1: np.ndarray, image_2: np.ndarray, F_mat: np.ndarra
         if np.abs(F_mat).max() >= 1e-3 and (abs(a) + abs(b)) > 1e-8:
             dist = np.abs(a * xx + b * yy + c) / np.hypot(a, b)
             img2[dist < 1.5] = color
+    return np.concatenate([img1, img2], axis=1)
+
+
+def visualize_correspondence(
+    videos: np.ndarray,      # [2, F, H, W, 3] in [0, 1]
+    aux: dict,               # one epi layer's {"query": [B*F, N, C], "key": [B*F, N, C]}
+    F_mats: np.ndarray,      # [F, 3, 3] view 1 -> view 2 per frame
+    frame: Optional[int] = None,
+    n_points: int = 6,
+    rng: Optional[random.Random] = None,
+) -> np.ndarray:
+    """Debug image of the LEARNED cross-video correspondences (the
+    reference's missing ``tools/visualize_correspondence``, called at
+    train_epi_control.py:469 with (sample, aux, F_mats)): for a few query
+    pixels of view 1, the argmax q.k match in view 2 from an epi attention's
+    q / k maps (``UNet3DConditionModel(..., return_extras=True)``'s
+    ``epi_qk`` entries, as numpy), drawn over the true epipolar line, on
+    which a learned match should fall. Returns the side-by-side uint8 image
+    of ``frame`` (default the middle one)."""
+    rng = rng or random.Random(0)
+    videos = np.asarray(videos, np.float32)
+    _, F_len, H, W, _ = videos.shape
+    f = F_len // 2 if frame is None else frame
+    q = np.asarray(aux["query"], np.float32)
+    k = np.asarray(aux["key"], np.float32)
+    # rows are (video-major, frame): view 1's query row f attends to view 2's keys
+    qf, kf = q[f], k[f]                        # [N, C] each
+    N = qf.shape[0]
+    feat = int(round(N ** 0.5))
+    best = (qf @ kf.T).argmax(axis=1)          # each query's best key
+
+    img1 = (np.clip(videos[0, f], 0, 1) * 255).astype(np.uint8).copy()
+    img2 = (np.clip(videos[1, f], 0, 1) * 255).astype(np.uint8).copy()
+    s = H / feat
+    yy, xx = np.ogrid[:H, :W]
+    Fm = np.asarray(F_mats, np.float64)[f]
+    for _ in range(n_points):
+        color = [rng.randrange(256) for _ in range(3)]
+        qi = rng.randrange(N)
+        qx, qy = (qi % feat + 0.5) * s, (qi // feat + 0.5) * s
+        mx, my = (best[qi] % feat + 0.5) * s, (best[qi] // feat + 0.5) * s
+        img1[(yy - qy) ** 2 + (xx - qx) ** 2 <= 25] = color
+        img2[(yy - my) ** 2 + (xx - mx) ** 2 <= 25] = color
+        a, b, c = Fm @ np.array([qx, qy, 1.0])
+        if (abs(a) + abs(b)) > 1e-8:
+            dist = np.abs(a * xx + b * yy + c) / np.hypot(a, b)
+            img2[dist < 1.2] = color
     return np.concatenate([img1, img2], axis=1)

@@ -116,13 +116,27 @@ NOWHERE = dict(ori_model_path="/nonexistent/sd", motion_module_ckpt="/nonexisten
 # the options of REFUSED that are ported now: each is taken, and reaches the model
 PORTED = ("image_lora_ckpt", "image_lora_rank", "sync_lora_rank", "sync_lora_scale",
           "spatial_extended_attention", "controlnet_ckpt", "controlnet_simplified_embedding",
-          "remat_policy")
+          "remat_policy", "civitai_base_model", "civitai_lora_ckpt")
 
 
-def _check_ported(paths, tmp_path, name, value):
+@pytest.fixture(scope="module")
+def civitai(tmp_path_factory):
+    """A tiny civitai model and kohya LoRA (``test_torch_ldm_convert``'s):
+    (model path, LoRA path, {module: {key: tensor}} the model holds)."""
+    from test_torch_ldm_convert import write_tiny_civitai
+
+    model, lora, _, values = write_tiny_civitai(tmp_path_factory.mktemp("civitai"), seed=1)
+    return model, lora, values
+
+
+def _check_ported(paths, tmp_path, name, value, civitai):
     """Build from the tiny files with the option; what it must have set."""
     from cvd_tpu_torch.models.unet import UNet3DConditionModel
 
+    if name.startswith("civitai_"):
+        model, lora, values = civitai
+        value = model if name == "civitai_base_model" else lora
+        plain = _build(paths).unet.state_dict()
     if name == "image_lora_ckpt":
         with torch.device("meta"):
             shapes = UNet3DConditionModel(dataclasses.replace(
@@ -162,21 +176,32 @@ def _check_ported(paths, tmp_path, name, value):
         assert unet.config.remat_policy == value and not has_lora and not has_sync
     elif name == "controlnet_simplified_embedding":   # the layout, without a file: no model
         assert modules.controlnet is None and not has_lora and not has_sync
+    elif name == "civitai_base_model":   # the spatial UNet, the VAE and CLIP from the model
+        assert all(torch.equal(sd[k], v) for k, v in values["unet"].items())
+        assert all(torch.equal(modules.clip.state_dict()[k], v)
+                   for k, v in values["clip"].items())
+        assert all(torch.equal(v, plain[k]) for k, v in sd.items() if k not in values["unet"])
+    elif name == "civitai_lora_ckpt":   # fused over the SD folder's attention / ff weights
+        moved = {k for k, v in sd.items() if not torch.equal(v, plain[k])}
+        assert moved and all(k.endswith((".weight")) and k in values["unet"] for k in moved)
+        assert moved == {k for k in values["unet"]
+                         if k.endswith(("to_q.weight", "to_k.weight", "to_v.weight",
+                                        "to_out.0.weight", "proj_in.weight", "proj_out.weight",
+                                        "ff.net.0.proj.weight", "ff.net.2.weight"))}
     else:   # the image LoRA's rank without its file, sync scale 0 without a rank: no-ops
         assert not has_lora and not has_sync
 
 
 @pytest.mark.parametrize("option", REFUSED, ids=lambda o: next(iter(o)))
-def test_unported_model_options_raise_before_a_file_is_opened(option, paths, tmp_path):
+def test_unported_model_options_raise_before_a_file_is_opened(option, paths, tmp_path, civitai):
     """Every path points nowhere: a FileNotFoundError would mean that
     something was read before the option was refused. An option of PORTED is
     taken instead: a build from the tiny files with it has what it sets."""
-    from cvd_tpu_torch.cli.build import build_modules, refuse_unported
+    from cvd_tpu_torch.cli.build import build_modules
 
     name, value = next(iter(option.items()))
     if name in PORTED:
-        refuse_unported(model_args(NOWHERE, **option))
-        _check_ported(paths, tmp_path, name, value)
+        _check_ported(paths, tmp_path, name, value, civitai)
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, item"):
         build_modules(model_args(NOWHERE, **option), torch.device("cpu"))
@@ -245,22 +270,30 @@ class _Pairs:
 
 
 @pytest.mark.parametrize("entry", ["inference", "inference_advanced", "train"])
-def test_entry_points_refuse_unported_options_first(entry, tmp_path):
+def test_entry_points_refuse_unported_options_first(entry, paths, civitai, tmp_path):
+    """The civitai options, refused until they were ported, are taken by
+    every entry point: each runs from the tiny files with a civitai model and
+    a kohya LoRA over them."""
     from cvd_tpu_torch.cli import inference, inference_advanced, train
 
+    model, lora, values = civitai
+    files = dict(paths, civitai_base_model=model, civitai_lora_ckpt=lora)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "inference":
-            inference.main(_inference_args(NOWHERE, out,
-                                           civitai_base_model="/nonexistent/m.safetensors",
-                                           caption_file="/nonexistent/prompts.json"))
-        elif entry == "inference_advanced":
-            inference_advanced.main(_advanced_args(NOWHERE, out,
-                                                   civitai_base_model="/nonexistent/m",
-                                                   caption_file="/nonexistent/prompts.json"))
-        else:
-            train.run(_train_cfg(NOWHERE, out, civitai_base_model="/nonexistent/m.safetensors"))
-    assert not out.exists()
+    if entry == "inference":
+        (v,) = [r["videos"] for r in inference.main(
+            _inference_args(files, out), tokenizer=_tokenizer(), widths=SMOKE_WIDTHS)[:1]]
+    elif entry == "inference_advanced":
+        (v,) = [r["videos"] for r in inference_advanced.main(
+            _advanced_args(files, out), tokenizer=_tokenizer(), widths=SMOKE_WIDTHS)[:1]]
+    else:
+        run = train.run(_train_cfg(files, out), sources=[_Pairs()], tokenizer=_tokenizer(),
+                        widths=SMOKE_WIDTHS)
+        assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all()
+        frozen = run["state"].model.state_dict()
+        assert torch.equal(frozen["conv_in.weight"],
+                           values["unet"]["conv_in.weight"].to(frozen["conv_in.weight"].dtype))
+        return
+    assert np.isfinite(v).all() and v.std() > 0 and out.exists()
 
 
 def test_no_weights_source_raises_naming_both():
@@ -393,6 +426,8 @@ def test_train_run_from_checkpoint_files(paths, tmp_path):
 
 
 def test_refuse_unported_keeps_three_checkpoint_keys(tmp_path):
+    """The config keys of the three checkpoint options beside the entry
+    points' (the two civitai ones are taken since they were ported)."""
     from cvd_tpu_torch.cli import train
 
     assert train._CHECKPOINT_KEYS == ("image_lora_ckpt", "civitai_lora_ckpt",

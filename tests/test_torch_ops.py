@@ -332,13 +332,24 @@ def test_attention_with_bias_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with no kernel and no plain path."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_ops_raise_on_a_device_without_a_kernel():
-    """A wrapper runs its plain version only for CPU tensors."""
+    """A wrapper runs its plain version only for tensors on
+    ``ops.PLAIN_DEVICES`` (the CPU, and ``meta`` for counting); on any other
+    device but CUDA it raises."""
     from cvd_tpu_torch.ops.norms import group_norm
 
-    x = torch.zeros(2, 4, 32, device="meta")
-    with pytest.raises(ValueError):
-        group_norm(x, torch.ones(32, device="meta"), torch.zeros(32, device="meta"), 8)
+    x = torch.Tensor._make_subclass(_Elsewhere, torch.zeros(2, 4, 32))
+    assert x.device.type == "xpu"
+    with pytest.raises(ValueError, match="no kernel for xpu"):
+        group_norm(x, torch.ones(32), torch.zeros(32), 8)
 
 
 def _fold_inputs(seed=8, n_proj=3, c=64):

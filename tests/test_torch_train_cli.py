@@ -181,7 +181,8 @@ def test_training_options_are_taken_or_refused(tmp_path, re10k_root, webvid_root
     is read only when it runs; WebVid data gives an unposed step; remat_policy
     with remat on is taken (without it, it is refused: it would do nothing);
     process workers load the step. Without random weights the build asks for
-    checkpoints; the civitai options are not ported yet."""
+    checkpoints; a civitai option is a weight file, which random weights
+    refuse as they refuse every weight option (it would be ignored)."""
     from test_torch_multihost import _within
 
     from cvd_tpu_torch.cli import train
@@ -205,8 +206,7 @@ def test_training_options_are_taken_or_refused(tmp_path, re10k_root, webvid_root
         return
     cfg = _config(tmp_path, "/nonexistent")
     cfg.update(override)
-    error = NotImplementedError if key == "civitai_lora_ckpt" else ValueError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         train.run(cfg)
 
 
