@@ -5,6 +5,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --ckpt     (phases 1, 2, 4, 5, 8, 9, 10 and 12 only; prints no result, exit 4)
+    python3 chip_smoke.py --mesh     (four cards: phases 1, 2 and ``mesh4``; prints no result, exit 5)
 
 Phases (any failure raises and exits non-zero):
 
@@ -182,10 +183,33 @@ Phases (any failure raises and exits non-zero):
    step, as achieved TFLOP/s beside the card's name and power limit. K1-K5
    launched on (c) and (d), K1-K7 on (e), each path counted from 0.
 
+mesh (after phase 6): (a) K1 and K3 at the shapes a rank of a sharded
+   sampler hands them, against their plain versions in f32 (TF32 off) and
+   bf16 with phase 3's limits, timed in bf16 beside the unsharded shapes:
+   K1 with k/v gathered over the rows (2x and 4x the query rows) and the
+   half swap's or a random 4-view matching's route remapped to the
+   gathered block, K3 with 4 and 8 query frames of a frames shard against
+   16 key frames, without a mask and with the causal mask's rows of the
+   shard; (b) ``cli.inference --sharded`` and (c) ``cli.inference_advanced
+   --sharded`` (as a loop and batched) as a world of one over NCCL at the
+   sizes of phases 5 and 6: videos bit for bit those of phases 5 and 6,
+   every forward kernel launched, launches per UNet call; ``[mesh]`` lines.
+
+mesh4 (``--mesh`` only; raises below 4 cards): ``torch.distributed.run``
+   starts four processes of this script (``--mesh-worker``), NCCL over the
+   four cards. The narrow model (f32, TF32 off, every tensor drawn, 256
+   px, 4 frames, 2 steps) on the meshes (4, 1), (2, 2) and (1, 4): the
+   2-view sampler and the 4-view sampler with fix_firstframe as a loop and
+   batched, each >= 60 dB against one card and bit-equal on the ranks;
+   then both CLIs at SD1.5 width (bf16) with ``--sharded`` on their own
+   mesh (4, 1), against the same requests on one card: s a request, ms a
+   UNet call (the first apart), peak GiB per card, PSNR (``[mesh4]``
+   lines; PSNR reported, not a gate).
+
 The second-to-last line is the per-kernel JSON record (times, bound,
 library yardstick, launches summed over the main paths and per UNet step or
 call of each sampler and per training step, and each path of phases 9, 10,
-11 and 12); the last line is ``{"ok": true, "device": {...}}``.
+11, 12 and mesh; K1 and K3 also carry phase mesh's timings); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -383,9 +407,23 @@ def _nview_route(torch, g, views, groups, frames=16):
                       for i in range(groups)])
 
 
-def _cases(torch, dtype, g):
+def _block_route(torch, route, shape, rank, videos, frames=16):
+    """The global route of ``videos`` x ``frames`` rows as rank ``rank`` of a
+    ("rows", "frames") mesh of ``shape`` hands it to K1: its block rows'
+    partners as positions in the rows-gathered block."""
+    from cvd_tpu_torch.parallel.mesh import Mesh
+    from cvd_tpu_torch.parallel.shard_ops import local_route
+
+    R, Cf = shape
+    mesh = Mesh(("rows", "frames"), {"rows": R, "frames": Cf},
+                {"rows": rank // Cf, "frames": rank % Cf}, rank, torch.device("cuda"), {})
+    return local_route(route.to("cuda"), mesh, videos // R, frames // Cf)
+
+
+def _cases(torch, dtype, g, mesh=False):
     """The comparisons at the main-path shapes (256 px, 16 frames, 2 views =
-    4 CFG rows) and at the kernels' edges."""
+    4 CFG rows) and at the kernels' edges; with ``mesh``, K1 and K3 at the
+    shapes a rank of a sharded sampler hands them (phase ``mesh``)."""
     import torch.nn.functional as F
 
     from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn, work
@@ -449,6 +487,8 @@ def _cases(torch, dtype, g):
             library_call="scaled_dot_product_attention",
             work=(*work.attention_fwd(B, 8, N, N, D, size), "bfloat16"))]
 
+    if mesh:
+        return _mesh_cases(torch, g, randn, epi_launch, epi_library, temporal_case, size)
     cases = []
     for feat, C in ((32, 320), (16, 640), (8, 1280)):
         N = feat * feat
@@ -565,6 +605,63 @@ def _cases(torch, dtype, g):
             library_call="2 calls: layer_norm + linear",
             work=(*work.ln_matmul(T, C, sum(Ks), size), "bfloat16")))
     return cases + _bwd_cases(torch, dtype, g)
+
+
+def _mesh_cases(torch, g, randn, epi_launch, epi_library, temporal_case, size):
+    """K1 and K3 as a rank of a sharded sampler runs them at SD1.5 width (256
+    px, 16 frames, res 32): K1 on its block's query rows against k/v
+    gathered over the rows (2x and 4x the queries), routed by the remapped
+    half swap (2 views, 4 CFG rows) and a random matching of 4 views (8 CFG
+    rows); K3 with 4 and 8 query frames of a frames shard against all 16 key
+    frames, without a mask and with the causal mask's rows of the shard. The
+    unsharded shapes beside them, timed in the same turns."""
+    from cvd_tpu_torch.models.motion import causal_temporal_mask
+    from cvd_tpu_torch.ops import epi_flash, work
+
+    feat, C, Fr = 32, 320, 16
+    N = feat * feat
+    half_swap = (torch.arange(4 * Fr) + 2 * Fr) % (4 * Fr)
+    matching = _nview_route(torch, g, 4, 1, Fr)
+    cases = []
+    for what, route, videos, shape, rank, timed in (
+            ("half swap", half_swap, 4, (1, 1), 0, True),
+            ("half swap", half_swap, 4, (2, 2), 3, False),
+            ("half swap", half_swap, 4, (4, 1), 1, True),
+            ("4-view matching", matching, 8, (2, 2), 1, False),
+            ("4-view matching", matching, 8, (4, 1), 2, True)):
+        rows = _block_route(torch, route, shape, rank, videos)
+        B, Bk = rows.shape[0], videos * Fr // shape[1]
+        q, k, v = randn(B, N, C), randn(Bk, N, C), randn(Bk, N, C)
+        geom, rows = _epi_inputs(torch, g, B, feat, rows)
+        label = (f"B{B} Bk{Bk} N{N} C{C} h8 {what}"
+                 + (f", rank {rank} of mesh {shape}" if shape != (1, 1) else ", unsharded"))
+        cases.append(_case(
+            "epi_flash_attention", label,
+            lambda q=q, k=k, v=v, geom=geom, rows=rows:
+            epi_flash.epi_flash_attention(q, k, v, *geom, heads=8, kv_index=rows),
+            lambda q=q, k=k, v=v, geom=geom, rows=rows: epi_flash._plain(q, k, v, geom, rows, 8),
+            timed, launch=lambda q=q, k=k, v=v, geom=geom, rows=rows:
+            epi_launch(q, k, v, geom, rows),
+            library=lambda q=q, k=k, v=v, geom=geom, rows=rows: epi_library(q, k, v, geom, rows),
+            library_call="scaled_dot_product_attention, attn_mask = the bias; excludes "
+                         "materialising the bias and gathering k/v by kv_index",
+            work=(*work.attention_fwd(B, 8, N, N, C // 8, size, True, True), "bfloat16")))
+    causal = causal_temporal_mask("causal", Fr).to("cuda")
+    for B, F_loc, off, timed in ((4, 16, 0, True), (4, 4, 4, True), (2, 8, 8, True)):
+        for masked in (False, True):
+            # q a view of the fused projection of the local frames, k / v gathered
+            q = randn(B, N, F_loc, 3 * C).split(C, -1)[0]
+            k, v = randn(B, N, Fr, C), randn(B, N, Fr, C)
+            mask = causal[off:off + F_loc] if masked else None
+            case = temporal_case(
+                f"B{B} N{N} F{F_loc} G{Fr} C{C} h8 {'causal rows ' if masked else 'no mask'}"
+                f"{f'{off}-{off + F_loc}' if masked else ''}"
+                + (", frames shard" if F_loc < Fr else ", unsharded"),
+                [q, k, v], mask, 8, timed and not masked)
+            case["work"] = (*work.temporal_fwd(B, N, F_loc, C, size, masked, G=Fr),
+                            "bfloat16" if size == 2 else "float32")
+            cases.append(case)
+    return cases
 
 
 def _grads(torch, fn, xs, dout):
@@ -752,7 +849,10 @@ def _time_case(torch, case):
                 bound_by=by, timed_shape=case["label"])
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, mesh=False):
+    """Every case of ``_cases`` (with ``mesh``: the sharded shapes of phase
+    ``mesh``) in f32 with TF32 off and in bf16, against the plain versions;
+    the timed bf16 cases in turns. -> {kernel: its record's numbers}."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {name: {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "err_over_limit": 0.0,
@@ -760,7 +860,7 @@ def phase_kernels(torch):
     failures = []
     for dtype, tol, key in ((torch.float32, TOL_F32, "_f32"), (torch.bfloat16, TOL_BF16, "")):
         g = torch.Generator(device="cuda").manual_seed(0)
-        for case in _cases(torch, dtype, g):
+        for case in _cases(torch, dtype, g, mesh):
             name, label = case["name"], case["label"]
             with torch.no_grad():
                 got, want = case["kernel"](), case["plain"]()
@@ -2265,21 +2365,44 @@ def _wrappers():
             "temporal_flash_attention_bwd": temporal_attn.temporal_flash_attention_bwd}
 
 
+def _slice_argv(out_root):
+    """Phase 5's request: ``cli.inference`` at SD1.5 width, bf16, 256 px, 16
+    frames, 3 steps, the two prompts of assets/example_prompts.json."""
+    assets = os.path.join(HERE, "assets")
+    return ["--random-weights-full", "--bf16", "--image_height", "256", "--image_width", "256",
+            "--video_length", "16", "--num_inference_steps", "3",
+            "--caption_file", os.path.join(assets, "example_prompts.json"),
+            "--use_negative_prompt",
+            "--pose_file_0", os.path.join(assets, "pose_files", "example_dolly.txt"),
+            "--pose_file_1", os.path.join(assets, "pose_files", "example_arc.txt"),
+            "--out_root", out_root]
+
+
+def _nview_argv(out_root):
+    """Phase 6's request: ``cli.inference_advanced`` at SD1.5 width, bf16, 256
+    px, 16 frames, 4 views, 3 steps, multistep 2, accumulate 2, the first
+    prompt (written to ``out_root``)."""
+    os.makedirs(out_root, exist_ok=True)
+    with open(os.path.join(HERE, "assets", "example_prompts.json")) as f:
+        prompts = json.load(f)
+    one_prompt = os.path.join(out_root, "prompt.json")
+    with open(one_prompt, "w") as f:
+        json.dump({"captions": prompts["captions"][:1],
+                   "negative_prompts": prompts["negative_prompts"][:1]}, f)
+    return ["--random-weights-full", "--bf16", "--image_height", "256", "--image_width", "256",
+            "--video_length", "16", "--view_num", "4", "--cam_pattern", "circle",
+            "--num_inference_steps", "3", "--multistep", "2", "--accumulate_step", "2",
+            "--caption_file", one_prompt, "--use_negative_prompt", "--out_root", out_root]
+
+
 def phase_slice(torch):
+    """-> (launches, UNet steps, median steady step ms, the requests' videos)."""
     import numpy as np
 
     from cvd_tpu_torch.cli import inference
 
-    assets = os.path.join(HERE, "assets")
-    args = inference.build_parser().parse_args([
-        "--random-weights-full", "--bf16", "--image_height", "256", "--image_width", "256",
-        "--video_length", "16", "--num_inference_steps", "3",
-        "--caption_file", os.path.join(assets, "example_prompts.json"),
-        "--use_negative_prompt",
-        "--pose_file_0", os.path.join(assets, "pose_files", "example_dolly.txt"),
-        "--pose_file_1", os.path.join(assets, "pose_files", "example_arc.txt"),
-        "--out_root", os.path.join(HERE, "build", "chip_smoke_out"),
-    ])
+    args = inference.build_parser().parse_args(
+        _slice_argv(os.path.join(HERE, "build", "chip_smoke_out")))
     wrappers = _wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2305,7 +2428,7 @@ def phase_slice(torch):
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
     unet_steps = sum(len(rec["unet_step_ms"]) for rec in records)
     steady = [ms for rec in records for ms in rec["unet_step_ms"][1:]]
-    return launches, unet_steps, float(np.median(steady))
+    return launches, unet_steps, float(np.median(steady)), [rec["videos"] for rec in records]
 
 
 def phase_nview(torch):
@@ -2313,25 +2436,14 @@ def phase_nview(torch):
     16 frames, bf16, 3 DDIM steps, multistep 2, accumulate_step 2, the first
     prompt of assets/example_prompts.json; as a loop (10 UNet calls at 8 CFG
     rows), then with ``accumulate_batched`` (5 calls at 16 rows).
-    -> {variant: (launches, UNet calls)}."""
+    -> ({variant: (launches, UNet calls)}, {variant: videos})."""
     import numpy as np
 
     from cvd_tpu_torch.cli import inference_advanced
     from cvd_tpu_torch.models import epi
 
-    out_root = os.path.join(HERE, "build", "chip_smoke_nview")
-    os.makedirs(out_root, exist_ok=True)
-    with open(os.path.join(HERE, "assets", "example_prompts.json")) as f:
-        prompts = json.load(f)
-    one_prompt = os.path.join(out_root, "prompt.json")
-    with open(one_prompt, "w") as f:
-        json.dump({"captions": prompts["captions"][:1],
-                   "negative_prompts": prompts["negative_prompts"][:1]}, f)
-    args = inference_advanced.build_parser().parse_args([
-        "--random-weights-full", "--bf16", "--image_height", "256", "--image_width", "256",
-        "--video_length", "16", "--view_num", "4", "--cam_pattern", "circle",
-        "--num_inference_steps", "3", "--multistep", "2", "--accumulate_step", "2",
-        "--caption_file", one_prompt, "--use_negative_prompt", "--out_root", out_root])
+    args = inference_advanced.build_parser().parse_args(
+        _nview_argv(os.path.join(HERE, "build", "chip_smoke_nview")))
 
     # what K1 is handed: count the calls whose route is not the 2-view half swap
     kernel, other_routes = epi.epi_flash_attention, []
@@ -2343,7 +2455,7 @@ def phase_nview(torch):
         return kernel(q, k, v, *geom, heads=heads, kv_index=kv_index)
 
     wrappers = _wrappers()
-    results = {}
+    results, videos = {}, {}
     epi.epi_flash_attention = watched
     try:
         for variant, batched, calls, rows in (("loop", False, 10, 8), ("batched", True, 5, 16)):
@@ -2378,9 +2490,268 @@ def phase_nview(torch):
                                    f"kernels not launched {missing}, K1 calls off the half swap "
                                    f"{routed}")
             results[variant] = (launches, len(ms))
+            videos[variant] = v
     finally:
         epi.epi_flash_attention = kernel
-    return results
+    return results, videos
+
+
+class _TorchrunEnv:
+    """torchrun's variables for a world of one (a free port) inside a
+    ``with`` block; what they replaced comes back after it."""
+
+    def __enter__(self):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        self.saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _sharded_run(torch, wrappers, cli, argv, unsharded, what, calls_per_request, **kw):
+    """One ``--sharded`` entry-point run, counted from 0: its videos against
+    ``unsharded`` (a list, one a request) bit for bit. -> (launches, UNet calls)."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = cli.main(cli.build_parser().parse_args(argv + ["--sharded", "--device", "cuda"]),
+                       **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    calls = sum(len(rec["unet_step_ms"]) for rec in records)
+    equal = [np.array_equal(rec["videos"], v) for rec, v in zip(records, unsharded)]
+    ms = [x for rec in records for x in rec["unet_step_ms"]]
+    per_request = ", ".join(f"{rec['seconds']:.2f}" for rec in records)
+    log(f"[mesh] {what}: {len(records)} request(s) in {seconds:.2f} s with the build, "
+        f"{per_request} s a request, UNet calls "
+        f"[{', '.join(f'{x:.1f}' for x in ms)}] ms, peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per UNet call "
+        f"{ {n: round(launches[n] / calls, 1) for n in FORWARD} }; videos bit for bit those "
+        f"of the unsharded run: {equal}")
+    missing = [n for n in FORWARD if launches[n] == 0]
+    if (len(records) != len(unsharded) or not all(equal) or missing
+            or calls != calls_per_request * len(records)):
+        raise RuntimeError(f"{what}: videos equal {equal}, kernels not launched {missing}, "
+                           f"{calls} UNet calls")
+    return launches, calls
+
+
+def phase_mesh(torch, slice_videos, nview_videos):
+    """(a) K1 and K3 at the sharded shapes (``_mesh_cases``); (b)
+    ``cli.inference --sharded`` as a world of one over NCCL at phase 5's size;
+    (c) ``cli.inference_advanced --sharded`` at phase 6's, as a loop and
+    batched: the videos bit for bit those of phases 5 and 6 (a world of one
+    shards nothing). The three runs share one NCCL group, destroyed at the
+    end. -> (the kernel report of (a), {path: (launches, UNet calls)})."""
+    import torch.distributed as dist
+
+    from cvd_tpu_torch.cli import inference, inference_advanced
+    from cvd_tpu_torch.parallel.mesh import init_distributed
+
+    t0 = time.perf_counter()
+    report = phase_kernels(torch, mesh=True)
+    log(f"[time] mesh (a): {time.perf_counter() - t0:.1f} s")
+    wrappers = _wrappers()
+    out = {}
+    with _TorchrunEnv():
+        init_distributed("cuda", "--sharded", "chip_smoke.py")
+        try:
+            t0 = time.perf_counter()
+            out["sampler"] = _sharded_run(
+                torch, wrappers, inference,
+                _slice_argv(os.path.join(HERE, "build", "chip_smoke_mesh")), slice_videos,
+                "(b) cli.inference --sharded, a world of one", 3)
+            log(f"[time] mesh (b): {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            argv = _nview_argv(os.path.join(HERE, "build", "chip_smoke_mesh_nview"))
+            for variant, batched, calls in (("loop", False, 10), ("batched", True, 5)):
+                out[f"nview_{variant}"] = _sharded_run(
+                    torch, wrappers, inference_advanced, argv, [nview_videos[variant]],
+                    f"(c) cli.inference_advanced --sharded, a world of one, {variant}", calls,
+                    accumulate_batched=batched)
+            log(f"[time] mesh (c): {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    return report, out
+
+
+MESHES = ((4, 1), (2, 2), (1, 4))
+
+
+def _narrow_mesh_runs(torch, np, rank):
+    """The narrow model (f32, TF32 off, every tensor drawn) at 256 px, 4
+    frames, 2 steps: the 2-view sampler and the 4-view sampler (multistep 2,
+    accumulate 2, fix_firstframe) as a loop and batched, on one card (rank
+    0) and sharded over each of ``MESHES``: >= 60 dB, bit-equal on every rank."""
+    import torch.distributed as dist
+
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.parallel.mesh import create_mesh, replicate
+    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device=dev,
+                               generator=torch.Generator().manual_seed(0), random_full=True)
+    rng = np.random.default_rng(0)
+    V, Fr, S = 4, 4, 256
+    ids = dict(prompt_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+               negative_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+               num_inference_steps=2, decode=False)
+    two = dict(ids, plucker=torch.from_numpy(rng.standard_normal((2, Fr, S, S, 6)).astype(
+        np.float32)), F_mats=torch.from_numpy((rng.standard_normal((2, Fr, 3, 3)) * 1e-3).astype(
+            np.float32)), latents=torch.from_numpy(rng.standard_normal(
+                (2, Fr, S // 8, S // 8, 4)).astype(np.float32)))
+    plucker, c2w, K = _nview_cameras(np, torch, V, Fr, S)
+    nview = dict(ids, plucker=plucker, c2w=c2w, K_mats=K, multistep=2, accumulate_step=2)
+
+    def run(name, mesh=None):
+        if name == "2-view":
+            return SimplePipeline(m, F_mat_size=S, rand_slope_ff=False, mesh=mesh)(**two)
+        pipe = AdvancedPipeline(m, F_mat_size=S, rand_slope_ff=False, fix_firstframe=True,
+                                accumulate_batched=name.endswith("batched"), mesh=mesh)
+        return pipe(**nview, generator=torch.Generator().manual_seed(7))
+
+    names = ("2-view", "4-view loop", "4-view batched")
+    with torch.no_grad():
+        want = {n: run(n).cpu().numpy() for n in names} if rank == 0 else {}
+        for shape in MESHES:
+            mesh = create_mesh(shape, ("rows", "frames"))
+            replicate(m.unet, mesh)
+            for n in names:
+                got = run(n, mesh)
+                every = [torch.empty_like(got) for _ in range(mesh.size)]
+                dist.all_gather(every, got)
+                same = all(torch.equal(e, got) for e in every)
+                if rank == 0:
+                    snr = _snr_db(np, want[n], got.cpu().numpy())
+                    log(f"[mesh4] narrow f32 {n}, mesh {shape}: against one card "
+                        f"{snr:.1f} dB, bit-equal on the 4 ranks: {same}")
+                    if not (snr >= 60.0 and same):
+                        raise RuntimeError(f"narrow {n} on {shape}: {snr:.1f} dB, same {same}")
+
+
+def _call_times(np, records) -> str:
+    """s a request, the first UNet call and the median of the others."""
+    ms = [x for rec in records for x in rec["unet_step_ms"]]
+    per_request = ", ".join(f"{rec['seconds']:.2f}" for rec in records)
+    return (f"{per_request} s a request, first UNet call {ms[0]:.1f} ms, median after it "
+            f"{float(np.median(ms[1:])):.1f} ms")
+
+
+def _sd15_mesh_runs(torch, np, rank):
+    """The two CLIs at SD1.5 width (bf16) with ``--sharded`` on their own mesh
+    (4 cards: (4, 1)) against the same requests on one card (rank 0): s a
+    request, ms a UNet call (the first apart, the median after it), peak GiB
+    on each card, PSNR of the videos (``cli/eval_parity.psnr``)."""
+    import torch.distributed as dist
+
+    from cvd_tpu_torch.cli import eval_parity, inference, inference_advanced
+
+    runs = (("2-view", inference, _slice_argv, {}),
+            ("4-view loop", inference_advanced, _nview_argv, {"accumulate_batched": False}),
+            ("4-view batched", inference_advanced, _nview_argv, {"accumulate_batched": True}))
+    one = {}
+    if rank == 0:
+        for name, cli, argv, kw in runs:
+            records = cli.main(cli.build_parser().parse_args(
+                argv(os.path.join(HERE, "build", "mesh4_one")) + ["--device", "cuda:0"]), **kw)
+            one[name] = records
+            log(f"[mesh4] SD1.5 {name} on one card: {_call_times(np, records)}")
+            torch.cuda.empty_cache()
+    for name, cli, argv, kw in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        records = cli.main(cli.build_parser().parse_args(
+            argv(os.path.join(HERE, "build", f"mesh4_rank{rank}")) + ["--sharded", "--device",
+                                                                      "cuda"]), **kw)
+        torch.cuda.synchronize()
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, torch.cuda.max_memory_allocated() / 2 ** 30)
+        if rank == 0:
+            # PSNR per view and frame, averaged over the request
+            psnr = [float(np.mean([eval_parity.psnr(a, b) for a, b in
+                                   zip(r["videos"].reshape((-1,) + r["videos"].shape[2:]),
+                                       o["videos"].reshape((-1,) + o["videos"].shape[2:]))]))
+                    for r, o in zip(records, one[name])]
+            peak = ", ".join(f"{p:.2f}" for p in peaks)
+            log(f"[mesh4] SD1.5 {name} --sharded on mesh {{'rows': 4, 'frames': 1}}: "
+                f"{_call_times(np, records)}, peak allocated per card [{peak}] GiB, PSNR "
+                f"against one card {', '.join(f'{p:.2f}' for p in psnr)} dB")
+            if not all(np.isfinite(r["videos"]).all() for r in records):
+                raise RuntimeError(f"SD1.5 {name}: videos not finite")
+        torch.cuda.empty_cache()
+
+
+def mesh_worker() -> int:
+    """One of the four processes of ``--mesh`` (started by torchrun)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from cvd_tpu_torch.parallel.mesh import init_distributed
+
+    rank, world, _ = init_distributed("cuda", "--mesh", "chip_smoke.py")
+    try:
+        t0 = time.perf_counter()
+        _narrow_mesh_runs(torch, np, rank)
+        if rank == 0:
+            log(f"[time] mesh4 narrow: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _sd15_mesh_runs(torch, np, rank)
+        if rank == 0:
+            log(f"[time] mesh4 SD1.5: {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_cards(torch) -> None:
+    """``--mesh``: four processes over four cards (torchrun), ``mesh_worker``
+    in each; raises unless all four end with 0."""
+    import signal
+    import socket
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise RuntimeError(f"--mesh needs 4 cards, {n} visible")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "4",
+           "--master_addr", "localhost", "--master_port", str(port),
+           os.path.join(HERE, "chip_smoke.py"), "--mesh-worker"]
+    proc = subprocess.Popen(cmd, cwd=HERE, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=1100)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if rc != 0:
+        raise RuntimeError(f"--mesh: torchrun ended with {rc}")
 
 
 def _profile_nview(torch):
@@ -2793,8 +3164,6 @@ def _training_multihost(torch):
     16 frames, remat on) against the same run without it: the losses bit for
     bit; the peak memory of each run.
     -> (launches of the multihost run, steps)."""
-    import socket
-
     import torch.distributed as dist
 
     from cvd_tpu_torch.cli import train
@@ -2821,23 +3190,10 @@ def _training_multihost(torch):
 
     wrappers = _wrappers()
     plain = run("chip_smoke_plain")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
-               MASTER_PORT=str(port))
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     for w in wrappers.values():
         w.launches = 0
-    try:
+    with _TorchrunEnv():
         multi = run("chip_smoke_multi", multihost=True)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     launches = {n: w.launches for n, w in wrappers.items()}
     log(f"[training] (d) --multihost as a world of one over NCCL (rank {multi[2]} of "
         f"{multi[3]}), SD1.5 width, bf16 frozen, {S} px, {Fr} frames, remat on: losses "
@@ -2974,6 +3330,8 @@ def main() -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 1
+    if "--mesh-worker" in sys.argv[1:]:
+        return mesh_worker()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2992,9 +3350,14 @@ def main() -> int:
 
     smi = phase_device(torch)
     t_nvcc, t_build = phase_build(torch)
+    if "--mesh" in sys.argv[1:]:
+        timed(mesh_cards)
+        log(f"[total] {time.perf_counter() - t_all:.1f} s; the four-card run (--mesh): no result")
+        log(smi)
+        return 5
     if "--ckpt" in sys.argv[1:]:
         timed(phase_reference)
-        sampler, _, unet_ms = timed(phase_slice)
+        sampler, _, unet_ms, _ = timed(phase_slice)
         timed(phase_ckpt, sampler, sampler_requests=2, unet_ms=unet_ms, smi=smi)
         log(f"[total] {time.perf_counter() - t_all:.1f} s; a partial run (--ckpt): no result")
         log(smi)
@@ -3002,8 +3365,10 @@ def main() -> int:
     report = timed(phase_kernels)
     timed(phase_reference)
     timed(phase_train_reference)
-    sampler, unet_steps, unet_ms = timed(phase_slice)
-    nview = timed(phase_nview)
+    sampler, unet_steps, unet_ms, sampler_videos = timed(phase_slice)
+    nview, nview_videos = timed(phase_nview)
+    mesh_report, mesh = timed(phase_mesh, sampler_videos, nview_videos)
+    del sampler_videos, nview_videos
     if profile:
         timed(_profile_sampler)
         timed(_profile_nview)
@@ -3015,9 +3380,13 @@ def main() -> int:
     # the training phase's entry-point runs count toward "launches"; its
     # per-kind means and the remat settings' loss_and_grads runs stand beside
     runs = {path: training[path] for path in ("hybrid", "multihost")}
+    runs.update({f"mesh_{path}": n for path, n in mesh.items()})
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
+        # phase mesh (a): the errors at the sharded shapes count into the kernel's
+        for key in ("max_abs_err", "max_abs_err_f32", "err_over_limit", "err_over_limit_f32"):
+            r[key] = max(r[key], mesh_report[name][key])
         # launches: the sum over the main paths driven above, each with the
         # counts set to 0 just before it and read just after (2-view sampler,
         # N-view sampler as a loop and batched, training, and the sampler and
@@ -3030,7 +3399,14 @@ def main() -> int:
         opts = {f"launches_{path}": n[name] for path, (n, _) in options.items()}
         opts.update({f"launches_per_call_{path}": n[name] / calls
                      for path, (n, calls) in options.items()})
-        opts.update({f"launches_training_{path}": n[name] for path, (n, _) in runs.items()})
+        opts.update({f"launches_training_{path}": n[name] for path, (n, _) in runs.items()
+                     if not path.startswith("mesh_")})
+        opts.update({f"launches_{path}": n[name] for path, (n, _) in runs.items()
+                     if path.startswith("mesh_")})
+        opts.update({f"launches_per_call_{path}": n[name] / calls
+                     for path, (n, calls) in runs.items() if path.startswith("mesh_")})
+        if mesh_report[name].get("timings"):
+            opts["mesh_timings"] = mesh_report[name]["timings"]
         opts.update({f"launches_per_training_{path}_step": n[name] / steps
                      for path, (n, steps) in training.items() if path not in runs})
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,

@@ -12,6 +12,8 @@ subpackages mirror the JAX package's, module for module:
                CLIP text encoder
   schedulers/  DDIM
   pipelines/   the simple 2-view sampler, the N-view sampler
+  parallel/    meshes of torchrun processes and the sharded attention ops
+               (``--sharded``)
   train/       losses, train state, checkpoints, the epi training step
   io/          checkpoint import (SD1.5 folder, motion module, epi and pose
                adaptor checkpoints; their key manifests), model config,

@@ -23,8 +23,16 @@ a gif. ``--save_trajectory`` writes ``poses/pose_img_<v>.png`` and
 ``poses/ret_c2w_<v>.npy`` (needs matplotlib: without it the run stops before
 the model is built). The run log is ``<out_root>/log_p0.txt``; it names the
 files that were not written and why. ``--no_lora_validation`` and
-``--scan_layers`` are taken and do nothing, as in the JAX package;
-``--sharded`` is refused (ROADMAP.md, queue 1, item 5.5).
+``--scan_layers`` are taken and do nothing, as in the JAX package.
+
+``--sharded`` samples over a ("rows", "frames") mesh of the processes that
+``torchrun`` starts (``parallel/mesh.py``: rows = gcd(4, world), frames =
+world / rows), NCCL on ``cuda:LOCAL_RANK`` or gloo with ``--device cpu``:
+
+    torchrun --nproc_per_node 4 -m cvd_tpu_torch.cli.inference --sharded ...
+
+Rank 0 alone decodes, logs and writes; not with ``--pab``, and the mesh must
+divide the 4 CFG rows and the ``--video_length`` frames of a window.
 """
 from __future__ import annotations
 
@@ -66,22 +74,16 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
     ``unet_step_ms`` (each UNet call of the DDIM loop). ``tokenizer``: an
     object to tokenize with in place of the one the weights come with.
     ``widths``: ``build_modules``'s, for checkpoint files narrower than
-    SD1.5's."""
-    from cvd_tpu_torch.cli.build import (
-        SD15_WIDTHS, build_modules, resolve_device,
-    )
-    from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
+    SD1.5's. With ``--sharded`` every rank returns the records, and only
+    rank 0's hold the videos (the others' are None)."""
+    from cvd_tpu_torch.cli.build import resolve_device
+    from cvd_tpu_torch.parallel.mesh import inference_mesh, process_group
+    from cvd_tpu_torch.parallel.shard_ops import check_divides
     from cvd_tpu_torch.pipelines.pab import PABConfig
-    from cvd_tpu_torch.pipelines.simple import SimplePipeline
-    from cvd_tpu_torch.utils.logging import setup_logger
-    from cvd_tpu_torch.utils.video import (
-        have_imageio, save_npy, save_video, save_video_as_images, save_videos_grid,
-    )
-    from cvd_tpu_torch.utils.visualize import have_matplotlib, save_trajectory_plot
+    from cvd_tpu_torch.utils.visualize import have_matplotlib
 
-    if args.sharded:
-        raise NotImplementedError("--sharded: sampling over a mesh of devices is not ported "
-                                  "(ROADMAP.md, queue 1, item 5.5)")
+    if args.pab and args.sharded:
+        raise SystemExit("--pab + --sharded is not validated; pick one")
     if args.image_width != args.image_height:
         raise SystemExit("the epipolar attention assumes a square token grid: "
                          "use --image_width == --image_height")
@@ -96,10 +98,34 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
     # all frames of the multidiff windows (cvd_tpu/cli/inference.py:100-116)
     F = (args.multidiff_total_steps * (args.video_length - args.multidiff_overlaps)
          + args.multidiff_overlaps if args.multidiff_total_steps > 1 else args.video_length)
+    if not args.sharded:
+        return _requests(args, F, pab_config, resolve_device(args.device), None, tokenizer,
+                         widths)
+    with process_group(args.device, "--sharded", "cvd_tpu_torch.cli.inference") as (_, world,
+                                                                                    device):
+        mesh = inference_mesh(world)
+        check_divides(mesh, 4, args.video_length, "--sharded")
+        return _requests(args, F, pab_config, device, mesh, tokenizer, widths)
+
+
+def _requests(args, F, pab_config, device, mesh, tokenizer, widths) -> List[dict]:
+    """``main``'s requests on ``device``, over ``mesh`` where one is given
+    (rank 0 alone logs and writes, and holds the videos)."""
+    from cvd_tpu_torch.cli.build import SD15_WIDTHS, build_modules
+    from cvd_tpu_torch.data.validation import ValRealEstate10KPoseFolded
+    from cvd_tpu_torch.parallel.mesh import replicate
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+    from cvd_tpu_torch.utils.logging import setup_logger
+    from cvd_tpu_torch.utils.video import (
+        have_imageio, save_npy, save_video, save_video_as_images, save_videos_grid,
+    )
+    from cvd_tpu_torch.utils.visualize import save_trajectory_plot
+
     captions, negatives, seeds = load_prompts(
         args.caption_file, args.use_negative_prompt, args.num_videos)
-    device = resolve_device(args.device)
-    logger = setup_logger(args.out_root, name="cvd_tpu_torch.inference")
+    lead = mesh is None or mesh.rank == 0
+    logger = setup_logger(args.out_root if lead else None, name="cvd_tpu_torch.inference",
+                          process_index=0 if lead else mesh.rank)
     if not have_imageio():
         logger.info("imageio is not installed: each prompt writes videos.npy only, no "
                     "imgs/<v>/*.png and no vids/{<v>,horizontal,vertical}.mp4")
@@ -107,7 +133,12 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
     modules, tokenizer = build_modules(args, device, tokenizer=tokenizer,
                                        widths=widths or SD15_WIDTHS)
     logger.info(f"[inference] built modules on {device} in {time.perf_counter() - t0:.1f} s")
-    pipe = SimplePipeline(modules, F_mat_size=args.image_height, rand_slope_ff=True)
+    if mesh is not None:
+        for module in (modules.unet, modules.vae, modules.clip, modules.pose_encoder):
+            replicate(module, mesh)
+        logger.info(f"[inference] sharded sampling over mesh {mesh.shape}")
+    pipe = SimplePipeline(modules, F_mat_size=args.image_height, rand_slope_ff=True,
+                          mesh=mesh)
     dataset = ValRealEstate10KPoseFolded(
         validation_prompts=captions,
         validation_negative_prompts=negatives,
@@ -133,8 +164,12 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
                       generator=torch.Generator(device=device).manual_seed(seed),
                       multidiff_total_steps=args.multidiff_total_steps,
                       multidiff_overlaps=args.multidiff_overlaps, pab_config=pab_config)
-        videos = videos.cpu().numpy()
+        videos = None if videos is None else videos.cpu().numpy()
         seconds = time.perf_counter() - t0
+        if not lead:
+            results.append({"videos": None, "seconds": seconds,
+                            "unet_step_ms": list(pipe.unet_step_ms)})
+            continue
         logger.info(f"[inference] [{idx}] {sample['validation_prompt']!r} seed={seed}: "
                     f"{seconds:.2f} s")
         out = os.path.join(args.out_root, str(idx))
@@ -194,7 +229,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="plot each view's cameras (poses/pose_img_<v>.png, needs matplotlib) "
                         "and save them (poses/ret_c2w_<v>.npy)")
     p.add_argument("--sharded", action="store_true",
-                   help="sampling over a mesh of devices: not ported (refused)")
+                   help="sample over a (rows x frames) mesh of the processes torchrun starts "
+                        "(one per card, or gloo with --device cpu); rank 0 writes")
     p.add_argument("--pab", action="store_true",
                    help="Pyramid Attention Broadcast: reuse cached attention outputs on "
                         "scheduled mid-trajectory steps (see pipelines/pab.py)")

@@ -15,9 +15,14 @@ a NeRF-style ``transforms.json`` (OpenCV -> OpenGL axes, reference
 :362-410) and, where ``imageio`` is installed, ``video.mp4`` / ``video.gif``
 (the views stacked) and ``images/<view>/%04d.png``. ``--pab
 [--pab_ranges ...]`` turns on Pyramid Attention Broadcast. The run log is
-``<out_root>/log_p0.txt``. ``--scan_layers`` is taken and does nothing. Not
-ported yet, and refused (ROADMAP.md, queue 1): ``--sharded``,
-``--step_chunk``.
+``<out_root>/log_p0.txt``. ``--scan_layers`` is taken and does nothing.
+Not ported, and refused (ROADMAP.md, queue 1): ``--step_chunk``.
+
+``--sharded`` samples over a ("rows", "frames") mesh of the processes that
+``torchrun`` starts, as ``cli/inference.py`` does: the 2V CFG rows (2V *
+accumulate_step with ``accumulate_batched``) over rows = gcd(4, world), the
+frames over world / rows; rank 0 alone decodes, logs and writes. Not with
+``--pab``; the mesh must divide the rows and the frames.
 """
 from __future__ import annotations
 
@@ -81,12 +86,11 @@ def _refuse(args) -> None:
     if args.mono_direction:
         # the reference rejects this path too (attention_processor.py:622)
         raise NotImplementedError("--mono_direction is not supported")
-    for flag, what in (("sharded", "sampling over a mesh of devices is not ported "
-                                   "(ROADMAP.md, queue 1, item 5.5)"),
-                       ("step_chunk", "the chunked scan is not ported: a Python loop has "
-                                      "no use for it (ROADMAP.md, queue 1, item 1)")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what}")
+    if args.step_chunk:
+        raise NotImplementedError("--step_chunk: the chunked scan is not ported: a Python loop "
+                                  "has no use for it (ROADMAP.md, queue 1, item 1)")
+    if args.pab and args.sharded:
+        raise SystemExit("--pab + --sharded is not validated; pick one")
 
 
 def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) -> List[dict]:
@@ -96,26 +100,45 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     ``accumulate_batched``: the ``--accumulate_step`` pairings as one UNet
     call (``AdvancedPipeline``). ``tokenizer``: an object to tokenize with in
     place of the one the weights come with. ``widths``: ``build_modules``'s,
-    for checkpoint files narrower than SD1.5's."""
-    from cvd_tpu_torch.cli.build import (
-        SD15_WIDTHS, build_modules, resolve_device,
-    )
-    from cvd_tpu_torch.cli.inference import load_prompts
-    from cvd_tpu_torch.geometry.plucker import ray_condition
-    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+    for checkpoint files narrower than SD1.5's. With ``--sharded`` every rank
+    returns the records, and only rank 0's hold the videos (the others'
+    are None)."""
+    from cvd_tpu_torch.cli.build import resolve_device
+    from cvd_tpu_torch.parallel.mesh import inference_mesh, process_group
+    from cvd_tpu_torch.parallel.shard_ops import check_divides
     from cvd_tpu_torch.pipelines.pab import PABConfig
-    from cvd_tpu_torch.utils.logging import setup_logger
-    from cvd_tpu_torch.utils.video import (
-        have_imageio, save_npy, save_video, save_video_as_images,
-    )
 
     _refuse(args)
     pab_config = None
     if args.pab:
         pab_config = PABConfig.from_string(args.pab_ranges) if args.pab_ranges else PABConfig()
-    captions, negatives, seeds = load_prompts(args.caption_file, args.use_negative_prompt)
-    device = resolve_device(args.device)
+    run = (args, pab_config, accumulate_batched, tokenizer, widths)
+    if not args.sharded:
+        return _requests(*run, resolve_device(args.device), None)
+    with process_group(args.device, "--sharded",
+                       "cvd_tpu_torch.cli.inference_advanced") as (_, world, device):
+        mesh = inference_mesh(world)
+        groups = args.accumulate_step if accumulate_batched and args.accumulate_step > 1 else 1
+        check_divides(mesh, 2 * args.view_num * groups, args.video_length, "--sharded")
+        return _requests(*run, device, mesh)
 
+
+def _requests(args, pab_config, accumulate_batched, tokenizer, widths, device,
+              mesh) -> List[dict]:
+    """``main``'s requests on ``device``, over ``mesh`` where one is given
+    (rank 0 alone logs and writes, and holds the videos)."""
+    from cvd_tpu_torch.cli.build import SD15_WIDTHS, build_modules
+    from cvd_tpu_torch.cli.inference import load_prompts
+    from cvd_tpu_torch.geometry.plucker import ray_condition
+    from cvd_tpu_torch.parallel.mesh import replicate
+    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+    from cvd_tpu_torch.utils.logging import setup_logger
+    from cvd_tpu_torch.utils.video import (
+        have_imageio, save_npy, save_video, save_video_as_images,
+    )
+
+    captions, negatives, seeds = load_prompts(args.caption_file, args.use_negative_prompt)
+    lead = mesh is None or mesh.rank == 0
     V, F, S = args.view_num, args.video_length, args.image_height
     c2ws, K = build_cameras(args)
     intr = np.stack([K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2]], -1).astype(np.float32)
@@ -124,7 +147,9 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     c2w_t = torch.from_numpy(c2ws.astype(np.float32))
     K_t = torch.from_numpy(K.astype(np.float32))
 
-    logger = setup_logger(args.out_root, name="cvd_tpu_torch.inference_advanced")
+    logger = setup_logger(args.out_root if lead else None,
+                          name="cvd_tpu_torch.inference_advanced",
+                          process_index=0 if lead else mesh.rank)
     if not have_imageio():
         logger.info("imageio is not installed: each request writes videos.npy and "
                     "transforms.json only, no video.{gif,mp4} and no images/<view>/*.png")
@@ -133,9 +158,13 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
                                        widths=widths or SD15_WIDTHS)
     logger.info(f"[inference_advanced] built modules on {device} in "
                 f"{time.perf_counter() - t0:.1f} s")
+    if mesh is not None:
+        for module in (modules.unet, modules.vae, modules.clip, modules.pose_encoder):
+            replicate(module, mesh)
+        logger.info(f"[inference_advanced] sharded sampling over mesh {mesh.shape}")
     pipe = AdvancedPipeline(modules, F_mat_size=S, rand_slope_ff=True,
                             fix_firstframe=args.fix_firstframe,
-                            accumulate_batched=accumulate_batched)
+                            accumulate_batched=accumulate_batched, mesh=mesh)
     results = []
     for seed_id in range(args.multiseed):
         for idx, prompt in enumerate(captions):
@@ -149,12 +178,16 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
                 guidance_scale=args.guidance_scale, multistep=args.multistep,
                 accumulate_step=args.accumulate_step, pab_config=pab_config,
                 generator=torch.Generator(device=device).manual_seed(seed))
-            videos = videos.cpu().numpy()                      # [V, F, H, W, 3]
             seconds = time.perf_counter() - t0
+            sub = os.path.join(args.out_root, f"{seed_id}_{idx:04d}")
+            if not lead:
+                results.append({"videos": None, "seconds": seconds, "out": sub,
+                                "unet_step_ms": list(pipe.unet_step_ms)})
+                continue
+            videos = videos.cpu().numpy()                      # [V, F, H, W, 3]
             logger.info(f"[inference_advanced] [seed {seed_id} prompt {idx}] {prompt!r} "
                         f"seed={seed}: {seconds:.2f} s")
 
-            sub = os.path.join(args.out_root, f"{seed_id}_{idx:04d}")
             save_npy(videos, os.path.join(sub, "videos.npy"))
             frames_meta = [(os.path.join("images", str(v), f"{i:04d}.png"), c2ws[v * F + i])
                            for v in range(V) for i in range(F)]
@@ -203,7 +236,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mono_direction", action="store_true",
                    help="not supported: the reference raises too")
     p.add_argument("--sharded", action="store_true",
-                   help="sampling over a mesh of devices: not ported (refused)")
+                   help="sample over a (rows x frames) mesh of the processes torchrun starts "
+                        "(one per card, or gloo with --device cpu); rank 0 writes")
     p.add_argument("--pab", action="store_true",
                    help="Pyramid Attention Broadcast: reuse attention outputs on scheduled "
                         "outer steps (see pipelines/pab.py)")

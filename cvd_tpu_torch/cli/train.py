@@ -65,10 +65,13 @@ import argparse
 import os
 import random
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+# the process group of --multihost, shared with sampling's --sharded
+from cvd_tpu_torch.parallel.mesh import process_group
 
 _CHECKPOINT_KEYS = ("image_lora_ckpt", "civitai_lora_ckpt", "civitai_base_model")
 # dataset_name -> the kind of its batches
@@ -156,28 +159,6 @@ def _as_sources(sources: Sequence) -> list:
         raise ValueError(f"sources: kinds {bad} (expected 'posed' or 'unposed'), "
                          f"{len(out)} sources")
     return out
-
-
-def init_distributed(requested: Optional[str]) -> Tuple[int, int, torch.device]:
-    """The process group of a ``torchrun`` launch (its ``RANK``,
-    ``WORLD_SIZE`` and ``LOCAL_RANK``; ``MASTER_ADDR`` / ``MASTER_PORT`` through
-    ``env://``): NCCL on ``cuda:LOCAL_RANK``, or gloo where the config asks
-    for the CPU. -> (rank, world size, device)."""
-    import torch.distributed as dist
-
-    missing = [k for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-               if k not in os.environ]
-    if missing:
-        raise RuntimeError(f"--multihost needs the environment torchrun sets: {missing} not set "
-                           "(torchrun --nproc_per_node N -m cvd_tpu_torch.cli.train ...)")
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    if requested and torch.device(requested).type == "cpu":
-        device, backend = torch.device("cpu"), "gloo"
-    else:
-        device, backend = torch.device("cuda", int(os.environ["LOCAL_RANK"])), "nccl"
-        torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world)
-    return rank, world, device
 
 
 def build_training_modules(cfg: dict, device, tokenizer=None, widths=None):
@@ -278,7 +259,8 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
     tokenize with in place of the one the weights come with. ``widths``:
     ``build_modules``'s, for checkpoint files narrower than SD1.5's.
     ``multihost``: data-parallel over the ``torchrun`` processes
-    (``init_distributed``; the process group is destroyed at the end).
+    (``parallel.mesh.init_distributed``; a process group this call makes is
+    destroyed at the end, one the process already holds is reused).
     Returns {"state", "modules", "losses", "epi_losses", "kinds" (each step's
     source kind), "step_seconds", "global_step", "epoch", "out_dir",
     "latents_cache" (``_latents_cache``'s report, or None), "rank",
@@ -288,13 +270,9 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
     _refuse_unported(cfg)
     if not multihost:
         return _run(cfg, sources, tokenizer, widths, resolve_device(cfg.get("device")))
-    import torch.distributed as dist
-
-    rank, world, device = init_distributed(cfg.get("device"))
-    try:
+    with process_group(cfg.get("device"), "--multihost",
+                       "cvd_tpu_torch.cli.train") as (rank, world, device):
         return _run(cfg, sources, tokenizer, widths, device, group=(rank, world))
-    finally:
-        dist.destroy_process_group()
 
 
 def _run(cfg, sources, tokenizer, widths, device, group=None) -> dict:

@@ -5,6 +5,7 @@ deterministic hash tokenizer is for weightless runs."""
 from __future__ import annotations
 
 import os
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -15,7 +16,9 @@ BOS, EOS = 49406, 49407
 
 class HashTokenizer:
     """Deterministic stand-in tokenizer (random-weights runs only): BOS,
-    one id per whitespace word, EOS padding to 77."""
+    one id per whitespace word, EOS padding to 77. A word's id is its CRC-32,
+    the same in every process (Python's ``hash`` of a str is salted per
+    process, and the ranks of a sharded run must encode the same prompt)."""
 
     model_max_length = MAX_LENGTH
 
@@ -26,7 +29,7 @@ class HashTokenizer:
         out = np.full((len(texts), MAX_LENGTH), EOS, np.int32)
         for i, t in enumerate(texts):
             ids = [BOS] + [
-                (hash(w) % (self.vocab_size - 3)) + 1 for w in t.lower().split()
+                (zlib.crc32(w.encode()) % (self.vocab_size - 3)) + 1 for w in t.lower().split()
             ][: MAX_LENGTH - 2] + [EOS]
             out[i, : len(ids)] = ids
         return out

@@ -30,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from cvd_tpu_torch.geometry.epipolar_mask import (
@@ -43,6 +44,10 @@ from cvd_tpu_torch.models.layers import (
 from cvd_tpu_torch.ops.attention import attention_with_bias
 from cvd_tpu_torch.ops.epi_flash import epi_flash_attention
 from cvd_tpu_torch.ops.ln_matmul import layer_norm_matmul
+from cvd_tpu_torch.parallel.mesh import Mesh
+from cvd_tpu_torch.parallel.shard_ops import (
+    frame_offset, local_rows, sharded_epi_flash, sharded_partner_tokens,
+)
 
 # epi attentions on grids at least this wide take the fused kernel
 EPI_KERNEL_MIN_FEAT = 16
@@ -67,6 +72,10 @@ class EpiConditioning:
     # or the slope(s), [1] or one per row, for every epi attention of the call,
     # drawn beforehand (training: a remat replay must see the lines the loss saw)
     slope: Optional[torch.Tensor] = None
+    # a ("rows", "frames") mesh (``parallel/mesh.py``): the hidden states, the
+    # F / H mats and the slopes are this rank's block rows; ``kv_index`` and
+    # ``video_length`` stay global
+    mesh: Optional[Mesh] = None
     _route: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
 
     def route(self, batch: int, device) -> torch.Tensor:
@@ -100,6 +109,15 @@ def _slope(cond: EpiConditioning, shape, device) -> torch.Tensor:
     return _uniform_slope(cond.generator, shape, device)
 
 
+def _row_slopes(cond: EpiConditioning, rows: int, device) -> torch.Tensor:
+    """One slope per row of this rank's ``rows``: on a mesh drawn at the
+    global shape and sliced, so that every rank makes the same draws."""
+    if cond.mesh is None:
+        return _slope(cond, (rows,), device)
+    every = _slope(cond, (rows * cond.mesh.size,), device)
+    return local_rows(every, cond.mesh, cond.video_length)
+
+
 def _epi_lines(cond: EpiConditioning, batch: int, feat_size: int, device) -> torch.Tensor:
     """Per-query epipolar (or pseudo) line coefficients [B or m*B, Q, 3], by
     the three paths of the reference's ``EpiEncoding.get_attn_map``
@@ -111,17 +129,19 @@ def _epi_lines(cond: EpiConditioning, batch: int, feat_size: int, device) -> tor
     if cond.H_mats is not None:
         H_mats = cond.H_mats.to(device=device, dtype=torch.float32)
         return homography_lines(H_mats, coords, cond.F_mat_size,
-                                _slope(cond, (H_mats.shape[0],), device))
+                                _row_slopes(cond, H_mats.shape[0], device))
     if cond.F_mats is not None:
         F_mats = cond.F_mats.to(device=device, dtype=torch.float32)
         B = F_mats.shape[0]
         lines = epipolar_lines(F_mats, coords)
         slope = _slope(cond, (1,), device) if cond.rand_slope_ff else None
         ff_lines = pseudo_lines(coords[None], slope=slope)
-        is_ff = (torch.arange(B, device=device) % cond.video_length) == 0
-        return torch.where(is_ff[:, None, None], ff_lines, lines)
+        # the first frame's rows, by global frame index on a frames shard
+        frames = cond.video_length // (1 if cond.mesh is None else cond.mesh.shape["frames"])
+        frame = frame_offset(cond.mesh, frames) + torch.arange(B, device=device) % frames
+        return torch.where((frame == 0)[:, None, None], ff_lines, lines)
     return pseudo_lines(coords[None].expand(batch, *coords.shape),
-                        slope=_slope(cond, (batch,), device))
+                        slope=_row_slopes(cond, batch, device))
 
 
 def gather_partner_tokens(hidden: torch.Tensor,
@@ -148,6 +168,40 @@ def regroup_bias(bias: torch.Tensor, batch: int) -> torch.Tensor:
         return bias
     m = mB // batch
     return bias.reshape(m, batch, N, N).permute(1, 2, 3, 0).reshape(batch, N, N * m)
+
+
+def _fix_first_frame(out: torch.Tensor, v_self: torch.Tensor,
+                     cond: EpiConditioning) -> torch.Tensor:
+    """The first frame's output becomes its own V averaged over the views,
+    per CFG row (attention_processor.py:629-635). On a mesh the views of
+    the rows group are summed over it (in f32; every rank calls the sum,
+    those without the first frame add zeros) and only the rank that holds
+    frame 0 replaces its rows."""
+    B, N, C = out.shape
+    mesh, t = cond.mesh, cond.cfg_factor
+    if mesh is None or mesh.shape["rows"] == 1:
+        f = cond.video_length // (1 if mesh is None else mesh.shape["frames"])
+        if frame_offset(mesh, f):
+            return out
+        views = B // (t * f)
+        ff = v_self.reshape(views, t, f, N, C)[:, :, :1].mean(0, keepdim=True)
+        return torch.cat([ff.expand(views, t, 1, N, C),
+                          out.reshape(views, t, f, N, C)[:, :, 1:]], dim=2).reshape(B, N, C)
+    f = cond.video_length // mesh.shape["frames"]
+    videos = B // f
+    first = frame_offset(mesh, f) == 0
+    total = torch.zeros((t, N, C), device=out.device, dtype=torch.float32)
+    if first:
+        # local video j is global video r * videos + j, of CFG row (that) % t
+        cfg_row = (mesh.coords["rows"] * videos + torch.arange(videos, device=out.device)) % t
+        total.index_add_(0, cfg_row, v_self.reshape(videos, f, N, C)[:, 0].float())
+    dist.all_reduce(total, group=mesh.group("rows"))
+    if not first:
+        return out
+    views = videos * mesh.shape["rows"] // t
+    ff = (total / views).to(out.dtype)[cfg_row]                 # [videos, N, C]
+    return torch.cat([ff[:, None], out.reshape(videos, f, N, C)[:, 1:]],
+                     dim=1).reshape(B, N, C)
 
 
 class EpiSelfAttention(nn.Module):
@@ -177,9 +231,15 @@ class EpiSelfAttention(nn.Module):
         if cond.mono_direction:
             # the reference rejects this path too (attention_processor.py:622)
             raise NotImplementedError("mono_direction is not supported")
+        mesh = cond.mesh
+        # the batch rows of the whole call: on a mesh every rank holds a block
+        rows = B if mesh is None else B * mesh.size
         lines = _epi_lines(cond, B, feat_size, x.device)
         weights = (self.to_q.weight, self.to_k.weight, self.to_v.weight)
-        multi_group = cond.kv_index is not None and cond.kv_index.shape[0] != B
+        multi_group = cond.kv_index is not None and cond.kv_index.shape[0] != rows
+        if mesh is not None and (multi_group or maps is not None):
+            raise NotImplementedError("on a mesh the epi attention takes one partner per row "
+                                      "and keeps no q/k maps")
 
         def project(tokens, ws):
             return layer_norm_matmul(tokens, pre_ln.weight, pre_ln.bias, list(ws),
@@ -189,15 +249,22 @@ class EpiSelfAttention(nn.Module):
             q, k, v = project(x, weights)
             coords_xy = pixel_grid_coords(feat_size, cond.F_mat_size, x.device)[:, :2].T
             norm_lines, band, alpha = lines_and_band(lines, feat_size, cond.F_mat_size)
-            route = cond.route(B, x.device)
-            out = epi_flash_attention(q, k, v, norm_lines, coords_xy.contiguous(), band,
-                                      alpha, heads=self.heads, kv_index=route)
+            route = cond.route(rows, x.device)
+            if mesh is None:
+                out = epi_flash_attention(q, k, v, norm_lines, coords_xy.contiguous(), band,
+                                          alpha, heads=self.heads, kv_index=route)
+            else:
+                out = sharded_epi_flash(q, k, v, norm_lines, coords_xy.contiguous(), band,
+                                        alpha, self.heads, route, cond.video_length, mesh)
             v_self = v
             if maps is not None:
                 k = k[route.long()]
         else:
             (q,) = project(x, weights[:1])
-            k, v = project(gather_partner_tokens(x, cond.kv_index), weights[1:])
+            partners = (gather_partner_tokens(x, cond.kv_index) if mesh is None else
+                        sharded_partner_tokens(x, cond.route(rows, x.device),
+                                               cond.video_length, mesh))
+            k, v = project(partners, weights[1:])
             coords = pixel_grid_coords(feat_size, cond.F_mat_size, x.device)
             bias = regroup_bias(epipolar_attn_bias_from_lines(
                 lines, coords, feat_size, cond.F_mat_size), B)
@@ -210,11 +277,7 @@ class EpiSelfAttention(nn.Module):
             # per CFG row (attention_processor.py:629-635)
             if v_self is None:
                 (v_self,) = project(x, weights[2:])
-            f, t = cond.video_length, cond.cfg_factor
-            views = B // (t * f)
-            ff = v_self.reshape(views, t, f, N, C)[:, :, :1].mean(0, keepdim=True)
-            out = torch.cat([ff.expand(views, t, 1, N, C),
-                             out.reshape(views, t, f, N, C)[:, :, 1:]], dim=2).reshape(B, N, C)
+            out = _fix_first_frame(out, v_self, cond)
         if maps is not None:
             maps.update(query=q, key=k)
         return linear(self.to_out[0], out)

@@ -23,6 +23,7 @@ from cvd_tpu_torch.ops.attention import attention_with_bias
 from cvd_tpu_torch.ops.epi_flash import flash_attention
 from cvd_tpu_torch.ops.ln_matmul import layer_norm_matmul
 from cvd_tpu_torch.ops.norms import group_norm
+from cvd_tpu_torch.parallel.shard_ops import extended_context
 
 # self-attentions at least this long take the fused kernel (K2) on CUDA,
 # as the JAX package does at its big spatial attentions (layers.py:382-403);
@@ -367,26 +368,26 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def _self_attention(self, x: torch.Tensor, lora_scale: float) -> torch.Tensor:
+    def _self_attention(self, x: torch.Tensor, lora_scale: float, mesh, frames: int
+                        ) -> torch.Tensor:
         h = self.norm1(x)
-        context = None
-        if self.extended_attention:
-            half = h.shape[0] // 2
-            pair = torch.cat([h[:half], h[half:]], dim=1)     # [B/2, 2L, C]
-            context = torch.cat([pair, pair], dim=0)
+        context = extended_context(h, mesh, frames) if self.extended_attention else None
         return self.attn1(h, context, lora_scale=lora_scale)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, lora_scale: float = 1.0,
-                pab=None) -> torch.Tensor:
+                pab=None, mesh=None, frames: int = 1) -> torch.Tensor:
         """pab: the request's PAB cache (``pipelines/pab.py``): classes
-        "spatial" (attn1) and "cross" (attn2)."""
+        "spatial" (attn1) and "cross" (attn2). ``mesh``: a ("rows", "frames")
+        mesh of which the rows are this rank's block of videos x ``frames``
+        frames (extended attention gathers the pair's other video)."""
         if self.fused:
             x = x + pab_run(pab, self.attn1, "spatial",
                             lambda: self.attn1(x, pre_ln=self.norm1))
             x = x + pab_run(pab, self.attn2, "cross",
                             lambda: self.attn2(x, context, pre_ln=self.norm2))
             return x + self.ff(x, pre_ln=self.norm3)
-        x = x + pab_run(pab, self.attn1, "spatial", lambda: self._self_attention(x, lora_scale))
+        x = x + pab_run(pab, self.attn1, "spatial",
+                        lambda: self._self_attention(x, lora_scale, mesh, frames))
         x = x + pab_run(pab, self.attn2, "cross",
                         lambda: self.attn2(self.norm2(x), context, lora_scale=lora_scale))
         return x + self.ff(self.norm3(x))
@@ -411,11 +412,11 @@ class Transformer2DModel(nn.Module):
         self.proj_out = Conv2d(inner, in_channels, 1, 1, 0)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, lora_scale: float = 1.0,
-                pab=None) -> torch.Tensor:
+                pab=None, mesh=None, frames: int = 1) -> torch.Tensor:
         N, H, W, C = x.shape
         h = self.proj_in(self.norm(x))
         h = h.reshape(N, H * W, h.shape[-1])
         for blk in self.transformer_blocks:
-            h = blk(h, context, lora_scale, pab)
+            h = blk(h, context, lora_scale, pab, mesh, frames)
         h = self.proj_out(h.reshape(N, H, W, h.shape[-1]))
         return h + x

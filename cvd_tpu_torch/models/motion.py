@@ -20,6 +20,8 @@ from cvd_tpu_torch.models.layers import (
     temporal_positional_encoding,
 )
 from cvd_tpu_torch.ops.temporal_attn import temporal_attention_plain, temporal_flash_attention
+from cvd_tpu_torch.parallel.mesh import Mesh
+from cvd_tpu_torch.parallel.shard_ops import frame_offset, sharded_temporal_flash
 
 # temporal attentions over at least this many pixels take the fused kernel
 # on CUDA, as the JAX package does (motion.py:186-231)
@@ -101,10 +103,14 @@ class TemporalSelfAttention(nn.Module):
         sync = sync_lora_rank if sync_lora_scale != 0.0 else 0
         self.processor = _PoseProcessor(dim, sync) if pose_conditioned else None
 
-    def forward(self, x: torch.Tensor,
-                pose_feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pose_feature: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """``mesh``: a ("rows", "frames") mesh of which ``x`` holds this
+        rank's frames: the positional encoding and the mask's rows are those
+        of the global frames, k/v are gathered over the frames."""
         B, N, Fr, C = x.shape
-        pe = temporal_positional_encoding(self.pe_max_len, C, x.device)[:, :Fr]
+        off = frame_offset(mesh, Fr)
+        pe = temporal_positional_encoding(self.pe_max_len, C, x.device)[:, off:off + Fr]
         x = x + pe.to(x.dtype)
         proc = self.processor
         if proc is not None and pose_feature is not None:
@@ -116,12 +122,15 @@ class TemporalSelfAttention(nn.Module):
             q = q + s * proc.to_q_lora_sync(x)
             k = k + s * proc.to_k_lora_sync(x)
             v = v + s * proc.to_v_lora_sync(x)
-        mask = (causal_temporal_mask(self.causal_mask_type, Fr).to(x.device)
+        frames = Fr if mesh is None else Fr * mesh.shape["frames"]
+        mask = (causal_temporal_mask(self.causal_mask_type, frames).to(x.device)
                 if self.causal_mask_type else None)
-        if N >= TEMPORAL_KERNEL_MIN_PIXELS:
-            out = temporal_flash_attention(q, k, v, mask, heads=self.heads)
+        attention = (temporal_flash_attention if N >= TEMPORAL_KERNEL_MIN_PIXELS
+                     else temporal_attention_plain)
+        if mesh is None:
+            out = attention(q, k, v, mask, self.heads)
         else:
-            out = temporal_attention_plain(q, k, v, mask, self.heads)
+            out = sharded_temporal_flash(q, k, v, mask, self.heads, mesh, off, attention)
         o = self.to_out[0](out)
         if sync:
             o = o + self.sync_lora_scale * proc.to_out_lora_sync(o)
@@ -152,11 +161,11 @@ class TemporalTransformerBlock(nn.Module):
         self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, pose_feature: Optional[torch.Tensor] = None,
-                pab=None) -> torch.Tensor:
+                pab=None, mesh: Optional[Mesh] = None) -> torch.Tensor:
         """pab: the request's PAB cache, class "temporal": a reused attention
         skips its LayerNorm, PE add and ``qkv_merge`` as well."""
         for norm, attn in zip(self.norms, self.attention_blocks):
-            x = pab_run(pab, attn, "temporal", lambda: attn(norm(x), pose_feature)) + x
+            x = pab_run(pab, attn, "temporal", lambda: attn(norm(x), pose_feature, mesh)) + x
         return self.ff(x, pre_ln=self.ff_norm) + x
 
 
@@ -182,7 +191,7 @@ class TemporalTransformer(nn.Module):
         self.proj_out = nn.Linear(C, C)
 
     def forward(self, x: torch.Tensor, pose_feature: Optional[torch.Tensor] = None,
-                pab=None) -> torch.Tensor:
+                pab=None, mesh: Optional[Mesh] = None) -> torch.Tensor:
         B, Fr, H, W, C = x.shape
         # per-frame GroupNorm, then pixel-major for the temporal blocks
         h = group_norm_per_frame(self.norm, x).reshape(B, Fr, H * W, C)
@@ -190,7 +199,7 @@ class TemporalTransformer(nn.Module):
         if pose_feature is not None:
             pose_feature = pose_feature.reshape(B, Fr, H * W, -1).transpose(1, 2)
         for blk in self.transformer_blocks:
-            h = blk(h, pose_feature, pab)
+            h = blk(h, pose_feature, pab, mesh)
         h = self.proj_out(h).transpose(1, 2)
         return h.reshape(B, Fr, H, W, C) + x
 
@@ -204,5 +213,7 @@ class MotionModule(nn.Module):
         self.temporal_transformer = TemporalTransformer(*args, **kwargs)
 
     def forward(self, x: torch.Tensor, pose_feature: Optional[torch.Tensor] = None,
-                pab=None) -> torch.Tensor:
-        return self.temporal_transformer(x, pose_feature, pab)
+                pab=None, mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """``mesh``: a ("rows", "frames") mesh of which ``x`` is this rank's
+        block (``parallel/shard_ops.py``)."""
+        return self.temporal_transformer(x, pose_feature, pab, mesh)

@@ -47,6 +47,7 @@ from cvd_tpu_torch.models.layers import (
     Transformer2DModel, Upsample2D, sinusoidal_time_embedding,
 )
 from cvd_tpu_torch.models.motion import MotionModule
+from cvd_tpu_torch.parallel.mesh import Mesh, all_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,16 +252,19 @@ class _Block(nn.Module):
     def layer(self, j: int, x: torch.Tensor, temb_f: torch.Tensor,
               context_f: Optional[torch.Tensor], pose_feature: Optional[torch.Tensor],
               epi_cond: Optional[EpiConditioning], lora_scale: float = 1.0,
-              pab=None, qk: Optional[list] = None, unit: Callable = _call) -> torch.Tensor:
+              pab=None, qk: Optional[list] = None, unit: Callable = _call,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
         """``qk``: a list that receives the epi attentions' q/k maps.
-        ``unit``: runs each sublayer (``remat_unit="layer"``: checkpointed)."""
-        B = x.shape[0]
+        ``unit``: runs each sublayer (``remat_unit="layer"``: checkpointed).
+        ``mesh``: the ("rows", "frames") mesh of which ``x`` is this rank's
+        block."""
+        B, Fr = x.shape[:2]
         h = unit(self.resnets[j], _fold(x), temb_f)
         if self.attentions is not None:
-            h = unit(self.attentions[j], h, context_f, lora_scale, pab)
+            h = unit(self.attentions[j], h, context_f, lora_scale, pab, mesh, Fr)
         x = _unfold(h, B)
         if self.motion_modules is not None:
-            x = unit(self.motion_modules[j], x, pose_feature, pab)
+            x = unit(self.motion_modules[j], x, pose_feature, pab, mesh)
         if self.epi_modules is not None:
             if qk is None:
                 x = unit(self.epi_modules[j], x, epi_cond, pab)
@@ -285,14 +289,14 @@ class CrossAttnDownBlock(_Block):
                              if add_downsample else None)
 
     def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None,
-                want_qk=False, unit=_call):
+                want_qk=False, unit=_call, mesh=None):
         """-> (x, the states the up path takes, the last layer's q/k maps
         where ``want_qk``, else None)."""
         res_states, qk = [], None
         for j in range(len(self.resnets)):
             qk = self.last_qk(want_qk, j)
             x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk,
-                           unit)
+                           unit, mesh)
             res_states.append(x)
         if self.downsamplers is not None:
             x = _unfold(self.downsamplers[0](_fold(x)), x.shape[0])
@@ -306,10 +310,10 @@ class MidBlock(_Block):
         self.resnets.append(ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups))
 
     def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None,
-                want_qk=False, unit=_call):
+                want_qk=False, unit=_call, mesh=None):
         qk = [] if want_qk else None
         x = self.layer(0, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk,
-                       unit)
+                       unit, mesh)
         return _unfold(unit(self.resnets[1], _fold(x), temb_f), x.shape[0]), qk
 
 
@@ -321,13 +325,13 @@ class CrossAttnUpBlock(_Block):
         self.upsamplers = nn.ModuleList([Upsample2D(channels)]) if add_upsample else None
 
     def forward(self, x, res_states, temb_f, context_f, pose_feature, epi_cond,
-                lora_scale=1.0, pab=None, want_qk=False, unit=_call):
+                lora_scale=1.0, pab=None, want_qk=False, unit=_call, mesh=None):
         qk = None
         for j in range(len(self.resnets)):
             qk = self.last_qk(want_qk, j)
             x = torch.cat([x, res_states[-1 - j]], dim=-1)
             x = self.layer(j, x, temb_f, context_f, pose_feature, epi_cond, lora_scale, pab, qk,
-                           unit)
+                           unit, mesh)
         if self.upsamplers is not None:
             x = _unfold(self.upsamplers[0](_fold(x)), x.shape[0])
         return x, qk
@@ -416,6 +420,7 @@ class UNet3DConditionModel(nn.Module):
         down_block_additional_residuals: Optional[Sequence[torch.Tensor]] = None,
         mid_block_additional_residual: Optional[torch.Tensor] = None,
         return_extras: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
         """``remat``: recompute activations in the backward instead of
         keeping them, per the config's ``remat_unit`` and ``remat_policy``
@@ -429,9 +434,17 @@ class UNet3DConditionModel(nn.Module):
         [B, F, s, s, 2 * additional_channel] (query channels, then key; None
         without the head) and the q/k maps of the last epi module's
         attentions (the JAX package lists every epi attention's; its head
-        reads the last)."""
+        reads the last). ``mesh``: a ("rows", "frames") mesh
+        (``parallel/mesh.py``) of which ``sample``, ``encoder_hidden_states``,
+        the pose features and ``epi_cond`` (whose ``mesh`` it must be) hold
+        this rank's block of batch rows and frames; the output is this
+        rank's block too."""
         cfg = self.config
         B, Fr = sample.shape[:2]
+        if mesh is not None and (epi_cond is None or epi_cond.mesh is not mesh):
+            raise ValueError("a UNet call on a mesh takes the epipolar conditioning of that mesh")
+        if mesh is not None and return_extras:
+            raise NotImplementedError("return_extras is not taken on a mesh")
         unit = (_remat_unit(cfg.remat_policy) if remat and torch.is_grad_enabled()
                 else _call)
         # the unit wraps whole blocks, or each sublayer inside them
@@ -449,7 +462,13 @@ class UNet3DConditionModel(nn.Module):
             pose_features = [None] * 4
 
         def fuse(fuser, x):
-            return torch.cat([x[:, :1], fuser(x[:, :1], x[:, 1:], temb)], dim=1)
+            if mesh is None:
+                return torch.cat([x[:, :1], fuser(x[:, :1], x[:, 1:], temb)], dim=1)
+            # the first frame, from the rank of this frames group that holds it
+            first = all_gather(x[:, :1], mesh, "frames", dim=1)[:, :1]
+            if mesh.coords["frames"]:
+                return fuser(first, x, temb)
+            return torch.cat([first, fuser(first, x[:, 1:], temb)], dim=1)
 
         def want(position):
             return return_extras and position == self._last_epi_block
@@ -461,14 +480,14 @@ class UNet3DConditionModel(nn.Module):
         res_stack = [x]
         for i, block in enumerate(self.down_blocks):
             x, res, maps = run(block, x, temb_f, context_f, pose_features[i], epi_cond,
-                               lora_scale, pab, want(i), sub)
+                               lora_scale, pab, want(i), sub, mesh)
             res_stack += res
             qk = maps or qk
         if down_block_additional_residuals is not None:
             res_stack = [r + extra.to(r.dtype)
                          for r, extra in zip(res_stack, down_block_additional_residuals)]
         x, maps = run(self.mid_block, x, temb_f, context_f, pose_features[-1], epi_cond,
-                      lora_scale, pab, want(len(self.down_blocks)), sub)
+                      lora_scale, pab, want(len(self.down_blocks)), sub, mesh)
         qk = maps or qk
         if cfg.fuse_first_frame:
             x = fuse(self.mid_fuser, x)
@@ -478,7 +497,7 @@ class UNet3DConditionModel(nn.Module):
             n = len(block.resnets)
             res, res_stack = res_stack[-n:], res_stack[:-n]
             x, maps = run(block, x, res, temb_f, context_f, pose_features[-(i + 1)], epi_cond,
-                          lora_scale, pab, want(len(self.down_blocks) + 1 + i), sub)
+                          lora_scale, pab, want(len(self.down_blocks) + 1 + i), sub, mesh)
             qk = maps or qk
         h = self.conv_norm_out(_fold(x))
         out = _unfold(self.conv_out(h), B)

@@ -13,7 +13,7 @@ Plain arithmetic: nothing here imports torch, so the CPU tests cover it and
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -49,11 +49,15 @@ def attention_bwd(B: int, heads: int, Lq: int, Lk: int, D: int, itemsize: int,
     return flops, moved + _geometry_bytes(B, Lq, Lk, has_bias, routed)
 
 
-def temporal_fwd(B: int, N: int, F: int, C: int, itemsize: int, has_mask: bool = False) -> Work:
-    """K3: attention over the F frames of each of B * N pixels; q, k, v, out
-    are [B, N, F, C]. 4 * F * F * D flops per (pixel, head) = 4 * F * F * C a
+def temporal_fwd(B: int, N: int, F: int, C: int, itemsize: int, has_mask: bool = False,
+                 G: Optional[int] = None) -> Work:
+    """K3: attention of F query frames over G key frames (default F) for each
+    of B * N pixels; q and out are [B, N, F, C], k and v [B, N, G, C], the
+    mask [F, G] f32. 4 * F * G * D flops per (pixel, head) = 4 * F * G * C a
     pixel."""
-    return 4 * B * N * F * F * C, 4 * B * N * F * C * itemsize + has_mask * F * F * 4
+    G = F if G is None else G
+    return (4 * B * N * F * G * C,
+            2 * B * N * (F + G) * C * itemsize + has_mask * F * G * 4)
 
 
 def temporal_bwd(B: int, N: int, F: int, C: int, itemsize: int, has_mask: bool = False) -> Work:

@@ -16,12 +16,17 @@ reference's ``pipeline_animation_epi_advanced.py``):
 * Pyramid Attention Broadcast (``pipelines/pab.py``): the reuse flags
   follow the timestep, so every multistep repeat and every pairing of a
   timestep shares them, and the one cache of the request carries across
-  all its UNet calls (advanced.py:401-480).
+  all its UNet calls (advanced.py:401-480);
+* sharded sampling over a ("rows", "frames") mesh (``parallel/mesh.py``,
+  SPMD over ``torchrun``'s processes): every rank draws the same pairings
+  and noise from its generator (seeded alike) and takes the steps alike;
+  each UNet call runs on this rank's block of the 2V (or 2V * A) CFG rows
+  and of the frames, with the global routing remapped inside
+  ``parallel/shard_ops.py``, and its noise prediction is all-gathered.
 
 A Python loop over timesteps, one or more UNet calls each. Every random
 draw (initial latents, pairings, re-noise, epi slopes) comes from the one
-``generator`` the caller passes. Not ported yet: meshes (ROADMAP.md,
-queue 1).
+``generator`` the caller passes.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from cvd_tpu_torch.models.epi import EpiConditioning
 from cvd_tpu_torch.pipelines.common import (
     PipelineModules, SpanTimer, decode_latents, encode_prompt,
 )
+from cvd_tpu_torch.parallel.mesh import constrain, gather
+from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
 from cvd_tpu_torch.pipelines.pab import PABCache
 
 
@@ -69,8 +76,12 @@ class AdvancedPipeline:
 
     def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
                  rand_slope_ff: bool = True, fix_firstframe: bool = False,
-                 accumulate_batched: bool = False):
+                 accumulate_batched: bool = False, mesh=None):
+        """``mesh``: a ("rows", "frames") ``parallel.Mesh`` to shard each UNet
+        call over; the rows must divide 2V (2V * A batched) and the frames F.
+        Only rank 0 decodes: the other ranks return None."""
         self.m = modules
+        self.mesh = mesh
         self.F_mat_size = F_mat_size
         self.rand_slope_ff = rand_slope_ff
         self.fix_firstframe = fix_firstframe
@@ -125,12 +136,19 @@ class AdvancedPipeline:
                              "number of views must be even")
         batched = self.accumulate_batched and A > 1 and n_view_path
         groups = A if batched else 1
+        mesh = self.mesh
+        if mesh is not None:
+            if pab_config is not None:
+                raise ValueError("--pab + --sharded is not validated; pick one")
+            check_divides(mesh, 2 * V * groups, Fr, "AdvancedPipeline")
         state = m.scheduler.set_timesteps(num_inference_steps)
 
         uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
-        text = torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1).to(dtype)
-        pose_feats = [interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1) for p in
-                      m.pose_encoder(plucker.to(device=device, dtype=dtype))]
+        text = constrain(torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1).to(dtype),
+                         mesh, "rows")
+        pose_feats = [constrain(interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1),
+                                mesh, "rows", "frames")
+                      for p in m.pose_encoder(plucker.to(device=device, dtype=dtype))]
         if latents is None:
             latents = self.draw_noise(generator, (V, Fr, H // 8, W // 8, 4))
         latents = latents.to(device=device, dtype=torch.float32) * m.scheduler.init_noise_sigma
@@ -143,10 +161,15 @@ class AdvancedPipeline:
             c2w = c2w.to(device=device, dtype=torch.float32)
             K_mats = K_mats.to(device=device, dtype=torch.float32)
 
-        def conditioning(**kw) -> EpiConditioning:
+        def conditioning(F_mats=None, H_mats=None, kv_index=None) -> EpiConditioning:
+            """The conditioning of the global (b f) rows' mats, this rank's
+            rows of them on a mesh."""
             return EpiConditioning(
-                video_length=Fr, F_mat_size=self.F_mat_size, rand_slope_ff=self.rand_slope_ff,
-                fix_firstframe=self.fix_firstframe, cfg_factor=2, generator=generator, **kw)
+                F_mats=None if F_mats is None else local_rows(F_mats, mesh, Fr),
+                H_mats=None if H_mats is None else local_rows(H_mats, mesh, Fr),
+                kv_index=kv_index, video_length=Fr, F_mat_size=self.F_mat_size,
+                rand_slope_ff=self.rand_slope_ff, fix_firstframe=self.fix_firstframe,
+                cfg_factor=2, generator=generator, mesh=mesh)
 
         fixed = None     # the conditioning of the two paths that draw no pairing
         if H_mats is not None:
@@ -156,17 +179,12 @@ class AdvancedPipeline:
             rows = F_mats.to(device=device, dtype=torch.float32).reshape(V * Fr, 3, 3)
             fixed = conditioning(F_mats=rows[src])
 
-        def make_cond() -> EpiConditioning:
-            """The conditioning of one UNet call: a fixed one, or a fresh
-            pairing with its fundamental matrices and routing."""
-            if fixed is not None:
-                return fixed
+        def pairing():
+            """A fresh pairing: its fundamental matrices and routing."""
             partner = self.draw_pairing(generator, V).to(device)
             dst = partner[row_v] * Fr + row_f
-            return conditioning(
-                F_mats=fundamental_between_views_torch(c2w[src], c2w[dst],
-                                                       K_mats[src], K_mats[dst]),
-                kv_index=partner_rows(partner, Fr))
+            return (fundamental_between_views_torch(c2w[src], c2w[dst], K_mats[src], K_mats[dst]),
+                    partner_rows(partner, Fr))
 
         timer = SpanTimer(device)
         pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
@@ -174,15 +192,17 @@ class AdvancedPipeline:
         def guided_eps(lat: torch.Tensor, t: int) -> torch.Tensor:
             """The guided noise prediction of ``groups`` pairings in one UNet
             call, summed over the groups."""
-            conds = [make_cond() for _ in range(groups)]
-            cond_t = conds[0]
-            if groups > 1:
+            cond_t = fixed
+            if fixed is None:
+                pairs = [pairing() for _ in range(groups)]
                 cond_t = conditioning(
-                    F_mats=torch.cat([c.F_mats for c in conds]),
-                    kv_index=torch.cat([c.kv_index + g * n_rows for g, c in enumerate(conds)]))
-            lat_in = interleave_cfg(lat).repeat(groups, 1, 1, 1, 1)
+                    F_mats=torch.cat([f for f, _ in pairs]),
+                    kv_index=torch.cat([k + g * n_rows for g, (_, k) in enumerate(pairs)]))
+            lat_in = constrain(interleave_cfg(lat).repeat(groups, 1, 1, 1, 1), mesh,
+                               "rows", "frames")
             with timer:
-                eps = m.unet(lat_in, t, text, pose_feats, cond_t, pab=pab).float()
+                eps = m.unet(lat_in, t, text, pose_feats, cond_t, pab=pab, mesh=mesh)
+                eps = gather(eps, mesh, "rows", "frames").float()
             eps = eps.reshape((groups, 2 * V) + eps.shape[1:])
             guided = eps[:, 0::2] + guidance_scale * (eps[:, 1::2] - eps[:, 0::2])
             return guided.sum(0)
@@ -205,4 +225,4 @@ class AdvancedPipeline:
         self.unet_step_ms = timer.elapsed_ms()
         if not decode:
             return latents
-        return decode_latents(m, latents)
+        return decode_latents(m, latents, mesh)

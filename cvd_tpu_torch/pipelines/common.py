@@ -182,9 +182,13 @@ def encode_prompt(modules: PipelineModules, prompt_ids: torch.Tensor,
     return modules.clip(negative_ids), modules.clip(prompt_ids)
 
 
-def decode_latents(modules: PipelineModules, latents: torch.Tensor) -> torch.Tensor:
+def decode_latents(modules: PipelineModules, latents: torch.Tensor,
+                   mesh=None) -> Optional[torch.Tensor]:
     """[B, F, h, w, 4] latents -> [B, F, H, W, 3] images in [0, 1] (f32),
-    the whole video in one decode."""
+    the whole video in one decode. On a ``mesh`` (every rank holding the
+    same latents) rank 0 alone decodes; the others return None."""
+    if mesh is not None and mesh.rank != 0:
+        return None
     B, Fr, h, w, c = latents.shape
     dtype = modules.vae.post_quant_conv.weight.dtype
     z = (latents.reshape(B * Fr, h, w, c) / VAE_SCALE).to(dtype)

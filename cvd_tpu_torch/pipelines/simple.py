@@ -8,10 +8,14 @@
   denoised as ``multidiff_total_steps`` overlapping windows per step, their
   noise predictions averaged where they overlap (simple.py:151-217);
 * Pyramid Attention Broadcast (``pipelines/pab.py``), not with multidiff;
-* a whole-video VAE decode.
+* a whole-video VAE decode;
+* sharded sampling over a ("rows", "frames") mesh (``parallel/mesh.py``,
+  SPMD over ``torchrun``'s processes): every rank encodes the text and the
+  poses, draws the latents and takes the DDIM steps alike; each UNet call
+  runs on this rank's block of the 4 CFG rows and the window's frames, and
+  its noise prediction is all-gathered before the guidance.
 
-More than two views: ``pipelines/advanced.py``. Not ported yet: meshes
-(ROADMAP.md, queue 1).
+More than two views: ``pipelines/advanced.py``.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from cvd_tpu_torch.models.epi import EpiConditioning
 from cvd_tpu_torch.pipelines.common import (
     PipelineModules, SpanTimer, decode_latents, encode_prompt,
 )
+from cvd_tpu_torch.parallel.mesh import constrain, gather
+from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
 from cvd_tpu_torch.pipelines.pab import PABCache
 
 
@@ -35,10 +41,14 @@ class SimplePipeline:
     """2-view, fixed-pair generation with epipolar sync."""
 
     def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
-                 rand_slope_ff: bool = True):
+                 rand_slope_ff: bool = True, mesh=None):
+        """``mesh``: a ("rows", "frames") ``parallel.Mesh`` to shard each UNet
+        call over; the rows must divide 4 and the frames the window. Only
+        rank 0 decodes: the other ranks return None."""
         self.m = modules
         self.F_mat_size = F_mat_size
         self.rand_slope_ff = rand_slope_ff
+        self.mesh = mesh
         # wall time of each UNet call of the last run, in ms (CUDA events on
         # the card, the host clock on the CPU)
         self.unet_step_ms: List[float] = []
@@ -87,6 +97,11 @@ class SimplePipeline:
                              f"and its temporal positional encoding holds {max_frames}")
         if pab_config is not None and windows != 1:
             raise ValueError("PAB + multidiff windows is unsupported")
+        mesh = self.mesh
+        if mesh is not None:
+            if pab_config is not None:
+                raise ValueError("--pab + --sharded is not validated; pick one")
+            check_divides(mesh, 4, Fw, "SimplePipeline")
         state = m.scheduler.set_timesteps(num_inference_steps)
 
         uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
@@ -101,10 +116,11 @@ class SimplePipeline:
         def window_cond(start: int):
             """The pose features and epipolar conditioning of the window of
             frames [start, start + Fw)."""
-            return [p[:, start:start + Fw] for p in pose_feats], EpiConditioning(
-                F_mats=F4[:, start:start + Fw].reshape(4 * Fw, 3, 3), video_length=Fw,
-                F_mat_size=self.F_mat_size, rand_slope_ff=self.rand_slope_ff,
-                generator=generator)
+            return [constrain(p[:, start:start + Fw], mesh, "rows", "frames")
+                    for p in pose_feats], EpiConditioning(
+                F_mats=local_rows(F4[:, start:start + Fw].reshape(4 * Fw, 3, 3), mesh, Fw),
+                video_length=Fw, F_mat_size=self.F_mat_size, rand_slope_ff=self.rand_slope_ff,
+                generator=generator, mesh=mesh)
 
         starts = [w * stride for w in range(windows)]
         conds = [window_cond(s) for s in starts]
@@ -126,8 +142,10 @@ class SimplePipeline:
             eps_full = torch.zeros_like(latents)
             for s, (pf, epi_cond) in zip(starts, conds):
                 with timer:
-                    eps = m.unet(_cfg4(latents[:, s:s + Fw]), int(t), text, pf, epi_cond,
-                                 pab=pab).float()
+                    lat_in = constrain(_cfg4(latents[:, s:s + Fw]), mesh, "rows", "frames")
+                    eps = m.unet(lat_in, int(t), constrain(text, mesh, "rows"), pf, epi_cond,
+                                 pab=pab, mesh=mesh)
+                    eps = gather(eps, mesh, "rows", "frames").float()
                 # chunk(4): uncond rows (0, 2), cond rows (1, 3)
                 eps_u = torch.stack([eps[0], eps[2]])
                 eps_t = torch.stack([eps[1], eps[3]])
@@ -136,4 +154,4 @@ class SimplePipeline:
         self.unet_step_ms = timer.elapsed_ms()
         if not decode:
             return latents
-        return decode_latents(m, latents)
+        return decode_latents(m, latents, mesh)

@@ -491,14 +491,17 @@ def test_inference_advanced_cli_random_weights(tmp_path):
     (["--view_num", "3"], SystemExit),
     (["--image_width", "128"], SystemExit),
     (["--pab", "--pab_ranges", "attn=2"], ValueError),
-    (["--sharded"], NotImplementedError),
+    (["--sharded"], RuntimeError),       # without torchrun's environment
     (["--step_chunk", "2"], NotImplementedError),
     (["--mono_direction"], NotImplementedError),
 ])
-def test_inference_advanced_cli_refuses(tmp_path, extra, error):
+def test_inference_advanced_cli_refuses(tmp_path, monkeypatch, extra, error):
     from cvd_tpu_torch.cli import inference_advanced
+    from cvd_tpu_torch.parallel.mesh import TORCHRUN_ENV
 
-    with pytest.raises(error):
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(error, match="torchrun" if extra == ["--sharded"] else None):
         inference_advanced.main(_cli_args(tmp_path, *extra))
     assert not os.path.exists(tmp_path / "out")    # refused before anything was written
 

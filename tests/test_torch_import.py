@@ -24,7 +24,8 @@ for new in ("io.manifests", "io.torch_io", "io.checkpoints", "io.model_config", 
             "io.tokenizer", "cli.build", "cli.merge_lora", "pipelines.pab",
             "models.sparse_controlnet", "data.latents_cache", "utils.visualize",
             "data.webvid", "data.remote", "io.ldm_convert", "cli.eval_parity",
-            "schedulers.inversion", "utils.flops", "utils.profiling", "data.extract_frames"):
+            "schedulers.inversion", "utils.flops", "utils.profiling", "data.extract_frames",
+            "parallel", "parallel.mesh", "parallel.shard_ops"):
     assert "cvd_tpu_torch." + new in names, new
 # the port's own copy of the PAB schedules, not a re-export of cvd_tpu's
 assert sys.modules["cvd_tpu_torch.pipelines.pab"].__file__.endswith(

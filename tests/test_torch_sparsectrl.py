@@ -216,15 +216,21 @@ def test_every_cvd_tpu_option_parses_in_the_port(entry):
     assert ours - {s for s, _ in strings} - {"-h", "--help"} == {"--device"}
 
 
-def test_no_lora_validation_and_scan_layers_are_no_ops_and_sharded_is_refused(tmp_path):
+def test_no_lora_validation_and_scan_layers_are_no_ops_and_sharded_is_refused(tmp_path,
+                                                                              monkeypatch):
+    """--sharded runs over torchrun's processes: without their environment
+    it is refused, naming torchrun, before anything is read or written."""
     from cvd_tpu_torch.cli import inference
+    from cvd_tpu_torch.parallel.mesh import TORCHRUN_ENV
 
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
     args = inference.build_parser().parse_args([
         "--caption_file", "c.json", "--pose_file_0", "a", "--pose_file_1", "b",
         "--no_lora_validation", "--no-scan_layers", "--sharded", "--random-weights",
         "--out_root", str(tmp_path / "out")])
     assert args.no_lora_validation and args.scan_layers is False
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, item 5"):
+    with pytest.raises(RuntimeError, match="--sharded needs the environment torchrun sets"):
         inference.main(args)
     assert not (tmp_path / "out").exists()
 

@@ -1,8 +1,10 @@
-"""One process of the port's data-parallel training on the CPU (gloo), for
-tests/test_torch_multihost.py. Run as ``torchrun`` would start it, with
-RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set:
+"""One process of the port's data-parallel training or sharded sampling on
+the CPU (gloo), for tests/test_torch_multihost.py and tests/test_torch_mesh.py.
+Run as ``torchrun`` would start it, with RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR and MASTER_PORT set:
 
     python tests/torch_dist_worker.py step|run|world_of_one OUT.pt
+    python tests/torch_dist_worker.py mesh_ops|mesh_samplers|mesh_clis OUT.pt IN.pt
 
 ``step``: one step of the smoke-width UNet on this rank's folded pair with
 the noise and timesteps pinned (``pinned_step``), the gradients averaged
@@ -11,6 +13,14 @@ trainable weights. ``run``: ``cli.train.run`` with ``multihost`` on
 in-memory posed and unposed sources: saves the losses, kinds and trainable
 weights. ``world_of_one``: the same run as a world of one, and again
 without ``multihost``: saves both losses.
+
+``mesh_ops``: for each mesh shape of IN.pt's ``meshes``, each shard-op case
+of its ``cases`` on this rank's block, gathered back to the global tensor.
+``mesh_samplers``: the bundle of IN.pt, and each of its sampler ``cases``
+on each mesh: the final latents (every rank's own); each rank also runs
+every world-th case unsharded. ``mesh_clis``: the two
+sampling CLIs with ``--sharded --device cpu`` and IN.pt's arguments, in the
+one process group (the out root is made per rank): their records.
 """
 import os
 import random
@@ -110,11 +120,129 @@ def training_run(out_dir, multihost):
                      multihost=multihost)
 
 
-def main(mode, out):
-    if mode == "step":
+def _mesh_op(case, mesh):
+    """One shard-op case on this rank's block of the global inputs ->
+    the output all-gathered to the global tensor."""
+    from cvd_tpu_torch.parallel import shard_ops as so
+    from cvd_tpu_torch.parallel.mesh import constrain, gather
+
+    kind, F = case["kind"], case.get("video_length")
+    if kind == "temporal":
+        q, k, v = (constrain(case[n], mesh, "rows", None, "frames") for n in "qkv")
+        out = so.sharded_temporal_flash(q, k, v, case["mask"], case["heads"], mesh,
+                                        so.frame_offset(mesh, q.shape[2]))
+        return gather(out, mesh, "rows", None, "frames")
+
+    def rows(x):
+        return so.local_rows(x, mesh, F)
+
+    def unrows(x):
+        return gather(x.reshape((-1, F // mesh.shape["frames"]) + x.shape[1:]), mesh,
+                      "rows", "frames").reshape((-1,) + x.shape[1:])
+
+    if kind == "epi":
+        out = so.sharded_epi_flash(*(rows(case[n]) for n in "qkv"), rows(case["lines"]),
+                                   case["coords"], rows(case["band"]), rows(case["alpha"]),
+                                   case["heads"], case["kv_index"], F, mesh)
+    elif kind == "spatial":
+        out = so.sharded_spatial_flash(*(rows(case[n]) for n in "qkv"), case["heads"], mesh)
+    elif kind == "partner":
+        out = so.sharded_partner_tokens(rows(case["x"]), case["kv_index"], F, mesh)
+    else:
+        out = so.extended_context(rows(case["x"]), mesh, F // mesh.shape["frames"])
+    return unrows(out)
+
+
+def _replaying(partners, noises):
+    """An AdvancedPipeline that draws the given pairings and noises."""
+    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+
+    class Replaying(AdvancedPipeline):
+        def draw_pairing(self, generator, num_views):
+            return partners.pop(0).clone()
+
+        def draw_noise(self, generator, shape):
+            return noises.pop(0).clone()
+
+    return Replaying
+
+
+def mesh_bundles(spec):
+    """-> {"plain": the bundle of ``spec``'s state dicts, "extended": the same
+    weights with spatial extended attention}, in float64 (the samplers'
+    parity bar is below float32's summation-order noise after guided
+    steps)."""
+    import dataclasses
+
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.models.unet import UNet3DConditionModel
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    m = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cpu",
+                               dtype=torch.float64)
+    for name in ("unet", "vae", "clip", "pose_encoder"):
+        getattr(m, name).load_state_dict(spec[name], strict=True)
+    ext = UNet3DConditionModel(dataclasses.replace(SMOKE_UNET, spatial_extended_attention=True))
+    ext.load_state_dict(spec["unet"], strict=True)
+    return {"plain": m, "extended": dataclasses.replace(m, unet=ext.to(torch.float64).eval())}
+
+
+def run_sampler(bundles, case, mesh=None):
+    """One sampler case (``tests/test_torch_mesh.py``'s ``SAMPLERS``) ->
+    its final latents."""
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+
+    kw = dict(case["call"])
+    m = bundles[case.get("bundle", "plain")]
+    if case["pipeline"] == "simple":
+        pipe = SimplePipeline(m, F_mat_size=case["F_mat_size"], rand_slope_ff=False, mesh=mesh)
+    else:
+        cls = _replaying(list(case["partners"]), list(case["noises"]))
+        pipe = cls(m, F_mat_size=case["F_mat_size"], rand_slope_ff=False, fix_firstframe=True,
+                   accumulate_batched=case["batched"], mesh=mesh)
+    return pipe(**kw, decode=False)
+
+
+def main(mode, out, inp=None):
+    if mode.startswith("mesh"):
         import torch.distributed as dist
 
-        from cvd_tpu_torch.cli.train import init_distributed
+        from cvd_tpu_torch.parallel.mesh import create_mesh, init_distributed
+
+        spec = torch.load(inp, weights_only=False)
+        # one group for the whole process: the CLIs reuse it
+        init_distributed("cpu", "--sharded", "tests/torch_dist_worker.py")
+        if mode == "mesh_clis":
+            try:
+                results = mesh_clis(spec, os.path.dirname(out))
+            finally:
+                dist.destroy_process_group()
+            torch.save(results, out)
+            return
+        bundles = mesh_bundles(spec["bundle"]) if mode == "mesh_samplers" else None
+        results = {}
+        if bundles is not None:
+            # the unsharded references, shared out over the ranks
+            rank, world = dist.get_rank(), dist.get_world_size()
+            with torch.no_grad():
+                for i, (name, case) in enumerate(spec["cases"].items()):
+                    if i % world == rank:
+                        results[("unsharded", name)] = run_sampler(bundles, case)
+        try:
+            for shape in spec["meshes"]:
+                mesh = create_mesh(shape, ("rows", "frames"))
+                for name, case in spec["cases"].items():
+                    with torch.no_grad():
+                        results[(tuple(shape), name)] = (
+                            _mesh_op(case, mesh) if bundles is None
+                            else run_sampler(bundles, case, mesh))
+        finally:
+            dist.destroy_process_group()
+        torch.save(results, out)
+    elif mode == "step":
+        import torch.distributed as dist
+
+        from cvd_tpu_torch.parallel.mesh import init_distributed
 
         rank, world, _ = init_distributed("cpu")
         try:
@@ -139,6 +267,20 @@ def main(mode, out):
         plain = training_run(os.path.join(base, "plain"), multihost=False)
         torch.save({"multihost": one["losses"], "plain": plain["losses"],
                     "world": one["world_size"]}, out)
+
+
+def mesh_clis(spec, base):
+    """Both sampling CLIs with ``--sharded --device cpu`` and ``spec``'s
+    arguments, each under its own out root below ``base``."""
+    from cvd_tpu_torch.cli import inference, inference_advanced
+
+    out = {}
+    for name, cli in (("inference", inference), ("inference_advanced", inference_advanced)):
+        args = cli.build_parser().parse_args(
+            spec[name] + ["--sharded", "--device", "cpu", "--out_root",
+                          os.path.join(base, name)])
+        out[name] = cli.main(args)
+    return out
 
 
 if __name__ == "__main__":
