@@ -65,15 +65,18 @@ Phases (any failure raises and exits non-zero):
    1e-5 relative, gradients at >= 60 dB, the epi loss nonzero.
 5. slice: ``cvd_tpu_torch.cli.inference`` at SD1.5 width (random weights,
    bf16, 256 px, 16 frames, 2 views, 3 DDIM steps) answers the two prompts
-   of assets/example_prompts.json. Launch counts are reset just before
-   and read just after: every forward kernel must have run.
+   of assets/example_prompts.json, its timesteps replayed as CUDA graphs
+   (the samplers' default on the card; ``pipelines/program.py``). Launch
+   counts are reset just before and read just after: every forward kernel
+   must have run (the warm-up before the capture counts: it launches them).
 6. nview: ``cvd_tpu_torch.cli.inference_advanced`` at SD1.5 width (random
    weights, bf16, 256 px, 16 frames, 4 views on the ``circle`` pattern, 3
    DDIM steps, multistep 2, accumulate_step 2, the first prompt): 10 UNet
    calls at 8 CFG rows, then the same with ``accumulate_batched`` (5 calls
    at 16 rows). Finite [4, 16, 256, 256, 3] videos, K1-K5 all launched, K1
    handed a route other than the 2-view half swap; ms per UNet call, s per
-   request, peak memory and launches per call of both variants.
+   request, peak memory and launches per call of both variants (captured,
+   as phase 5).
 7. train: ``cvd_tpu_torch.cli.train.run`` at SD1.5 width (bf16 frozen
    weights, f32 masters, 256 px, 16 frames, 1 folded pair, 4 steps, remat
    on, sanity dump on) on seeded pixels with the camera geometry of
@@ -81,8 +84,10 @@ Phases (any failure raises and exits non-zero):
    bit-identical, every kernel K1-K7 launched. Then one step with remat
    off for its peak memory. With ``--profile``, torch.profiler tables of
    three sampler UNet steps, of the N-view sampler's UNet calls at 8 and at
-   16 CFG rows and of one training step (kernel time by name, idle share;
-   chiprun_out/{sampler_step,nview_8rows,nview_16rows,train_step}_profile.txt).
+   16 CFG rows (each eagerly and captured) and of one training step (kernel
+   time by name, idle share;
+   chiprun_out/{sampler_step,nview_8rows,nview_16rows}_{eager,captured}_profile.txt,
+   chiprun_out/train_step_profile.txt).
 
 8. ckpt: the six checkpoint artifacts written at SD1.5 width from
    ``cvd_tpu_torch.io.manifests`` (seeded float16 values drawn on the card;
@@ -183,7 +188,25 @@ Phases (any failure raises and exits non-zero):
    step, as achieved TFLOP/s beside the card's name and power limit. K1-K5
    launched on (c) and (d), K1-K7 on (e), each path counted from 0.
 
-mesh (after phase 6): (a) K1 and K3 at the shapes a rank of a sharded
+graphs (after phase 6): the samplers' timesteps as replayed CUDA graphs
+   against the same requests run eagerly (``capture=False``), at SD1.5 width,
+   bf16, 256 px, 16 frames: (a) phase 5's two requests eagerly, videos bit
+   for bit phase 5's; (b) phase 6's 4-view request eagerly as a loop and
+   batched, videos bit for bit phase 6's; (c) the 4-view request with
+   ``--step_chunk`` 1, 2 and 3 (3 timesteps: the last its own graph, a
+   ragged chunk at 2): videos bit for bit each other's; (d) the epi slopes,
+   pairings and noises of (b)'s eager loop and (c)'s step_chunk 1, recorded
+   on the card at every draw (a graph's replays record theirs): equal draw
+   for draw, and no slope drawn twice (a graph that replayed its first
+   draws would repeat them); (e) launches per UNet call of the denoising
+   loop, captured (phases 5 and 6) against eager ((a), (b)): equal for
+   K1-K5; (f) at the pipelines, from one build, in turns: captured and eager
+   requests at 4, 8 and 16 CFG rows (2 views, 4 views as a loop and
+   batched): s a request, median ms a UNet call, the first request's
+   capture seconds, peak allocated and reserved memory (``[graphs]``
+   lines; with ``--profile``, the idle share of captured and eager steps).
+
+mesh (after phase graphs): (a) K1 and K3 at the shapes a rank of a sharded
    sampler hands them, against their plain versions in f32 (TF32 off) and
    bf16 with phase 3's limits, timed in bf16 beside the unsharded shapes:
    K1 with k/v gathered over the rows (2x and 4x the query rows) and the
@@ -192,7 +215,8 @@ mesh (after phase 6): (a) K1 and K3 at the shapes a rank of a sharded
    16 key frames, without a mask and with the causal mask's rows of the
    shard; (b) ``cli.inference --sharded`` and (c) ``cli.inference_advanced
    --sharded`` (as a loop and batched) as a world of one over NCCL at the
-   sizes of phases 5 and 6: videos bit for bit those of phases 5 and 6,
+   sizes of phases 5 and 6 (eagerly: ``--sharded`` is not captured):
+   videos bit for bit those of phases 5 and 6 (captured),
    every forward kernel launched, launches per UNet call; ``[mesh]`` lines.
 
 mesh4 (``--mesh`` only; raises below 4 cards): ``torch.distributed.run``
@@ -213,6 +237,8 @@ call of each sampler and per training step, and each path of phases 9, 10,
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import os
@@ -1109,8 +1135,10 @@ def _reference_nview(torch, np, cpu, gpu, wrappers):
         accumulate_step=2, decode=False)
 
     def run(modules, batched):
+        # the draws come from a host generator, shared with the CPU run: a
+        # captured sampler draws on the card, so the card runs eagerly here
         pipe = AdvancedPipeline(modules, F_mat_size=S, rand_slope_ff=False,
-                                accumulate_batched=batched)
+                                accumulate_batched=batched, capture=False)
         return pipe(**inputs, generator=torch.Generator().manual_seed(7)).cpu().numpy()
 
     want = run(cpu, False)
@@ -1453,12 +1481,15 @@ def _ckpt_runs(torch, np, root, sampler, sampler_requests):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     v, ms = rec["videos"], rec["unet_step_ms"]
+    run = len(ms) + rec["program"]["warmup_calls"]
     log(f"[ckpt] request from the files: {rec['seconds']:.2f} s end to end ({seconds:.2f} s "
         f"with the module build), UNet steps [{', '.join(f'{x:.1f}' for x in ms)}] ms, peak "
         f"allocated {peak / 2**30:.2f} GiB, video std {float(v.std()):.4f}, launches per UNet "
-        f"step { {n: round(launches[n] / len(ms), 1) for n in FORWARD} }")
-    off = {n: (launches[n], sampler[n] / sampler_requests) for n in FORWARD
-           if launches[n] == 0 or launches[n] * sampler_requests != sampler[n]}
+        f"step run (the warm-up's included) { {n: round(launches[n] / run, 1) for n in FORWARD} }")
+    # per request without the warm-ups (phase 5 warmed up once for two requests)
+    net = {n: launches[n] - rec["program"]["warmup_launches"][n] for n in FORWARD}
+    off = {n: (net[n], sampler[n] / sampler_requests) for n in FORWARD
+           if launches[n] == 0 or net[n] * sampler_requests != sampler[n]}
     if v.shape != (2, 16, 256, 256, 3) or not np.isfinite(v).all() or off:
         raise RuntimeError(f"from checkpoint files: videos {v.shape}, finite "
                            f"{np.isfinite(v).all()}, launches (here, a request of phase 5) {off}")
@@ -1560,7 +1591,7 @@ def _ckpt_runs(torch, np, root, sampler, sampler_requests):
         raise RuntimeError(f"training from checkpoint files: losses {losses}, trainable tensors "
                            f"not moved {still[:5]}, frozen tensors changed {changed[:5]}, "
                            f"kernels not launched {missing}")
-    return ((launches, len(ms)), (train_launches, steps)), paths, one_prompt
+    return ((launches, run), (train_launches, steps)), paths, one_prompt
 
 
 def phase_ckpt(torch, sampler, sampler_requests, train_seconds=None, unet_ms=None, smi=""):
@@ -1707,7 +1738,7 @@ def _options_runs(torch, np, root, paths, one_prompt):
         if not np.isfinite(v).all() or len(ms) != calls_expected or missing:
             raise RuntimeError(f"{name}: finite {np.isfinite(v).all()}, {len(ms)} UNet calls "
                                f"(want {calls_expected}), kernels not launched {missing}")
-        out[name] = (launches, len(ms))
+        out[name] = (launches, len(ms) + rec["program"]["warmup_calls"])
         return rec, per.calls, seen
 
     def args2(*extra, files_=paths):
@@ -2199,13 +2230,15 @@ def _civitai_runs(torch, np, root, paths, one_prompt, unet_ms, smi):
                         caption_file=one_prompt)
         t0 = time.perf_counter()
         (rec,) = counted(f"civitai_{path}", lambda: inference.main(a, tokenizer=tok),
-                         lambda recs: len(recs[0]["unet_step_ms"]))
+                         lambda recs: len(recs[0]["unet_step_ms"])
+                         + recs[0]["program"]["warmup_calls"])
         v = rec["videos"]
         launches = out[f"civitai_{path}"][0]
         log(f"[civitai] (c) request{' with --pab' if extra else ''}: {rec['seconds']:.2f} s "
             f"({time.perf_counter() - t0:.2f} s with the civitai build), UNet steps median "
             f"{float(np.median(rec['unet_step_ms'][1:])):.1f} ms, launches per UNet call "
-            f"{ {n: round(launches[n] / len(rec['unet_step_ms']), 1) for n in FORWARD} }")
+            f"{ {n: round(launches[n] / out[f'civitai_{path}'][1], 1) for n in FORWARD} } "
+            f"(UNet calls run, the warm-up's included)")
         missing = [n for n in FORWARD if launches[n] == 0]
         if v.shape != (2, 16, 256, 256, 3) or not np.isfinite(v).all() or missing:
             raise RuntimeError(f"civitai request {path}: {v.shape}, finite "
@@ -2353,16 +2386,9 @@ def _civitai_runs(torch, np, root, paths, one_prompt, unet_ms, smi):
 
 def _wrappers():
     """The op wrappers that launch each kernel; each carries its count."""
-    from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn
+    from cvd_tpu_torch.ops import counted_wrappers
 
-    return {"epi_flash_attention": epi_flash.epi_flash_attention,
-            "flash_attention": epi_flash.flash_attention,
-            "temporal_flash_attention": temporal_attn.temporal_flash_attention,
-            "group_norm": norms.group_norm,
-            "layer_norm_matmul": ln_matmul.layer_norm_matmul,
-            "epi_flash_attention_bwd": epi_flash.epi_flash_attention_bwd,
-            "flash_attention_bwd": epi_flash.flash_attention_bwd,
-            "temporal_flash_attention_bwd": temporal_attn.temporal_flash_attention_bwd}
+    return counted_wrappers()
 
 
 def _slice_argv(out_root):
@@ -2396,7 +2422,8 @@ def _nview_argv(out_root):
 
 
 def phase_slice(torch):
-    """-> (launches, UNet steps, median steady step ms, the requests' videos)."""
+    """-> (launches, UNet calls run (warm-ups included), median steady step
+    ms, the requests' videos, the requests' records)."""
     import numpy as np
 
     from cvd_tpu_torch.cli import inference
@@ -2419,16 +2446,23 @@ def phase_slice(torch):
         if v.shape != (2, 16, 256, 256, 3) or not np.isfinite(v).all():
             raise RuntimeError(f"request {i}: videos {v.shape}, finite={np.isfinite(v).all()}")
         steps = ", ".join(f"{ms:.1f}" for ms in rec["unet_step_ms"])
+        prog = rec["program"]
         log(f"[slice] request {i}: {rec['seconds']:.2f} s end to end, UNet steps [{steps}] ms, "
-            f"video std {float(v.std()):.4f}")
+            f"video std {float(v.std()):.4f}; captured {prog['captured']}, "
+            f"{prog['captures']} capture(s) in {prog['capture_s']:.2f} s, warm-up UNet calls "
+            f"{prog['warmup_calls']}")
     log(f"[slice] 2 requests in {seconds:.2f} s (module build included), "
         f"peak allocated {peak / 2**30:.2f} GiB, launches {launches}")
     missing = [n for n in FORWARD if launches[n] == 0]
     if len(records) != 2 or missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")
-    unet_steps = sum(len(rec["unet_step_ms"]) for rec in records)
+    if not all(rec["program"]["captured"] for rec in records):
+        raise RuntimeError("the 2-view CLI did not replay its timesteps as CUDA graphs")
+    unet_steps = sum(len(rec["unet_step_ms"]) + rec["program"]["warmup_calls"]
+                     for rec in records)
     steady = [ms for rec in records for ms in rec["unet_step_ms"][1:]]
-    return launches, unet_steps, float(np.median(steady)), [rec["videos"] for rec in records]
+    return (launches, unet_steps, float(np.median(steady)), [rec["videos"] for rec in records],
+            records)
 
 
 def phase_nview(torch):
@@ -2436,7 +2470,8 @@ def phase_nview(torch):
     16 frames, bf16, 3 DDIM steps, multistep 2, accumulate_step 2, the first
     prompt of assets/example_prompts.json; as a loop (10 UNet calls at 8 CFG
     rows), then with ``accumulate_batched`` (5 calls at 16 rows).
-    -> ({variant: (launches, UNet calls)}, {variant: videos})."""
+    -> ({variant: (launches, UNet calls run, warm-ups included)},
+    {variant: videos}, {variant: the request's record})."""
     import numpy as np
 
     from cvd_tpu_torch.cli import inference_advanced
@@ -2455,7 +2490,7 @@ def phase_nview(torch):
         return kernel(q, k, v, *geom, heads=heads, kv_index=kv_index)
 
     wrappers = _wrappers()
-    results, videos = {}, {}
+    results, videos, records = {}, {}, {}
     epi.epi_flash_attention = watched
     try:
         for variant, batched, calls, rows in (("loop", False, 10, 8), ("batched", True, 5, 16)):
@@ -2471,29 +2506,304 @@ def phase_nview(torch):
             seconds = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in wrappers.items()}
             peak = torch.cuda.max_memory_allocated()
-            v, ms = rec["videos"], rec["unet_step_ms"]
+            v, ms, prog = rec["videos"], rec["unet_step_ms"], rec["program"]
+            # K1's calls in Python: the warm-ups' and the captures' (a replay
+            # runs no Python; a captured check holds its last replay's value)
             routed = int(torch.stack(other_routes).sum()) if other_routes else 0
+            run = len(ms) + prog["warmup_calls"]
+            log(f"[nview] {variant}: captured {prog['captured']}, {prog['captures']} graph(s) "
+                f"captured in {prog['capture_s']:.2f} s, warm-up UNet calls "
+                f"{prog['warmup_calls']}")
             log(f"[nview] {variant}: 4 views, {len(ms)} UNet calls at {rows} CFG rows x 16 frames: "
                 f"{rec['seconds']:.2f} s the request ({seconds:.2f} s with the module build), "
                 f"UNet calls [{', '.join(f'{x:.1f}' for x in ms)}] ms, steady "
                 f"{sorted(ms[1:])[len(ms[1:]) // 2]:.1f} ms (median after the first), "
                 f"peak allocated {peak / 2**30:.2f} GiB, video std {float(v.std()):.4f}")
-            log(f"[nview] {variant}: launches {launches}; per UNet call "
-                f"{ {n: round(launches[n] / len(ms), 1) for n in FORWARD} } (K4 includes the pose "
-                f"encoder and the VAE decode); K1 calls with a route other than the half swap "
-                f"{routed}/{len(other_routes)}")
+            log(f"[nview] {variant}: launches {launches}; per UNet call run (warm-ups "
+                f"included) { {n: round(launches[n] / run, 1) for n in FORWARD} } (K4 includes "
+                f"the pose encoder and the VAE decode); K1 calls in Python with a route other "
+                f"than the half swap {routed}/{len(other_routes)}")
             missing = [n for n in FORWARD if launches[n] == 0]
             if (v.shape != (4, 16, 256, 256, 3) or not np.isfinite(v).all() or len(ms) != calls
-                    or missing or routed == 0):
+                    or missing or routed == 0 or not prog["captured"]):
                 raise RuntimeError(f"N-view {variant}: videos {v.shape}, finite "
                                    f"{np.isfinite(v).all()}, {len(ms)} UNet calls (want {calls}), "
                                    f"kernels not launched {missing}, K1 calls off the half swap "
                                    f"{routed}")
-            results[variant] = (launches, len(ms))
+            results[variant] = (launches, run)
             videos[variant] = v
+            records[variant] = rec
     finally:
         epi.epi_flash_attention = kernel
-    return results, videos
+    return results, videos, records
+
+
+class _DrawLog:
+    """Every random draw of a sampler on the card, recorded where it is
+    drawn: the epi slopes (``models.epi._uniform_slope``), the pairings
+    (``pipelines.advanced.random_pairing``) and the noises (the first 8
+    values of each ``AdvancedPipeline.draw_noise``). Each draw is written
+    into a buffer on the card at a counter on the card, so that a CUDA
+    graph's replays write their own draws. The warm-up before a capture
+    (eager, on a side stream; its draws are given back) is not recorded."""
+
+    def __init__(self, torch, size=8192):
+        self.torch = torch
+        self.count = torch.zeros(1, dtype=torch.long, device="cuda")
+        self.rows = torch.full((size, 9), float("nan"), device="cuda")
+
+    def _record(self, kind, x):
+        torch = self.torch
+        if (not torch.cuda.is_current_stream_capturing()
+                and torch.cuda.current_stream() != torch.cuda.default_stream()):
+            return
+        # built on the card: a number written into a card tensor would be a
+        # copy from the host, which a capture refuses
+        x = x.reshape(-1)[:8].float().to("cuda")
+        row = torch.cat([torch.full((1,), float(kind), device="cuda"), x,
+                         torch.full((8 - x.numel(),), float("nan"), device="cuda")])
+        self.rows.index_copy_(0, self.count, row[None])
+        self.count += 1
+
+    def __enter__(self):
+        from cvd_tpu_torch.models import epi
+        from cvd_tpu_torch.pipelines import advanced
+
+        self.saved = (epi._uniform_slope, advanced.random_pairing,
+                      advanced.AdvancedPipeline.draw_noise)
+        slope, pairing, noise = self.saved
+
+        def slope_(*a, **kw):
+            out = slope(*a, **kw)
+            self._record(0, out)
+            return out
+
+        def pairing_(*a, **kw):
+            out = pairing(*a, **kw)
+            self._record(1, out)
+            return out
+
+        def noise_(pipe, *a, **kw):
+            out = noise(pipe, *a, **kw)
+            self._record(2, out)
+            return out
+
+        epi._uniform_slope, advanced.random_pairing = slope_, pairing_
+        advanced.AdvancedPipeline.draw_noise = noise_
+        return self
+
+    def __exit__(self, *exc):
+        from cvd_tpu_torch.models import epi
+        from cvd_tpu_torch.pipelines import advanced
+
+        (epi._uniform_slope, advanced.random_pairing,
+         advanced.AdvancedPipeline.draw_noise) = self.saved
+
+    def draws(self):
+        """-> [n, 9] on the host: kind (0 slope, 1 pairing, 2 noise), values."""
+        n = int(self.count)
+        if n >= self.rows.shape[0]:
+            raise RuntimeError(f"{n} draws overflow the log of {self.rows.shape[0]}")
+        return self.rows[:n].cpu().numpy()
+
+
+def _loop_per_call(records):
+    """Launches per UNet call of the records' denoising loops (the
+    program's count around its bodies or replays, warm-ups apart)."""
+    calls = sum(r["program"]["unet_calls"] for r in records)
+    return {n: sum(r["program"]["launches"][n] for r in records) / calls for n in FORWARD}
+
+
+def _graphs_turns(torch, np):
+    """Phase graphs (f): captured and eager requests in turns at the
+    pipelines, from one build (SD1.5 width, bf16, random weights, 256 px, 16
+    frames): 2 views (4 CFG rows, 3 steps), 4 views as a loop (8 rows) and
+    batched (16 rows; 3 steps, multistep 2, accumulate 2). -> {path: dict}."""
+    from cvd_tpu_torch.models.clip_text import CLIPTextConfig
+    from cvd_tpu_torch.models.unet import UNetConfig
+    from cvd_tpu_torch.models.vae import VAEConfig
+    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.pipelines.simple import SimplePipeline
+
+    modules = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cuda",
+                                     dtype=torch.bfloat16, random_full=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids = dict(prompt_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
+               negative_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))))
+    plucker, c2w, K = _nview_cameras(np, torch, 4, 16, 256)
+    two = dict(ids, plucker=torch.from_numpy(rng.standard_normal((2, 16, 256, 256, 6))
+                                             .astype(np.float32)),
+               F_mats=torch.from_numpy((rng.standard_normal((2, 16, 3, 3)) * 1e-3)
+                                       .astype(np.float32)), num_inference_steps=3)
+    four = dict(ids, plucker=plucker, c2w=c2w, K_mats=K, num_inference_steps=3, multistep=2,
+                accumulate_step=2)
+    paths = (("2view", 4, lambda c: SimplePipeline(modules, capture=c), two, 3),
+             ("4view_loop", 8, lambda c: AdvancedPipeline(modules, capture=c), four, 2),
+             ("4view_batched", 16, lambda c: AdvancedPipeline(modules, accumulate_batched=True,
+                                                              capture=c), four, 2))
+    out = {}
+    for path, rows, make, inputs, turns in paths:
+        pipes = {True: make(True), False: make(False)}
+        runs = {True: [], False: []}
+        for captured in [True, False] * turns:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pipes[captured](**inputs, generator=torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            pipe = pipes[captured]
+            runs[captured].append(dict(
+                seconds=time.perf_counter() - t0, ms=list(pipe.unet_step_ms),
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                reserved=torch.cuda.memory_reserved() / 2**30,
+                capture_s=pipe.program.stats["capture_s"],
+                captured=pipe.program.stats["captured"]))
+        if not all(r["captured"] for r in runs[True]) or any(r["captured"] for r in runs[False]):
+            raise RuntimeError(f"(f) {path}: captured / eager runs not as asked")
+        first, steady = runs[True][0], runs[True][1:]
+        rec = dict(
+            rows=rows,
+            captured_ms=float(np.median([x for r in steady for x in r["ms"]])),
+            eager_ms=float(np.median([x for r in runs[False] for x in r["ms"]])),
+            captured_s=[r["seconds"] for r in runs[True]],
+            eager_s=[r["seconds"] for r in runs[False]],
+            capture_s=first["capture_s"], first_request_s=first["seconds"],
+            captured_peak_gib=max(r["peak"] for r in runs[True]),
+            eager_peak_gib=max(r["peak"] for r in runs[False]),
+            reserved_gib=max(r["reserved"] for r in runs[True] + runs[False]))
+        log(f"[graphs] (f) {path}, {rows} CFG rows: a UNet call captured {rec['captured_ms']:.1f} "
+            f"ms vs eager {rec['eager_ms']:.1f} ms (medians; captured after its first request); "
+            f"s a request captured [{', '.join(f'{x:.3f}' for x in rec['captured_s'])}] vs "
+            f"eager [{', '.join(f'{x:.3f}' for x in rec['eager_s'])}] (in turns, captured "
+            f"first); the first request's warm-ups and captures {rec['capture_s']:.2f} s; peak "
+            f"allocated captured {rec['captured_peak_gib']:.2f} GiB vs eager "
+            f"{rec['eager_peak_gib']:.2f} GiB, reserved {rec['reserved_gib']:.2f} GiB")
+        out[path] = rec
+        del pipes
+        torch.cuda.empty_cache()
+    del modules
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graphs(torch, slice_videos, slice_records, nview_videos, nview_records):
+    """Phase graphs (the module docstring): the samplers' timesteps as
+    replayed CUDA graphs against the same requests run eagerly. Raises on a
+    failed check. -> {path: (launches, UNet calls)} of its CLI runs, and
+    (f)'s times."""
+    import numpy as np
+
+    from cvd_tpu_torch.cli import inference, inference_advanced
+
+    wrappers = _wrappers()
+    out = {}
+
+    def cli(name, module, argv, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records = module.main(module.build_parser().parse_args(argv), **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        calls = sum(len(r["unet_step_ms"]) + r["program"]["warmup_calls"] for r in records)
+        out[name] = (launches, calls)
+        prog = [r["program"] for r in records]
+        log(f"[graphs] {name}: {len(records)} request(s) in {seconds:.2f} s with the build, "
+            f"{', '.join(f'{r['seconds']:.2f}' for r in records)} s a request, captured "
+            f"{[p['captured'] for p in prog]}, graphs captured {[p['captures'] for p in prog]}, "
+            f"UNet calls {[p['unet_calls'] for p in prog]}")
+        missing = [n for n in FORWARD if launches[n] == 0]
+        if missing:
+            raise RuntimeError(f"{name}: kernels not launched {missing}")
+        return records
+
+    def same(what, got, want):
+        equal = [np.array_equal(g, w) for g, w in zip(got, want)]
+        diff = [float(np.abs(g.astype(np.float64) - w).max()) for g, w in zip(got, want)]
+        log(f"[graphs] {what}: bit for bit {equal} (max |diff| {diff})")
+        if len(got) != len(want) or not all(equal):
+            raise RuntimeError(f"{what}: not bit for bit ({diff})")
+
+    # (a) phase 5's requests, eagerly
+    t0 = time.perf_counter()
+    eager2 = cli("eager_2view", inference,
+                 _slice_argv(os.path.join(HERE, "build", "chip_smoke_graphs")), capture=False)
+    same("(a) 2 views, phase 5's two requests captured against capture=False",
+         slice_videos, [r["videos"] for r in eager2])
+    log(f"[time] graphs (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) phase 6's request eagerly, as a loop (its draws recorded) and batched
+    t0 = time.perf_counter()
+    argv = _nview_argv(os.path.join(HERE, "build", "chip_smoke_graphs_nview"))
+    with _DrawLog(torch) as log_eager:
+        (loop,) = cli("eager_4view_loop", inference_advanced, argv, capture=False)
+    (batched,) = cli("eager_4view_batched", inference_advanced, argv, capture=False,
+                     accumulate_batched=True)
+    same("(b) 4 views, a loop: phase 6's request captured against capture=False",
+         [nview_videos["loop"]], [loop["videos"]])
+    same("(b) 4 views, batched: phase 6's request captured against capture=False",
+         [nview_videos["batched"]], [batched["videos"]])
+    log(f"[time] graphs (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) --step_chunk 1 (its draws recorded), 2 and 3
+    t0 = time.perf_counter()
+    chunked = {}
+    for k in (1, 2, 3):
+        with (_DrawLog(torch) if k == 1 else contextlib.nullcontext()) as draws:
+            (chunked[k],) = cli(f"step_chunk_{k}", inference_advanced,
+                                argv + ["--step_chunk", str(k)])
+        if k == 1:
+            log_captured = draws
+        prog = chunked[k]["program"]
+        # 3 timesteps, multistep 2: repeats (2, 2, 1); the last timestep is its own graph
+        want = {1: 2, 2: 2, 3: 1}[k]
+        if not prog["captured"] or prog["captures"] != want:
+            raise RuntimeError(f"--step_chunk {k}: captured {prog['captured']}, "
+                               f"{prog['captures']} graphs (want {want})")
+    same("(c) --step_chunk 1, 2 and 3 against each other and the eager loop",
+         [chunked[k]["videos"] for k in (1, 2, 3)], [loop["videos"]] * 3)
+    log(f"[time] graphs (c): {time.perf_counter() - t0:.1f} s")
+
+    # (d) the draws: the captured request's equal to the eager one's, and fresh
+    want, got = log_eager.draws(), log_captured.draws()
+    slopes = got[got[:, 0] == 0, 1]
+    pairings = got[got[:, 0] == 1, 1:5]
+    n_kind = {k: int((got[:, 0] == k).sum()) for k in (0, 1, 2)}
+    fresh_slopes = len(np.unique(slopes)) == len(slopes)
+    fresh_pairings = len({tuple(p) for p in pairings}) > 1
+    equal = want.shape == got.shape and np.array_equal(np.nan_to_num(want, nan=-9.0),
+                                                       np.nan_to_num(got, nan=-9.0))
+    log(f"[graphs] (d) draws recorded on the card: eager {len(want)}, captured {len(got)} "
+        f"(slopes {n_kind[0]}, pairings {n_kind[1]}, noises {n_kind[2]}); equal draw for "
+        f"draw: {equal}; every slope drawn once: {fresh_slopes} ({len(np.unique(slopes))} "
+        f"distinct); pairings not all one: {fresh_pairings}")
+    if not (equal and fresh_slopes and fresh_pairings and n_kind[0] and n_kind[1]):
+        raise RuntimeError("(d) the captured request's draws are not the eager request's, or "
+                           "a replay repeated its draws")
+
+    # (e) launches per UNet call of the denoising loop, captured against eager
+    pairs = (("2view", slice_records, eager2), ("4view_loop", [nview_records["loop"]], [loop]),
+             ("4view_batched", [nview_records["batched"]], [batched]))
+    per_call = {}
+    for path, captured, eager in pairs:
+        c, e = _loop_per_call(captured), _loop_per_call(eager)
+        per_call[path] = (c, e)
+        log(f"[graphs] (e) {path}: launches per UNet call captured "
+            f"{ {n: round(v, 2) for n, v in c.items()} } vs eager "
+            f"{ {n: round(v, 2) for n, v in e.items()} }")
+        if c != e:
+            raise RuntimeError(f"(e) {path}: launches per UNet call differ")
+
+    # (f) times, in turns
+    t0 = time.perf_counter()
+    turns = _graphs_turns(torch, np)
+    log(f"[time] graphs (f): {time.perf_counter() - t0:.1f} s")
+    return out, per_call, turns
 
 
 class _TorchrunEnv:
@@ -2777,23 +3087,25 @@ def _profile_nview(torch):
         negative_ids=torch.from_numpy(rng.integers(0, 49408, (1, 77))),
         plucker=plucker, c2w=c2w, K_mats=K, num_inference_steps=2, multistep=1,
         accumulate_step=2, decode=False, generator=torch.Generator(device="cuda").manual_seed(0))
-    for batched, calls, rows in ((False, 4, 8), (True, 2, 16)):
-        pipe = AdvancedPipeline(modules, accumulate_batched=batched)
+    for (batched, calls, rows), capture in itertools.product(
+            ((False, 4, 8), (True, 2, 16)), (False, True)):
+        mode = "captured" if capture else "eager"
+        pipe = AdvancedPipeline(modules, accumulate_batched=batched, capture=capture)
         pipe(**inputs)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with trace(_profile_dir(f"nview_{rows}rows")) as prof:
+        with trace(_profile_dir(f"nview_{rows}rows_{mode}")) as prof:
             t0 = time.perf_counter()
             pipe(**inputs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if len(pipe.unet_step_ms) != calls:
             raise RuntimeError(f"{len(pipe.unet_step_ms)} UNet calls profiled, expected {calls}")
-        log(f"[profile] N-view sampler at {rows} CFG rows, no decode: peak allocated "
+        log(f"[profile] N-view sampler at {rows} CFG rows, {mode}, no decode: peak allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        _report_profile(prof, wall, calls, f"N-view sampler, bf16 UNet calls at {rows} CFG rows "
-                        "(text and pose encoders included once)",
-                        f"nview_{rows}rows_profile.txt")
+        _report_profile(prof, wall, calls, f"N-view sampler, bf16 UNet calls at {rows} CFG rows, "
+                        f"{mode} (text and pose encoders included once)",
+                        f"nview_{rows}rows_{mode}_profile.txt")
     del modules, pipe
     torch.cuda.empty_cache()
 
@@ -3293,17 +3605,19 @@ def _profile_sampler(torch):
         F_mats=torch.from_numpy((rng.standard_normal((2, Fr, 3, 3)) * 1e-3).astype(np.float32)),
         latents=torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4)).astype(np.float32)),
     )
-    pipe = SimplePipeline(modules)
     inputs["generator"] = torch.Generator(device="cuda").manual_seed(0)  # the epi slope
-    pipe(**inputs, num_inference_steps=steps, decode=False)
-    torch.cuda.synchronize()
-    with trace(_profile_dir("sampler_step")) as prof:
-        t0 = time.perf_counter()
+    for capture in (False, True):
+        mode = "captured" if capture else "eager"
+        pipe = SimplePipeline(modules, capture=capture)
         pipe(**inputs, num_inference_steps=steps, decode=False)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    _report_profile(prof, wall, steps, "sampler, bf16 UNet steps (text and pose encoders "
-                    "included once)", "sampler_step_profile.txt")
+        with trace(_profile_dir(f"sampler_step_{mode}")) as prof:
+            t0 = time.perf_counter()
+            pipe(**inputs, num_inference_steps=steps, decode=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _report_profile(prof, wall, steps, f"sampler, bf16 UNet steps, {mode} (text and pose "
+                        "encoders included once)", f"sampler_step_{mode}_profile.txt")
     del modules, pipe
     torch.cuda.empty_cache()
 
@@ -3322,6 +3636,12 @@ def _profile_step(torch, state, batch, modules, gen, size):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report_profile(prof, wall, 1, "one remat-on training step", "train_step_profile.txt")
+
+
+def _net_of_warmups(launches, records):
+    """A sampler run's launches without those of its warm-ups."""
+    return {n: launches[n] - sum(r["program"]["warmup_launches"][n] for r in records)
+            for n in launches}
 
 
 def main() -> int:
@@ -3357,16 +3677,19 @@ def main() -> int:
         return 5
     if "--ckpt" in sys.argv[1:]:
         timed(phase_reference)
-        sampler, _, unet_ms, _ = timed(phase_slice)
-        timed(phase_ckpt, sampler, sampler_requests=2, unet_ms=unet_ms, smi=smi)
+        sampler, _, unet_ms, _, records = timed(phase_slice)
+        timed(phase_ckpt, _net_of_warmups(sampler, records), sampler_requests=2,
+              unet_ms=unet_ms, smi=smi)
         log(f"[total] {time.perf_counter() - t_all:.1f} s; a partial run (--ckpt): no result")
         log(smi)
         return 4
     report = timed(phase_kernels)
     timed(phase_reference)
     timed(phase_train_reference)
-    sampler, unet_steps, unet_ms, sampler_videos = timed(phase_slice)
-    nview, nview_videos = timed(phase_nview)
+    sampler, unet_steps, unet_ms, sampler_videos, slice_records = timed(phase_slice)
+    nview, nview_videos, nview_records = timed(phase_nview)
+    graphs, graphs_per_call, _ = timed(phase_graphs, sampler_videos, slice_records,
+                                       nview_videos, nview_records)
     mesh_report, mesh = timed(phase_mesh, sampler_videos, nview_videos)
     del sampler_videos, nview_videos
     if profile:
@@ -3374,13 +3697,14 @@ def main() -> int:
         timed(_profile_nview)
     train, train_steps, train_seconds = timed(phase_train, profile=profile)
     ((ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps)), options = timed(
-        phase_ckpt, sampler, sampler_requests=2, train_seconds=train_seconds, unet_ms=unet_ms,
-        smi=smi)
+        phase_ckpt, _net_of_warmups(sampler, slice_records), sampler_requests=2,
+        train_seconds=train_seconds, unet_ms=unet_ms, smi=smi)
     training = timed(phase_training)
     # the training phase's entry-point runs count toward "launches"; its
     # per-kind means and the remat settings' loss_and_grads runs stand beside
     runs = {path: training[path] for path in ("hybrid", "multihost")}
     runs.update({f"mesh_{path}": n for path, n in mesh.items()})
+    runs.update({f"graphs_{path}": n for path, n in graphs.items()})
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = report[name]
@@ -3399,12 +3723,17 @@ def main() -> int:
         opts = {f"launches_{path}": n[name] for path, (n, _) in options.items()}
         opts.update({f"launches_per_call_{path}": n[name] / calls
                      for path, (n, calls) in options.items()})
+        sampling = ("mesh_", "graphs_")
         opts.update({f"launches_training_{path}": n[name] for path, (n, _) in runs.items()
-                     if not path.startswith("mesh_")})
+                     if not path.startswith(sampling)})
         opts.update({f"launches_{path}": n[name] for path, (n, _) in runs.items()
-                     if path.startswith("mesh_")})
+                     if path.startswith(sampling)})
         opts.update({f"launches_per_call_{path}": n[name] / calls
-                     for path, (n, calls) in runs.items() if path.startswith("mesh_")})
+                     for path, (n, calls) in runs.items() if path.startswith(sampling)})
+        # phase graphs (e): the denoising loop's launches per UNet call, captured / eager
+        opts.update({f"launches_per_loop_call_{path}_{mode}": per[i].get(name)
+                     for path, per in graphs_per_call.items()
+                     for i, mode in enumerate(("captured", "eager"))})
         if mesh_report[name].get("timings"):
             opts["mesh_timings"] = mesh_report[name]["timings"]
         opts.update({f"launches_per_training_{path}_step": n[name] / steps

@@ -68,11 +68,14 @@ def load_prompts(caption_file: str, use_negative: bool, num_videos=None):
     return captions, negatives, seeds
 
 
-def main(args, tokenizer=None, widths=None) -> List[dict]:
+def main(args, tokenizer=None, widths=None, capture: bool = True) -> List[dict]:
     """Runs every prompt. Returns one record per prompt: ``videos`` (f32
-    [2, F, H, W, 3] in [0, 1]), ``seconds`` (wall time of the request) and
-    ``unet_step_ms`` (each UNet call of the DDIM loop). ``tokenizer``: an
-    object to tokenize with in place of the one the weights come with.
+    [2, F, H, W, 3] in [0, 1]), ``seconds`` (wall time of the request),
+    ``unet_step_ms`` (each UNet call of the DDIM loop) and ``program`` (how
+    the sampler ran it: ``SamplingProgram.stats``). ``capture``:
+    ``SimplePipeline``'s (False: the timesteps run eagerly on the card
+    too). ``tokenizer``: an object to tokenize with in place of the one the
+    weights come with.
     ``widths``: ``build_modules``'s, for checkpoint files narrower than
     SD1.5's. With ``--sharded`` every rank returns the records, and only
     rank 0's hold the videos (the others' are None)."""
@@ -100,15 +103,16 @@ def main(args, tokenizer=None, widths=None) -> List[dict]:
          + args.multidiff_overlaps if args.multidiff_total_steps > 1 else args.video_length)
     if not args.sharded:
         return _requests(args, F, pab_config, resolve_device(args.device), None, tokenizer,
-                         widths)
+                         widths, capture)
     with process_group(args.device, "--sharded", "cvd_tpu_torch.cli.inference") as (_, world,
                                                                                     device):
         mesh = inference_mesh(world)
         check_divides(mesh, 4, args.video_length, "--sharded")
-        return _requests(args, F, pab_config, device, mesh, tokenizer, widths)
+        return _requests(args, F, pab_config, device, mesh, tokenizer, widths, capture)
 
 
-def _requests(args, F, pab_config, device, mesh, tokenizer, widths) -> List[dict]:
+def _requests(args, F, pab_config, device, mesh, tokenizer, widths,
+              capture) -> List[dict]:
     """``main``'s requests on ``device``, over ``mesh`` where one is given
     (rank 0 alone logs and writes, and holds the videos)."""
     from cvd_tpu_torch.cli.build import SD15_WIDTHS, build_modules
@@ -138,7 +142,7 @@ def _requests(args, F, pab_config, device, mesh, tokenizer, widths) -> List[dict
             replicate(module, mesh)
         logger.info(f"[inference] sharded sampling over mesh {mesh.shape}")
     pipe = SimplePipeline(modules, F_mat_size=args.image_height, rand_slope_ff=True,
-                          mesh=mesh)
+                          mesh=mesh, capture=capture)
     dataset = ValRealEstate10KPoseFolded(
         validation_prompts=captions,
         validation_negative_prompts=negatives,
@@ -168,7 +172,8 @@ def _requests(args, F, pab_config, device, mesh, tokenizer, widths) -> List[dict
         seconds = time.perf_counter() - t0
         if not lead:
             results.append({"videos": None, "seconds": seconds,
-                            "unet_step_ms": list(pipe.unet_step_ms)})
+                            "unet_step_ms": list(pipe.unet_step_ms),
+                            "program": dict(pipe.program.stats)})
             continue
         logger.info(f"[inference] [{idx}] {sample['validation_prompt']!r} seed={seed}: "
                     f"{seconds:.2f} s")
@@ -193,7 +198,8 @@ def _requests(args, F, pab_config, device, mesh, tokenizer, widths) -> List[dict
                     + ", ".join(w for w in written if w not in frames)
                     + (f" and {len(frames)} frames under imgs/" if frames else ""))
         results.append({"videos": videos, "seconds": seconds,
-                        "unet_step_ms": list(pipe.unet_step_ms)})
+                        "unet_step_ms": list(pipe.unet_step_ms),
+                        "program": dict(pipe.program.stats)})
     return results
 
 

@@ -86,23 +86,25 @@ def _refuse(args) -> None:
     if args.mono_direction:
         # the reference rejects this path too (attention_processor.py:622)
         raise NotImplementedError("--mono_direction is not supported")
-    if args.step_chunk:
-        raise NotImplementedError("--step_chunk: the chunked scan is not ported: a Python loop "
-                                  "has no use for it (ROADMAP.md, queue 1, item 1)")
+    if args.step_chunk is not None and args.step_chunk < 1:
+        raise SystemExit(f"--step_chunk {args.step_chunk}: a chunk holds at least one timestep")
     if args.pab and args.sharded:
         raise SystemExit("--pab + --sharded is not validated; pick one")
 
 
-def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) -> List[dict]:
+def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None,
+         capture: bool = True) -> List[dict]:
     """Runs every (seed, prompt). Returns one record each: ``videos`` (f32
     [V, F, H, W, 3] in [0, 1]), ``seconds`` (wall time of the request),
-    ``unet_step_ms`` (each UNet call) and ``out`` (its directory).
+    ``unet_step_ms`` (each UNet call), ``program`` (how the sampler ran it:
+    ``SamplingProgram.stats``) and ``out`` (its directory).
     ``accumulate_batched``: the ``--accumulate_step`` pairings as one UNet
-    call (``AdvancedPipeline``). ``tokenizer``: an object to tokenize with in
-    place of the one the weights come with. ``widths``: ``build_modules``'s,
-    for checkpoint files narrower than SD1.5's. With ``--sharded`` every rank
-    returns the records, and only rank 0's hold the videos (the others'
-    are None)."""
+    call (``AdvancedPipeline``). ``capture``: ``AdvancedPipeline``'s (False:
+    the timesteps run eagerly on the card too). ``tokenizer``: an object to
+    tokenize with in place of the one the weights come with. ``widths``:
+    ``build_modules``'s, for checkpoint files narrower than SD1.5's. With
+    ``--sharded`` every rank returns the records, and only rank 0's hold the
+    videos (the others' are None)."""
     from cvd_tpu_torch.cli.build import resolve_device
     from cvd_tpu_torch.parallel.mesh import inference_mesh, process_group
     from cvd_tpu_torch.parallel.shard_ops import check_divides
@@ -112,7 +114,7 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
     pab_config = None
     if args.pab:
         pab_config = PABConfig.from_string(args.pab_ranges) if args.pab_ranges else PABConfig()
-    run = (args, pab_config, accumulate_batched, tokenizer, widths)
+    run = (args, pab_config, accumulate_batched, tokenizer, widths, capture)
     if not args.sharded:
         return _requests(*run, resolve_device(args.device), None)
     with process_group(args.device, "--sharded",
@@ -123,7 +125,7 @@ def main(args, accumulate_batched: bool = False, tokenizer=None, widths=None) ->
         return _requests(*run, device, mesh)
 
 
-def _requests(args, pab_config, accumulate_batched, tokenizer, widths, device,
+def _requests(args, pab_config, accumulate_batched, tokenizer, widths, capture, device,
               mesh) -> List[dict]:
     """``main``'s requests on ``device``, over ``mesh`` where one is given
     (rank 0 alone logs and writes, and holds the videos)."""
@@ -164,7 +166,8 @@ def _requests(args, pab_config, accumulate_batched, tokenizer, widths, device,
         logger.info(f"[inference_advanced] sharded sampling over mesh {mesh.shape}")
     pipe = AdvancedPipeline(modules, F_mat_size=S, rand_slope_ff=True,
                             fix_firstframe=args.fix_firstframe,
-                            accumulate_batched=accumulate_batched, mesh=mesh)
+                            accumulate_batched=accumulate_batched, mesh=mesh,
+                            capture=capture)
     results = []
     for seed_id in range(args.multiseed):
         for idx, prompt in enumerate(captions):
@@ -177,12 +180,14 @@ def _requests(args, pab_config, accumulate_batched, tokenizer, widths, device,
                 num_inference_steps=args.num_inference_steps,
                 guidance_scale=args.guidance_scale, multistep=args.multistep,
                 accumulate_step=args.accumulate_step, pab_config=pab_config,
+                step_chunk=args.step_chunk,
                 generator=torch.Generator(device=device).manual_seed(seed))
             seconds = time.perf_counter() - t0
             sub = os.path.join(args.out_root, f"{seed_id}_{idx:04d}")
             if not lead:
                 results.append({"videos": None, "seconds": seconds, "out": sub,
-                                "unet_step_ms": list(pipe.unet_step_ms)})
+                                "unet_step_ms": list(pipe.unet_step_ms),
+                                "program": dict(pipe.program.stats)})
                 continue
             videos = videos.cpu().numpy()                      # [V, F, H, W, 3]
             logger.info(f"[inference_advanced] [seed {seed_id} prompt {idx}] {prompt!r} "
@@ -199,7 +204,8 @@ def _requests(args, pab_config, accumulate_batched, tokenizer, widths, device,
                     save_video_as_images(videos[v], os.path.join(sub, "images", str(v)))
             export_transforms_json(os.path.join(sub, "transforms.json"), intr, frames_meta, args)
             results.append({"videos": videos, "seconds": seconds, "out": sub,
-                            "unet_step_ms": list(pipe.unet_step_ms)})
+                            "unet_step_ms": list(pipe.unet_step_ms),
+                            "program": dict(pipe.program.stats)})
     return results
 
 
@@ -243,7 +249,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "outer steps (see pipelines/pab.py)")
     p.add_argument("--pab_ranges", type=str, default="",
                    help="per-class broadcast ranges, e.g. 'spatial=2,cross=3,temporal=2,epi=1'")
-    p.add_argument("--step_chunk", type=int, default=None, help="not ported: no scan to chunk")
+    p.add_argument("--step_chunk", type=int, default=None,
+                   help="timesteps per CUDA graph of the denoising loop (default 1); the "
+                        "latents do not depend on it")
     return p
 
 

@@ -52,7 +52,10 @@ def pseudo_lines(coords: torch.Tensor,
         b = -torch.ones_like(x)
         c = y
     else:
-        slope = torch.as_tensor(slope, dtype=x.dtype, device=x.device)
+        # a number is filled on the device: no copy from the host (a CUDA
+        # graph may be capturing)
+        slope = (slope.to(dtype=x.dtype, device=x.device) if torch.is_tensor(slope)
+                 else torch.full((), float(slope), dtype=x.dtype, device=x.device))
         a = torch.cos(slope)[..., None].expand(x.shape)
         b = torch.sin(slope)[..., None].expand(x.shape)
         c = -(a * x + b * y)
@@ -76,14 +79,17 @@ def homography_lines(H_mats: torch.Tensor, coords: torch.Tensor, F_mat_size: int
 
 def _corner_coords(feat_size: int, F_mat_size: int, device,
                    dtype) -> torch.Tensor:
-    """The 4 corner pixel coords of the rescaled grid, [4, 3]."""
+    """The 4 corner pixel coords of the rescaled grid, [4, 3]: (lo, lo),
+    (lo, hi), (hi, lo), (hi, hi), built on the device (no copy from the
+    host, which a CUDA graph's capture refuses)."""
     scale = F_mat_size / feat_size
     lo = 0.0 * scale + (scale - 1.0) / 2.0
     hi = (feat_size - 1.0) * scale + (scale - 1.0) / 2.0
-    return torch.tensor(
-        [[lo, lo, 1.0], [lo, hi, 1.0], [hi, lo, 1.0], [hi, hi, 1.0]],
-        device=device, dtype=dtype,
-    )
+    i = torch.arange(4, device=device)
+    full = torch.full((4,), lo, device=device, dtype=dtype)
+    x = torch.where(i >= 2, hi, full)
+    y = torch.where(i % 2 == 1, hi, full)
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
 
 def lines_and_band(

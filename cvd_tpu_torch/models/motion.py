@@ -9,7 +9,7 @@ per-head [pixel, frame, dim] slices in place (kernel K3 on CUDA).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +26,19 @@ from cvd_tpu_torch.parallel.shard_ops import frame_offset, sharded_temporal_flas
 # temporal attentions over at least this many pixels take the fused kernel
 # on CUDA, as the JAX package does (motion.py:186-231)
 TEMPORAL_KERNEL_MIN_PIXELS = 128
+
+
+_MASKS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_temporal_mask(kind: str, length: int, device) -> torch.Tensor:
+    """``causal_temporal_mask`` on ``device``, built once per (kind, length,
+    device) and kept: a UNet call copies nothing from the host (a CUDA graph
+    replaying the call reads the kept tensor)."""
+    key = (kind, length, torch.device(device))
+    if key not in _MASKS:
+        _MASKS[key] = causal_temporal_mask(kind, length).to(device)
+    return _MASKS[key]
 
 
 def causal_temporal_mask(kind: str, length: int) -> torch.Tensor:
@@ -123,7 +136,7 @@ class TemporalSelfAttention(nn.Module):
             k = k + s * proc.to_k_lora_sync(x)
             v = v + s * proc.to_v_lora_sync(x)
         frames = Fr if mesh is None else Fr * mesh.shape["frames"]
-        mask = (causal_temporal_mask(self.causal_mask_type, frames).to(x.device)
+        mask = (device_temporal_mask(self.causal_mask_type, frames, x.device)
                 if self.causal_mask_type else None)
         attention = (temporal_flash_attention if N >= TEMPORAL_KERNEL_MIN_PIXELS
                      else temporal_attention_plain)

@@ -451,6 +451,8 @@ class UNet3DConditionModel(nn.Module):
         run, sub = (unit, _call) if cfg.remat_unit == "block" else (_call, unit)
 
         dtype = self.conv_in.weight.dtype
+        # a [] / [B] tensor on the device passes as it comes (the samplers' timestep
+        # buffer, which a CUDA graph replays); an int is copied from the host here
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(B)

@@ -24,12 +24,19 @@ reference's ``pipeline_animation_epi_advanced.py``):
   and of the frames, with the global routing remapped inside
   ``parallel/shard_ops.py``, and its noise prediction is all-gathered.
 
-A Python loop over timesteps, one or more UNet calls each. Every random
-draw (initial latents, pairings, re-noise, epi slopes) comes from the one
-``generator`` the caller passes.
+The denoising is one body over a chunk of timesteps (``_timestep_body``,
+cvd_tpu's ``_sampling_scan`` body :265-485): on a CUDA device it is
+captured as a CUDA graph once per shape and replayed for every chunk of
+every request (``pipelines/program.py``), with ``step_chunk`` timesteps a
+graph (one without), as cvd_tpu's chunk program (:87-124, ``_call_chunked``
+:203-263); it runs eagerly on the CPU, with ``capture=False``, with PAB or
+on a mesh. Every random draw (initial latents, pairings, re-noise, epi
+slopes) comes from the one ``generator`` the caller passes; a captured
+request draws the numbers the eager one draws.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
@@ -42,6 +49,8 @@ from cvd_tpu_torch.pipelines.common import (
 from cvd_tpu_torch.parallel.mesh import constrain, gather
 from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
 from cvd_tpu_torch.pipelines.pab import PABCache
+from cvd_tpu_torch.pipelines.program import SamplingProgram, chunks
+from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
 
 
 def random_pairing(generator: Optional[torch.Generator], num_views: int) -> torch.Tensor:
@@ -76,18 +85,22 @@ class AdvancedPipeline:
 
     def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
                  rand_slope_ff: bool = True, fix_firstframe: bool = False,
-                 accumulate_batched: bool = False, mesh=None):
+                 accumulate_batched: bool = False, mesh=None, capture: bool = True):
         """``mesh``: a ("rows", "frames") ``parallel.Mesh`` to shard each UNet
         call over; the rows must divide 2V (2V * A batched) and the frames F.
-        Only rank 0 decodes: the other ranks return None."""
+        Only rank 0 decodes: the other ranks return None. ``capture``: on a
+        CUDA device, replay the timesteps as CUDA graphs (the default;
+        without PAB and without a mesh); False runs them eagerly."""
         self.m = modules
         self.mesh = mesh
         self.F_mat_size = F_mat_size
         self.rand_slope_ff = rand_slope_ff
         self.fix_firstframe = fix_firstframe
         self.accumulate_batched = accumulate_batched
+        self.program = SamplingProgram(modules.unet.conv_in.weight.device, capture,
+                                       watch=(modules.unet,))
         # wall time of each UNet call of the last run, in ms (CUDA events on
-        # the card, the host clock on the CPU)
+        # the card, the host clock on the CPU; a replay's time over its calls)
         self.unet_step_ms: List[float] = []
 
     # the two draws between UNet calls, apart so that a test can replay another
@@ -118,13 +131,15 @@ class AdvancedPipeline:
         latents: Optional[torch.Tensor] = None,
         decode: bool = True,
         pab_config=None,
+        step_chunk: Optional[int] = None,
     ) -> torch.Tensor:
         """Returns images [V, F, H, W, 3] in [0, 1] (or the final latents
         [V, F, H/8, W/8, 4] with ``decode=False``), f32. ``pab_config``: a
-        ``PABConfig``."""
+        ``PABConfig``. ``step_chunk``: the timesteps a CUDA graph holds (1
+        without; the last timestep of a multistep run, taken once, and a
+        ragged last chunk are graphs of their own); the latents are those
+        of any other chunk length."""
         m = self.m
-        device = m.unet.conv_in.weight.device
-        dtype = m.unet.conv_in.weight.dtype
         V, Fr, H, W, _ = plucker.shape
         A = accumulate_step
         n_view_path = H_mats is None and not (V == 2 and F_mats is not None)
@@ -142,24 +157,83 @@ class AdvancedPipeline:
                 raise ValueError("--pab + --sharded is not validated; pick one")
             check_divides(mesh, 2 * V * groups, Fr, "AdvancedPipeline")
         state = m.scheduler.set_timesteps(num_inference_steps)
+        last = len(state.timesteps) - 1
+        # the last timestep is taken once (:602)
+        plan = chunks([1 if i == last else multistep for i in range(last + 1)], step_chunk)
+        eager = self.program.eager_for(pab_config, mesh)
 
+        inputs = self._prepare(prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats, H_mats,
+                               state, generator, latents, groups, n_view_path)
+        settings = _Settings(m.scheduler, num_inference_steps, float(guidance_scale), V, A,
+                             groups, "h" if H_mats is not None else "n" if n_view_path else "f")
+        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
+
+        def body(bufs, ts, start, repeats, gen, timer):
+            return self._timestep_body(bufs, ts, start, repeats, gen, timer, settings, pab)
+
+        timer = SpanTimer(self.program.device)
+        timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
+        latents = self.program.run(("AdvancedPipeline", settings), inputs, timesteps, plan,
+                                   body, generator, timer, eager=eager)
+        self.unet_step_ms = timer.elapsed_ms()
+        if not decode:
+            return latents
+        return decode_latents(m, latents, mesh)
+
+    def _prepare(self, prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats, H_mats, state,
+                 generator, latents, groups, n_view_path) -> dict:
+        """Text encode, pose encode, the per-row mats and the latent init
+        (cvd_tpu's ``_prepare``, advanced.py:150), as the tensors the
+        timestep body reads."""
+        m, mesh = self.m, self.mesh
+        device = m.unet.conv_in.weight.device
+        dtype = m.unet.conv_in.weight.dtype
+        V, Fr, H, W, _ = plucker.shape
         uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
-        text = constrain(torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1).to(dtype),
-                         mesh, "rows")
-        pose_feats = [constrain(interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1),
-                                mesh, "rows", "frames")
-                      for p in m.pose_encoder(plucker.to(device=device, dtype=dtype))]
+        inputs = {"text": constrain(torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1)
+                                    .to(dtype), mesh, "rows")}
+        for i, p in enumerate(m.pose_encoder(plucker.to(device=device, dtype=dtype))):
+            inputs[f"pose{i}"] = constrain(interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1),
+                                           mesh, "rows", "frames")
+        # the (view, frame) of every interleaved CFG row in the [V * F] camera arrays
+        row = torch.arange(2 * V * Fr, device=device)
+        src = (row // (2 * Fr)) * Fr + row % Fr
+        if H_mats is not None:
+            rows = H_mats.to(device=device, dtype=torch.float32).reshape(V * Fr, 3, 3)
+            inputs["H_rows"] = rows[src]
+        elif not n_view_path:
+            rows = F_mats.to(device=device, dtype=torch.float32).reshape(V * Fr, 3, 3)
+            inputs["F_rows"] = rows[src]
+        else:
+            inputs["c2w"] = c2w.to(device=device, dtype=torch.float32)
+            inputs["K_mats"] = K_mats.to(device=device, dtype=torch.float32)
+        inputs["acp"] = state.alphas_cumprod.to(device)
         if latents is None:
             latents = self.draw_noise(generator, (V, Fr, H // 8, W // 8, 4))
-        latents = latents.to(device=device, dtype=torch.float32) * m.scheduler.init_noise_sigma
+        inputs["latents"] = (latents.to(device=device, dtype=torch.float32)
+                             * m.scheduler.init_noise_sigma)
+        return inputs
 
+    def _timestep_body(self, bufs, ts, start, repeats, generator, timer, s: "_Settings",
+                       pab) -> int:
+        """The timesteps ``ts`` ([k] int64 on the device; ``start``: the
+        first one's index), timestep j taken ``repeats[j]`` times: each time
+        ``accumulate_step`` pairings (a loop of UNet calls, or one call of
+        ``groups`` of them), guidance, the DDIM step and, between repeats,
+        the re-noise (cvd_tpu's ``timestep_body`` / ``mt_body``). Reads only
+        ``bufs`` and writes the latents back into ``bufs["latents"]``.
+        -> the UNet calls made."""
+        m, mesh = self.m, self.mesh
+        device = bufs["latents"].device
+        state = dataclasses.replace(m.scheduler.set_timesteps(s.steps),
+                                    alphas_cumprod=bufs["acp"])
+        V, groups = s.views, s.groups
+        Fr = bufs["latents"].shape[1]
+        text = bufs["text"]
+        pose_feats = [bufs[k] for k in sorted(bufs) if k.startswith("pose")]
         n_rows = 2 * V * Fr
         row = torch.arange(n_rows, device=device)
         row_v, row_f = row // (2 * Fr), row % Fr
-        src = row_v * Fr + row_f     # the row's (view, frame) in the [V * F] camera arrays
-        if n_view_path:
-            c2w = c2w.to(device=device, dtype=torch.float32)
-            K_mats = K_mats.to(device=device, dtype=torch.float32)
 
         def conditioning(F_mats=None, H_mats=None, kv_index=None) -> EpiConditioning:
             """The conditioning of the global (b f) rows' mats, this rank's
@@ -171,27 +245,25 @@ class AdvancedPipeline:
                 rand_slope_ff=self.rand_slope_ff, fix_firstframe=self.fix_firstframe,
                 cfg_factor=2, generator=generator, mesh=mesh)
 
-        fixed = None     # the conditioning of the two paths that draw no pairing
-        if H_mats is not None:
-            rows = H_mats.to(device=device, dtype=torch.float32).reshape(V * Fr, 3, 3)
-            fixed = conditioning(H_mats=rows[src])
-        elif not n_view_path:
-            rows = F_mats.to(device=device, dtype=torch.float32).reshape(V * Fr, 3, 3)
-            fixed = conditioning(F_mats=rows[src])
+        # the conditioning of the two paths that draw no pairing
+        fixed = (conditioning(H_mats=bufs["H_rows"]) if s.path == "h" else
+                 conditioning(F_mats=bufs["F_rows"]) if s.path == "f" else None)
 
         def pairing():
             """A fresh pairing: its fundamental matrices and routing."""
+            c2w, K_mats = bufs["c2w"], bufs["K_mats"]
             partner = self.draw_pairing(generator, V).to(device)
+            src = row_v * Fr + row_f
             dst = partner[row_v] * Fr + row_f
             return (fundamental_between_views_torch(c2w[src], c2w[dst], K_mats[src], K_mats[dst]),
                     partner_rows(partner, Fr))
 
-        timer = SpanTimer(device)
-        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
+        calls = 0
 
-        def guided_eps(lat: torch.Tensor, t: int) -> torch.Tensor:
+        def guided_eps(lat: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
             """The guided noise prediction of ``groups`` pairings in one UNet
             call, summed over the groups."""
+            nonlocal calls
             cond_t = fixed
             if fixed is None:
                 pairs = [pairing() for _ in range(groups)]
@@ -203,26 +275,36 @@ class AdvancedPipeline:
             with timer:
                 eps = m.unet(lat_in, t, text, pose_feats, cond_t, pab=pab, mesh=mesh)
                 eps = gather(eps, mesh, "rows", "frames").float()
+            calls += 1
             eps = eps.reshape((groups, 2 * V) + eps.shape[1:])
-            guided = eps[:, 0::2] + guidance_scale * (eps[:, 1::2] - eps[:, 0::2])
+            guided = eps[:, 0::2] + s.guidance_scale * (eps[:, 1::2] - eps[:, 0::2])
             return guided.sum(0)
 
-        last = len(state.timesteps) - 1
-        for i, t in enumerate(state.timesteps):
-            t = int(t)
+        latents = bufs["latents"]
+        for j, reps in enumerate(repeats):
+            t = ts[j]
             if pab is not None:
-                pab.at_step(i)
-            # the last timestep is taken once (:602)
-            repeats = 1 if i == last else multistep
-            for rep in range(repeats):
+                pab.at_step(start + j)
+            for rep in range(reps):
                 eps = guided_eps(latents, t)
-                for _ in range(A // groups - 1):
+                for _ in range(s.accumulate_step // groups - 1):
                     eps = eps + guided_eps(latents, t)
-                latents = m.scheduler.step(state, eps / A, t, latents)
-                if rep != repeats - 1:
+                latents = m.scheduler.step(state, eps / s.accumulate_step, t, latents)
+                if rep != reps - 1:
                     noise = self.draw_noise(generator, latents.shape).to(device)
                     latents = m.scheduler.renoise(state, latents, t, noise)
-        self.unet_step_ms = timer.elapsed_ms()
-        if not decode:
-            return latents
-        return decode_latents(m, latents, mesh)
+        bufs["latents"].copy_(latents)
+        return calls
+
+
+@dataclasses.dataclass(frozen=True)
+class _Settings:
+    """What the N-view timestep body depends on besides its tensors."""
+
+    scheduler: DDIMScheduler
+    steps: int
+    guidance_scale: float
+    views: int
+    accumulate_step: int
+    groups: int
+    path: str          # "n": pairings of c2w / K_mats, "f": fixed F_mats, "h": H_mats

@@ -148,11 +148,16 @@ class PipelineModules:
 
 class SpanTimer:
     """Times each ``with timer:`` span on ``device``: CUDA events on the card
-    (no sync until ``elapsed_ms``), the host clock on the CPU."""
+    (no sync until ``elapsed_ms``), the host clock on the CPU. A span of
+    several UNet calls, ``with timer.span(n):`` (a CUDA graph's replay of
+    n calls), counts as n entries of its time / n: ``elapsed_ms`` holds
+    one entry per UNet call either way."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.marks = []
+        self.calls = []
+        self._next = 1
 
     def _mark(self):
         if self.device.type != "cuda":
@@ -161,19 +166,27 @@ class SpanTimer:
         ev.record()
         return ev
 
+    def span(self, calls: int) -> "SpanTimer":
+        self._next = calls
+        return self
+
     def __enter__(self):
+        self.calls.append(self._next)
+        self._next = 1
         self.marks.append(self._mark())
 
     def __exit__(self, *exc):
         self.marks.append(self._mark())
 
     def elapsed_ms(self) -> List[float]:
-        """The wall time of every span so far, in ms."""
+        """The wall time of every UNet call so far, in ms."""
         pairs = zip(self.marks[::2], self.marks[1::2])
         if self.device.type != "cuda":
-            return [1e3 * (b - a) for a, b in pairs]
-        torch.cuda.synchronize(self.device)
-        return [a.elapsed_time(b) for a, b in pairs]
+            spans = [1e3 * (b - a) for a, b in pairs]
+        else:
+            torch.cuda.synchronize(self.device)
+            spans = [a.elapsed_time(b) for a, b in pairs]
+        return [ms / n for ms, n in zip(spans, self.calls) for _ in range(n)]
 
 
 def encode_prompt(modules: PipelineModules, prompt_ids: torch.Tensor,

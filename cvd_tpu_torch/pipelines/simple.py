@@ -3,7 +3,12 @@
 * 4-row CFG batch [uncond-src, cond-src, uncond-tgt, cond-tgt]
   (simple.py:131-149, 178-202);
 * pose features computed once, outside the loop;
-* a Python DDIM loop, one UNet call per step;
+* the denoising as one timestep body (``_timestep_body``: the UNet calls of
+  the multidiff windows, the guidance and the DDIM update), which on a
+  CUDA device is captured once per shape as a CUDA graph and replayed for
+  every timestep of every request (``pipelines/program.py``; the
+  counterpart of the JAX package's jitted scan), and runs eagerly on the
+  CPU, with ``capture=False``, with PAB or on a mesh;
 * multidiff sliding windows: a video longer than the model's window is
   denoised as ``multidiff_total_steps`` overlapping windows per step, their
   noise predictions averaged where they overlap (simple.py:151-217);
@@ -19,6 +24,7 @@ More than two views: ``pipelines/advanced.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
@@ -30,6 +36,8 @@ from cvd_tpu_torch.pipelines.common import (
 from cvd_tpu_torch.parallel.mesh import constrain, gather
 from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
 from cvd_tpu_torch.pipelines.pab import PABCache
+from cvd_tpu_torch.pipelines.program import SamplingProgram, chunks
+from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
 
 
 def _cfg4(x: torch.Tensor) -> torch.Tensor:
@@ -41,16 +49,20 @@ class SimplePipeline:
     """2-view, fixed-pair generation with epipolar sync."""
 
     def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
-                 rand_slope_ff: bool = True, mesh=None):
+                 rand_slope_ff: bool = True, mesh=None, capture: bool = True):
         """``mesh``: a ("rows", "frames") ``parallel.Mesh`` to shard each UNet
         call over; the rows must divide 4 and the frames the window. Only
-        rank 0 decodes: the other ranks return None."""
+        rank 0 decodes: the other ranks return None. ``capture``: on a CUDA
+        device, replay the timesteps as CUDA graphs (the default; without
+        PAB and without a mesh); False runs them eagerly."""
         self.m = modules
         self.F_mat_size = F_mat_size
         self.rand_slope_ff = rand_slope_ff
         self.mesh = mesh
+        self.program = SamplingProgram(modules.unet.conv_in.weight.device, capture,
+                                       watch=(modules.unet,))
         # wall time of each UNet call of the last run, in ms (CUDA events on
-        # the card, the host clock on the CPU)
+        # the card, the host clock on the CPU; a replay's time over its calls)
         self.unet_step_ms: List[float] = []
 
     @torch.no_grad()
@@ -79,8 +91,6 @@ class SimplePipeline:
         encoding, as in the JAX package. ``pab_config``: a ``PABConfig``
         (not with multidiff)."""
         m = self.m
-        device = m.unet.conv_in.weight.device
-        dtype = m.unet.conv_in.weight.dtype
         V, Fr, H, W, _ = plucker.shape
         if V != 2:
             raise ValueError("SimplePipeline is the fixed 2-view sampler")
@@ -102,56 +112,112 @@ class SimplePipeline:
             if pab_config is not None:
                 raise ValueError("--pab + --sharded is not validated; pick one")
             check_divides(mesh, 4, Fw, "SimplePipeline")
+        eager = self.program.eager_for(pab_config, mesh)
         state = m.scheduler.set_timesteps(num_inference_steps)
+        inputs = self._prepare(prompt_ids, negative_ids, plucker, F_mats, state, generator,
+                               latents, Fw, stride, windows)
+        settings = _Settings(m.scheduler, num_inference_steps, float(guidance_scale),
+                             windows, Fw, stride)
+        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
 
+        def body(bufs, ts, start, repeats, gen, timer):
+            return self._timestep_body(bufs, ts, start, repeats, gen, timer, settings, pab)
+
+        timer = SpanTimer(self.program.device)
+        timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
+        latents = self.program.run(("SimplePipeline", settings), inputs, timesteps,
+                                   chunks([1] * len(state.timesteps)), body, generator, timer,
+                                   eager=eager)
+        self.unet_step_ms = timer.elapsed_ms()
+        if not decode:
+            return latents
+        return decode_latents(m, latents, mesh)
+
+    def _prepare(self, prompt_ids, negative_ids, plucker, F_mats, state, generator, latents,
+                 Fw, stride, windows) -> dict:
+        """Everything before the denoising loop (the JAX package's ``_run``
+        up to its scan): the text and pose features of the 4 CFG rows, the
+        folded F mats, the overlap weights, the scheduler's table and the
+        initial latents, as the tensors the timestep body reads."""
+        m = self.m
+        device = m.unet.conv_in.weight.device
+        dtype = m.unet.conv_in.weight.dtype
+        _, Fr, H, W, _ = plucker.shape
         uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
-        text = torch.cat([uncond, cond, uncond, cond], dim=0).to(dtype)
+        inputs = {"text": torch.cat([uncond, cond, uncond, cond], dim=0).to(dtype)}
         # the pose encoder in its own dtype: a training bundle's (validation)
         # differs from the UNet's bf16 frozen weights
         pose_dtype = m.pose_encoder.encoder_conv_in.weight.dtype
-        pose_feats = [_cfg4(p.to(dtype)) for p in
-                      m.pose_encoder(plucker.to(device=device, dtype=pose_dtype))]
-        F4 = _cfg4(F_mats.to(device=device, dtype=torch.float32))     # [4, F, 3, 3]
+        for i, p in enumerate(m.pose_encoder(plucker.to(device=device, dtype=pose_dtype))):
+            inputs[f"pose{i}"] = _cfg4(p.to(dtype))
+        inputs["F4"] = _cfg4(F_mats.to(device=device, dtype=torch.float32))   # [4, F, 3, 3]
+        # the overlap-average weights: 1 / the number of windows over each frame
+        counts = torch.zeros(Fr, device=device)
+        for w in range(windows):
+            counts[w * stride:w * stride + Fw] += 1.0
+        inputs["inv_counts"] = (1.0 / counts)[None, :, None, None, None]
+        inputs["acp"] = state.alphas_cumprod.to(device)
+        if latents is None:
+            latents = torch.randn((2, Fr, H // 8, W // 8, 4), generator=generator,
+                                  device=generator.device if generator is not None else device)
+        inputs["latents"] = (latents.to(device=device, dtype=torch.float32)
+                             * m.scheduler.init_noise_sigma)
+        return inputs
+
+    def _timestep_body(self, bufs, ts, start, repeats, generator, timer, s: "_Settings",
+                       pab) -> int:
+        """The timesteps ``ts`` ([k] int64 on the device; ``start``: the
+        first one's index): for each, the UNet call of every window, the
+        guidance, the overlap average and the DDIM update (the JAX package's
+        scan ``step``, simple.py:206-216). Reads only ``bufs`` and writes
+        the latents back into ``bufs["latents"]``. -> the UNet calls made."""
+        m, mesh = self.m, self.mesh
+        state = dataclasses.replace(m.scheduler.set_timesteps(s.steps),
+                                    alphas_cumprod=bufs["acp"])
+        pose_feats = [bufs[k] for k in sorted(bufs) if k.startswith("pose")]
+        text, F4 = bufs["text"], bufs["F4"]
 
         def window_cond(start: int):
             """The pose features and epipolar conditioning of the window of
             frames [start, start + Fw)."""
+            Fw = s.window
             return [constrain(p[:, start:start + Fw], mesh, "rows", "frames")
                     for p in pose_feats], EpiConditioning(
                 F_mats=local_rows(F4[:, start:start + Fw].reshape(4 * Fw, 3, 3), mesh, Fw),
                 video_length=Fw, F_mat_size=self.F_mat_size, rand_slope_ff=self.rand_slope_ff,
                 generator=generator, mesh=mesh)
 
-        starts = [w * stride for w in range(windows)]
-        conds = [window_cond(s) for s in starts]
-        # the overlap-average weights: 1 / the number of windows over each frame
-        counts = torch.zeros(Fr, device=device)
-        for s in starts:
-            counts[s:s + Fw] += 1.0
-        inv_counts = (1.0 / counts)[None, :, None, None, None]
-        if latents is None:
-            latents = torch.randn((2, Fr, H // 8, W // 8, 4), generator=generator,
-                                  device=generator.device if generator is not None else device)
-        latents = latents.to(device=device, dtype=torch.float32) * m.scheduler.init_noise_sigma
-        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
-
-        timer = SpanTimer(device)
-        for i, t in enumerate(state.timesteps):
+        starts = [w * s.stride for w in range(s.windows)]
+        conds = [window_cond(w) for w in starts]
+        latents, calls = bufs["latents"], 0
+        for j in range(len(repeats)):
+            t = ts[j]
             if pab is not None:
-                pab.at_step(i)
+                pab.at_step(start + j)
             eps_full = torch.zeros_like(latents)
-            for s, (pf, epi_cond) in zip(starts, conds):
+            for w, (pf, epi_cond) in zip(starts, conds):
                 with timer:
-                    lat_in = constrain(_cfg4(latents[:, s:s + Fw]), mesh, "rows", "frames")
-                    eps = m.unet(lat_in, int(t), constrain(text, mesh, "rows"), pf, epi_cond,
+                    lat_in = constrain(_cfg4(latents[:, w:w + s.window]), mesh, "rows", "frames")
+                    eps = m.unet(lat_in, t, constrain(text, mesh, "rows"), pf, epi_cond,
                                  pab=pab, mesh=mesh)
                     eps = gather(eps, mesh, "rows", "frames").float()
+                calls += 1
                 # chunk(4): uncond rows (0, 2), cond rows (1, 3)
                 eps_u = torch.stack([eps[0], eps[2]])
                 eps_t = torch.stack([eps[1], eps[3]])
-                eps_full[:, s:s + Fw] += eps_u + guidance_scale * (eps_t - eps_u)
-            latents = m.scheduler.step(state, eps_full * inv_counts, int(t), latents)
-        self.unet_step_ms = timer.elapsed_ms()
-        if not decode:
-            return latents
-        return decode_latents(m, latents, mesh)
+                eps_full[:, w:w + s.window] += eps_u + s.guidance_scale * (eps_t - eps_u)
+            latents = m.scheduler.step(state, eps_full * bufs["inv_counts"], t, latents)
+        bufs["latents"].copy_(latents)
+        return calls
+
+
+@dataclasses.dataclass(frozen=True)
+class _Settings:
+    """What the 2-view timestep body depends on besides its tensors."""
+
+    scheduler: DDIMScheduler
+    steps: int
+    guidance_scale: float
+    windows: int
+    window: int
+    stride: int

@@ -4,8 +4,12 @@ defaults are what the reference configures (1000 train steps, linear betas
 set ``beta_schedule`` and ``clip_sample`` (``io/model_config.py``) — port of
 ``cvd_tpu/schedulers/ddim.py``. Epsilon prediction and a final alpha of 1 are
 fixed: nothing configures them, and the training loss regresses on the noise.
-The tables are computed on the host in f64 and stored in f32; the per-step
-scalars are f32, as in the JAX package."""
+The tables are computed on the host in f64 and stored in f32 tensors; the
+per-step arithmetic is f32 tensors, as in the JAX package's traced form
+(``cvd_tpu/schedulers/ddim.py:95-141``): the timestep is a tensor too, and
+``step`` / ``renoise`` index the table on the sample's device, so a sampler
+whose table is on the card computes a step without the host, and a CUDA
+graph can replay it for any timestep."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,9 +20,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class DDIMState:
-    alphas_cumprod: np.ndarray      # [num_train_timesteps] f32
+    alphas_cumprod: torch.Tensor    # [num_train_timesteps] f32
     final_alpha_cumprod: np.float32
-    timesteps: np.ndarray           # [num_inference_steps] int, descending
+    timesteps: np.ndarray           # [num_inference_steps] int, descending (the host's loop)
     num_train_timesteps: int
     num_inference_steps: int
 
@@ -48,9 +52,9 @@ class DDIMScheduler:
         step_ratio = self.num_train_timesteps // num_inference_steps
         timesteps = ((np.arange(0, num_inference_steps) * step_ratio).round()[::-1].copy()
                      ).astype(np.int64) + self.steps_offset
-        acp = self._alphas_cumprod()
-        return DDIMState(acp.astype(np.float32), np.float32(1.0), timesteps,
-                         self.num_train_timesteps, num_inference_steps)
+        acp = torch.from_numpy(self._alphas_cumprod().astype(np.float32))
+        return DDIMState(acp, np.float32(1.0), timesteps, self.num_train_timesteps,
+                         num_inference_steps)
 
     @property
     def init_noise_sigma(self) -> float:
@@ -60,36 +64,38 @@ class DDIMScheduler:
                   noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         """q(x_t | x_0) = sqrt(acp_t) x0 + sqrt(1 - acp_t) eps, timesteps [B]
         (ddim.py:150-161)."""
-        acp = torch.from_numpy(state.alphas_cumprod).to(original_samples.device)
+        acp = state.alphas_cumprod.to(original_samples.device)
         acp = acp[timesteps.to(acp.device).long()]
         acp = acp.reshape(acp.shape + (1,) * (original_samples.ndim - acp.ndim))
         return acp ** 0.5 * original_samples + (1.0 - acp) ** 0.5 * noise
 
-    def _alphas(self, state: DDIMState, timestep: int):
-        """(alpha_cumprod at t, at the previous inference timestep), f32."""
-        timestep = int(timestep)
-        prev_timestep = timestep - self.num_train_timesteps // state.num_inference_steps
-        a_prev = (state.alphas_cumprod[prev_timestep] if prev_timestep >= 0
-                  else state.final_alpha_cumprod)
-        return state.alphas_cumprod[timestep], a_prev
+    def _alphas(self, state: DDIMState, timestep, device):
+        """(alpha_cumprod at t, at the previous inference timestep), f32
+        tensors of ``timestep``'s shape on ``device``: ``where(prev >= 0,
+        acp[clip(prev, 0)], final)``. ``timestep`` is an int or a 0-dim
+        integer tensor; a tensor on the card stays there."""
+        acp = state.alphas_cumprod.to(device)
+        t = torch.as_tensor(timestep, device=device).long()
+        prev = t - self.num_train_timesteps // state.num_inference_steps
+        a_prev = torch.where(prev >= 0, torch.take(acp, prev.clamp(min=0)),
+                             float(state.final_alpha_cumprod))
+        return torch.take(acp, t), a_prev
 
-    def step(self, state: DDIMState, model_output: torch.Tensor, timestep: int,
+    def step(self, state: DDIMState, model_output: torch.Tensor, timestep,
              sample: torch.Tensor) -> torch.Tensor:
         """One DDIM update x_t -> x_{t-1} (diffusers DDIMScheduler.step, eta 0)."""
-        a_t, a_prev = self._alphas(state, timestep)
-        one = np.float32(1.0)
-        sqrt_a, sqrt_b = float(a_t ** 0.5), float((one - a_t) ** 0.5)
-        pred_x0 = (sample - sqrt_b * model_output) / sqrt_a
+        a_t, a_prev = self._alphas(state, timestep, sample.device)
+        pred_x0 = (sample - (1.0 - a_t) ** 0.5 * model_output) / a_t ** 0.5
         if self.clip_sample:
             pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
-        pred_dir = float((one - a_prev) ** 0.5) * model_output
-        return float(a_prev ** 0.5) * pred_x0 + pred_dir
+        pred_dir = (1.0 - a_prev) ** 0.5 * model_output
+        return a_prev ** 0.5 * pred_x0 + pred_dir
 
-    def renoise(self, state: DDIMState, sample: torch.Tensor, timestep: int,
+    def renoise(self, state: DDIMState, sample: torch.Tensor, timestep,
                 noise: torch.Tensor) -> torch.Tensor:
         """x_{t-1} back to x_t for multistep recurrent denoising:
         x * sqrt(a_t / a_{t-1}) + sqrt(1 - a_t / a_{t-1}) * noise
         (pipeline_animation_epi_advanced.py:700-705)."""
-        a_t, a_prev = self._alphas(state, timestep)
+        a_t, a_prev = self._alphas(state, timestep, sample.device)
         ratio = a_t / a_prev
-        return float(ratio ** 0.5) * sample + float((np.float32(1.0) - ratio) ** 0.5) * noise
+        return ratio ** 0.5 * sample + (1.0 - ratio) ** 0.5 * noise

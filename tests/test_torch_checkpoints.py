@@ -386,8 +386,8 @@ def test_vae_clip_and_pose_encoder_from_files_match_jax(tiny_files, port_modules
 
 
 def test_simple_pipeline_from_files_matches_jax(tiny_files, port_modules):
-    from cvd_tpu.io.tokenizer import HashTokenizer
     from cvd_tpu.pipelines.simple import SimplePipeline as JaxPipeline
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer   # the same ids in every process
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
 
     _, jm = tiny_files

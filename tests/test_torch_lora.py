@@ -199,8 +199,8 @@ def test_unet_with_all_three_matches_jax(jax_bundle, port_bundle):
 
 
 def test_simple_pipeline_with_the_options_matches_jax(jax_bundle, port_bundle):
-    from cvd_tpu.io.tokenizer import HashTokenizer
     from cvd_tpu.pipelines.simple import SimplePipeline as JaxPipeline
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer   # the same ids in every process
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
 
     rng = np.random.default_rng(7)
@@ -334,7 +334,12 @@ def test_image_lora_file_builds_through_both_packages_alike(jax_bundle, tmp_path
     plucker = rng.standard_normal((2, Fr, 8 * S, 8 * S, 6)).astype(np.float32)
     F_mats = (rng.standard_normal((2, Fr, 3, 3)) * 1e-3).astype(np.float32)
     lat0 = rng.standard_normal((2, Fr, S, S, 4)).astype(np.float32)
-    ids, neg = HashTokenizer()(["a parity scene"]), HashTokenizer()(["blurry"])
+    # the port's tokenizer hashes with CRC-32: the same ids in every process
+    # (cvd_tpu's salts Python's hash per process: a test's inputs would change
+    # from one worker to the next, and with them its SNR)
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer as PortTokenizer
+
+    ids, neg = PortTokenizer()(["a parity scene"]), PortTokenizer()(["blurry"])
     want = np.asarray(JaxPipeline(jm, F_mat_size=256, rand_slope_ff=False,
                                   use_flash_kernel=False)(
         jnp.asarray(ids), jnp.asarray(neg), jnp.asarray(plucker), jnp.asarray(F_mats),

@@ -65,8 +65,8 @@ def jax_bundle():
 
 
 def test_simple_pipeline_latents_match_jax(jax_bundle):
-    from cvd_tpu.io.tokenizer import HashTokenizer
     from cvd_tpu.pipelines.simple import SimplePipeline as JaxPipeline
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer   # the same ids in every process
     from cvd_tpu_torch.pipelines.simple import SimplePipeline
 
     STEPS = 2
