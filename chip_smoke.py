@@ -80,14 +80,17 @@ Phases (any failure raises and exits non-zero):
 7. train: ``cvd_tpu_torch.cli.train.run`` at SD1.5 width (bf16 frozen
    weights, f32 masters, 256 px, 16 frames, 1 folded pair, 4 steps, remat
    on, sanity dump on) on seeded pixels with the camera geometry of
-   assets/pose_files: finite losses, trainable weights moved, frozen ones
-   bit-identical, every kernel K1-K7 launched. Then one step with remat
-   off for its peak memory. With ``--profile``, torch.profiler tables of
-   three sampler UNet steps, of the N-view sampler's UNet calls at 8 and at
-   16 CFG rows (each eagerly and captured) and of one training step (kernel
-   time by name, idle share;
-   chiprun_out/{sampler_step,nview_8rows,nview_16rows}_{eager,captured}_profile.txt,
-   chiprun_out/train_step_profile.txt).
+   assets/pose_files, its steps replayed as one CUDA graph (the default on
+   the card; ``train/program.py``): finite losses, trainable weights moved,
+   frozen ones bit-identical, every kernel K1-K7 launched (the first step
+   runs eagerly before the capture: its launches are the step's own, as in
+   every training run below). Then
+   one step with remat off for its peak memory. With ``--profile``,
+   torch.profiler tables of three sampler UNet steps and of the N-view
+   sampler's UNet calls at 8 and at 16 CFG rows (each eagerly and captured;
+   kernel time by name, idle share;
+   chiprun_out/{sampler_step,nview_8rows,nview_16rows}_{eager,captured}_profile.txt;
+   the training step's: phase ``train_graphs`` (f)).
 
 8. ckpt: the six checkpoint artifacts written at SD1.5 width from
    ``cvd_tpu_torch.io.manifests`` (seeded float16 values drawn on the card;
@@ -150,18 +153,20 @@ Phases (any failure raises and exits non-zero):
    ``cli.train.run`` on hybrid data (posed_ratio 0.5: phase 7's seeded
    pairs and seeded frames made into pseudo-pairs by
    ``data.webvid.homography_pair``) at SD1.5 width, bf16 frozen, 256 px, 16
-   frames, 6 steps, remat on, ``worker_type: process`` with 2 workers:
-   finite losses, both kinds drawn, K1 and K6 launched on the unposed
-   steps, frozen weights bit-identical to a fresh build's, trainable ones
-   moved; s/step and launches per step of each kind; (c) with that model,
-   two gradient computations (no update) on one posed batch for remat off,
+   frames, 4 steps, remat on, ``worker_type: process`` with 2 workers:
+   finite losses, both kinds drawn (two graphs captured), K1 and K6
+   launched on the unposed steps, frozen weights bit-identical to a fresh
+   build's, trainable ones moved; s/step and launches per step of each
+   kind; (c) with that model, one gradient computation (no update) on one
+   posed batch for remat off,
    ``block`` with ``""``, ``dots``, ``dots_no_batch`` and ``dots_small``, and
    ``layer`` with ``""``: peak memory, s/step, launches per step, gradients
    at >= 60 dB against ``block ""``; (d) two steps of ``run`` at (b)'s size
    (SD1.5 width, bf16 frozen, 256 px, 16 frames, remat on) with
    ``multihost`` as a world of one over NCCL: the losses bit for bit those of
-   the same run without it, the peak memory of each, the process group
-   destroyed.
+   the same run without it (eager, ``capture=False``: a run under a process
+   group is not captured), the peak memory of each, the process group
+   destroyed, the multihost steps not captured.
 
 12. civitai: from phase 8's files, at SD1.5 width, bf16, 256 px, 16 frames:
    (a) a civitai single-file model written from the LDM manifests
@@ -187,6 +192,39 @@ Phases (any failure raises and exits non-zero):
    ``utils.flops.unet_apply_flops(4, 16, 32)`` over phase 5's median UNet
    step, as achieved TFLOP/s beside the card's name and power limit. K1-K5
    launched on (c) and (d), K1-K7 on (e), each path counted from 0.
+
+train_graphs (after phase 11; ``[train_graphs]`` lines): the training step
+   replayed as CUDA graphs (``train/program.py``) against eager steps, at
+   SD1.5 width, bf16 frozen, f32 masters, 256 px, 16 frames, three bundles
+   of one seed (two eager runs, whose difference is eager's own spread, and
+   a captured one) stepping in lockstep on the same batches from generators
+   of one seed (AdamW, cosine schedule): (a) 4 steps of each of posed
+   (pixels), unposed (pseudo-pairs), hybrid (posed_ratio 0.5) and the latents
+   cache (posterior moments), with remat off and then ``block ""`` (the runs
+   go on from kind to kind: 32 steps; one program per run and setting, so
+   the hybrid steps replay the posed and unposed graphs): loss, grad norm
+   and trainable weights after every step differ from the first eager run's
+   by no more than the second eager run's (0: bit for bit); (b) K1-K7
+   launches over the steps equal, captured and eager; (c) (posed, remat off)
+   validation sampling after steps 2 and 4 of each run: the captured run's
+   videos within the eager runs' spread (K5's fold cache sees the replays'
+   writes); (d) (posed, remat off) ``save`` at step 2, ``restore`` into the
+   captured run after step 4, steps 3 and 4 replayed again: within the
+   spread of the unbroken eager run, no capture again; (e) s/step captured
+   and eager per kind and remat setting (off and ``block ""`` from (a)'s
+   lockstep; ``layer ""`` and ``block dots`` per kind, ``block
+   dots_no_batch`` and ``block dots_small`` posed, in turns: eager, captured,
+   captured, eager), the first step's seconds and its capture's, an eager
+   step's peak allocated memory above what was resident beside the graph's
+   pool (reserved: a replay allocates nothing);
+   (f) with ``--profile``: torch.profiler over one captured and one eager
+   remat-on (``block ""``) posed step, the idle share of each
+   (chiprun_out/train_step_{eager,captured}_profile.txt); (g) two f32 steps
+   (TF32 off) of the SD1.5-wide model, every tensor drawn, 2 x 4 frames at
+   64 px, remat off, on the card through the graphs (the first eager before
+   the capture, the second replayed) against the same steps on the CPU from
+   the same weights and pinned draws: the replayed step's loss to 1e-5
+   relative, its clipped gradients and the updated weights at >= 60 dB.
 
 graphs (after phase 6): the samplers' timesteps as replayed CUDA graphs
    against the same requests run eagerly (``capture=False``), at SD1.5 width,
@@ -233,7 +271,7 @@ mesh4 (``--mesh`` only; raises below 4 cards): ``torch.distributed.run``
 The second-to-last line is the per-kernel JSON record (times, bound,
 library yardstick, launches summed over the main paths and per UNet step or
 call of each sampler and per training step, and each path of phases 9, 10,
-11, 12 and mesh; K1 and K3 also carry phase mesh's timings); the last line is ``{"ok": true, "device": {...}}``.
+11, 12, train_graphs and mesh; K1 and K3 also carry phase mesh's timings); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1584,7 +1622,7 @@ def _ckpt_runs(torch, np, root, sampler, sampler_requests):
         f"on); f32 masters equal to the epi file before the first step ({len(epi_file)} "
         f"tensors), trainable tensors moved {len(epi_file) - len(still)}/{len(epi_file)}, "
         f"frozen tensors off their file's value {len(changed)}/{len(now) - len(epi_file)}, "
-        f"launches {train_launches}")
+        f"captured {out['program']['captured']}, launches {train_launches}")
     missing = [n for n in KERNELS if train_launches[n] == 0]
     if (len(losses) != steps or not all(math.isfinite(x) for x in losses) or still or changed
             or missing):
@@ -2350,6 +2388,7 @@ def _civitai_runs(torch, np, root, paths, one_prompt, unet_ms, smi):
     torch.cuda.reset_peak_memory_stats()
     run = counted("civitai_train", lambda: train.run(
         cfg, sources=[_SeededPairs(steps, 16, 256)], tokenizer=tok), lambda r: steps)
+    out["civitai_train"] = (out["civitai_train"][0], steps)
     epi = load_torch_state(paths["epi_module_ckpt"], "unet_trainable_dict")
     now = dict(run["state"].model.named_parameters())
     still = [k for k, t in epi.items() if torch.equal(now[k].cpu(), t.float())]
@@ -3145,7 +3184,7 @@ class _SeededPairs:
                 "plucker_embedding": self.plucker, "F_mats": self.F_mats, **self.poses}
 
 
-def phase_train(torch, profile: bool):
+def phase_train(torch):
     """cli.train.run at SD1.5 width, then one step with remat off."""
     import numpy as np
 
@@ -3171,10 +3210,15 @@ def phase_train(torch, profile: bool):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     state, modules, losses, secs = out["state"], out["modules"], out["losses"], out["step_seconds"]
-    log(f"[train] {steps} steps in {seconds:.2f} s (module build included): losses "
+    program = out["program"]
+    log(f"[train] {steps} steps in {seconds:.2f} s (module build included), replayed as CUDA "
+        f"graphs: {program['captured']} ({program['captures']} capture of "
+        f"{program['capture_s']:.2f} s after the first step, which runs eagerly): losses "
         f"[{', '.join(f'{x:.5f}' for x in losses)}], s/step first {secs[0]:.3f} steady "
         f"[{', '.join(f'{x:.3f}' for x in secs[1:])}], peak allocated {peak / 2**30:.2f} GiB "
         f"(remat on), launches {launches}")
+    if not program["captured"] or program["captures"] != 1:
+        raise RuntimeError(f"the training run on the card did not replay one graph: {program}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"train losses {losses}")
     missing = [n for n in KERNELS if launches[n] == 0]
@@ -3212,10 +3256,8 @@ def phase_train(torch, profile: bool):
                 f"{m['loss']:.5f}, peak allocated "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         except torch.cuda.OutOfMemoryError:
-            state.optimizer.zero_grad(set_to_none=True)
+            state.zero_grad()
             log(f"[train] one step remat={remat}: out of memory on the card")
-    if profile:
-        _profile_step(torch, state, batch, modules, gen, size)
     return launches, steps, secs[1:]
 
 
@@ -3327,10 +3369,10 @@ def _training_hybrid(torch, np, wrappers):
     workers. -> (launches, steps, per-kind launches per step, the run's
     result)."""
     from cvd_tpu_torch.cli import train
-    from cvd_tpu_torch.train import train_step as ts
+    from cvd_tpu_torch.train.program import TrainProgram
     from cvd_tpu_torch.train.state import create_train_state
 
-    steps, Fr, S = 6, 16, 256
+    steps, Fr, S = 4, 16, 256
     cfg = dict(random_weights_full=True, bf16=True, sample_size=S, sample_n_frames=Fr,
                train_batch_size=1, max_train_steps=steps, num_workers=2, worker_type="process",
                remat=True, do_sanity_check=True, logger_interval=1, checkpointing_steps=10 ** 9,
@@ -3340,28 +3382,29 @@ def _training_hybrid(torch, np, wrappers):
     sources = [("posed", _SeededPairs(4, Fr, S), ratio),
                ("unposed", _SeededFrames(4, Fr, S), 1.0 - ratio)]
     per_kind = {"posed": [], "unposed": []}
-    real = ts.train_step
+    real = TrainProgram.step
 
-    def watched(state, batch, *a, **kw):
-        """the loop's train_step, its launches and seconds kept per kind"""
-        before = {n: w.launches for n, w in wrappers.items()}
+    def watched(self, batch, *a, **kw):
+        """the loop's steps, their launches and seconds kept per kind"""
+        before = dict(self.stats["launches"])
         t0 = time.perf_counter()
-        out = real(state, batch, *a, **kw)
+        out = real(self, batch, *a, **kw)
         torch.cuda.synchronize()
         per_kind["unposed" if "H_mats" in batch else "posed"].append(
-            (time.perf_counter() - t0, {n: w.launches - before[n] for n, w in wrappers.items()}))
+            (time.perf_counter() - t0,
+             {n: c - before[n] for n, c in self.stats["launches"].items()}))
         return out
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
-    ts.train_step = watched
+    TrainProgram.step = watched
     t0 = time.perf_counter()
     try:
         res = train.run(cfg, sources=sources)
     finally:
-        ts.train_step = real
+        TrainProgram.step = real
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
@@ -3379,10 +3422,12 @@ def _training_hybrid(torch, np, wrappers):
         f"{Fr} frames, remat on, process workers x{cfg['num_workers']}: {steps} steps in "
         f"{seconds:.2f} s (module build included), kinds {kinds}, losses "
         f"[{', '.join(f'{x:.5f}' for x in losses)}], peak allocated {peak / 2**30:.2f} GiB, "
+        f"program {({k: v for k, v in res['program'].items() if 'launches' not in k})}, "
         f"launches {launches}")
     unposed = means.get("unposed", {})
     if (len(losses) != steps or not all(math.isfinite(x) for x in losses)
             or set(kinds) != {"posed", "unposed"} or not unposed
+            or not res["program"]["captured"] or res["program"]["captures"] != 2
             or unposed["epi_flash_attention"] == 0 or unposed["epi_flash_attention_bwd"] == 0
             or [n for n in KERNELS if launches[n] == 0]):
         raise RuntimeError(f"hybrid run: losses {losses}, kinds {kinds}, unposed launches "
@@ -3412,9 +3457,10 @@ REMAT_SETTINGS = (("off", None, ""), ('block ""', "block", ""), ("block dots", "
 
 
 def _training_remat(torch, np, res, wrappers):
-    """(c) two steps' gradients (no update) of the hybrid run's SD1.5 model on
+    """(c) one step's gradients (no update) of the hybrid run's SD1.5 model on
     one posed batch for every remat setting: peak memory, s/step and launches
-    per step; each setting's gradients against block "" (>= 60 dB).
+    per step; each setting's gradients against block "" (>= 60 dB). Captured
+    and eager steps of four of these settings: phase train_graphs (e).
     -> {setting: (launches, steps)}."""
     import dataclasses
 
@@ -3426,6 +3472,7 @@ def _training_remat(torch, np, res, wrappers):
     base = unet.config
     batch = _folded(torch, np, _SeededPairs(1, Fr, S), Fr)
     grads, out, rows = {}, {}, []
+    state.zero_grad()       # the run's last gradients: loss_and_grads adds to them
     try:
         for name, unit, policy in REMAT_SETTINGS:
             unet.config = dataclasses.replace(base, remat_unit=unit or "block",
@@ -3436,7 +3483,7 @@ def _training_remat(torch, np, res, wrappers):
             for w in wrappers.values():
                 w.launches = 0
             secs = []
-            for _ in range(2):
+            for _ in range(1):
                 t0 = time.perf_counter()
                 # the same draws every time: a fresh generator of one seed
                 loss, _ = loss_and_grads(state, batch, modules,
@@ -3448,9 +3495,9 @@ def _training_remat(torch, np, res, wrappers):
                 # stays on the card into the next computation's peak
                 grads[name] = np.concatenate([p.grad.float().cpu().numpy().ravel()
                                               for p in state.trainable_params()])
-                state.optimizer.zero_grad(set_to_none=True)
+                state.zero_grad()
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            out[name] = ({n: w.launches for n, w in wrappers.items()}, 2)
+            out[name] = ({n: w.launches for n, w in wrappers.items()}, len(secs))
             rows.append((name, peak, secs, float(loss)))
     finally:
         unet.config = base
@@ -3458,9 +3505,10 @@ def _training_remat(torch, np, res, wrappers):
     bad = []
     for name, peak, secs, loss in rows:
         snr = _snr_db(np, ref, grads[name])
-        per_step = {n: c / 2 for n, c in out[name][0].items()}
+        per_step = {n: c / out[name][1] for n, c in out[name][0].items()}
         log(f"[training] (c) remat {name}: peak allocated {peak:.2f} GiB, s/step "
-            f"[{', '.join(f'{t:.3f}' for t in secs)}] (steady {secs[-1]:.3f}), loss "
+            f"[{', '.join(f'{t:.3f}' for t in secs)}] (one computation, first-call costs "
+            f"included), loss "
             f"{loss:.6f}, gradients vs block \"\" SNR {snr:.1f} dB, launches per step "
             f"{per_step}")
         if not snr >= 60.0:
@@ -3473,8 +3521,9 @@ def _training_remat(torch, np, res, wrappers):
 def _training_multihost(torch):
     """(d) two steps of ``run(..., multihost=True)`` as a world of one over
     NCCL at (b)'s size (SD1.5 width, every tensor drawn, bf16 frozen, 256 px,
-    16 frames, remat on) against the same run without it: the losses bit for
-    bit; the peak memory of each run.
+    16 frames, remat on) against the same run without it, eager as the run
+    under a process group is (``capture=False``): the losses bit for bit; the
+    peak memory of each run; the multihost run's steps not captured.
     -> (launches of the multihost run, steps)."""
     import torch.distributed as dist
 
@@ -3487,7 +3536,7 @@ def _training_multihost(torch):
                global_seed=42)
 
     def run(name, **kw):
-        """-> (losses, kinds, rank, world size, step seconds, peak GiB)"""
+        """-> (losses, kinds, rank, world size, step seconds, peak GiB, captured)"""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         res = train.run(dict(cfg, output_dir=os.path.join(HERE, "build", name)),
@@ -3495,13 +3544,14 @@ def _training_multihost(torch):
                                  ("unposed", _SeededFrames(2, Fr, S), 0.5)], **kw)
         torch.cuda.synchronize()
         out = (res["losses"], res["kinds"], res["rank"], res["world_size"],
-               res["step_seconds"], torch.cuda.max_memory_allocated() / 2 ** 30)
+               res["step_seconds"], torch.cuda.max_memory_allocated() / 2 ** 30,
+               res["program"]["captured"])
         del res
         torch.cuda.empty_cache()
         return out
 
     wrappers = _wrappers()
-    plain = run("chip_smoke_plain")
+    plain = run("chip_smoke_plain", capture=False)
     for w in wrappers.values():
         w.launches = 0
     with _TorchrunEnv():
@@ -3512,9 +3562,10 @@ def _training_multihost(torch):
         f"{multi[0]} ({multi[1]}) against {plain[0]} without it; s/step "
         f"[{', '.join(f'{t:.3f}' for t in multi[4])}] against "
         f"[{', '.join(f'{t:.3f}' for t in plain[4])}]; peak allocated {multi[5]:.2f} GiB "
-        f"against {plain[5]:.2f} GiB; process group destroyed: {not dist.is_initialized()}")
+        f"against {plain[5]:.2f} GiB; process group destroyed: {not dist.is_initialized()}; "
+        f"steps captured: {multi[6]}")
     if (multi[0] != plain[0] or multi[3] != 1 or dist.is_initialized()
-            or len(multi[0]) != steps):
+            or len(multi[0]) != steps or multi[6]):
         raise RuntimeError(f"multihost world of one: {multi[0]} vs {plain[0]}")
     return launches, steps
 
@@ -3543,6 +3594,380 @@ def phase_training(torch):
     out["multihost"] = _training_multihost(torch)
     log(f"[time] training (d): {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def _train_batches(torch, np, kind, n, Fr, S, vae=None):
+    """``n`` host batches of ``kind`` as the training loop folds them
+    (2 videos x ``Fr`` frames, ``S`` px, hash-tokenized captions): "posed"
+    (phase 7's seeded pairs, pixels), "unposed" (seeded frames made into
+    pseudo-pairs: pixels, H mats, warped masks) or "cache" (the posed
+    pairs' posterior moments, encoded once by ``vae``, as the latents
+    cache holds them)."""
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+
+    tok = HashTokenizer()
+    data = _SeededFrames(n, Fr, S) if kind == "unposed" else _SeededPairs(n, Fr, S)
+
+    def fold(x):
+        return torch.from_numpy(np.ascontiguousarray(np.concatenate([x[None, :Fr],
+                                                                     x[None, Fr:]])))
+
+    out = []
+    for i in range(n):
+        s = data[i]
+        b = {"text_ids": torch.from_numpy(tok([s["text"]] * 2))}
+        if kind == "unposed":
+            b.update({k: fold(s[k]) for k in ("pixel_values", "H_mats", "warped_masks")})
+        else:
+            b.update(plucker=fold(s["plucker_embedding"]), F_mats=fold(s["F_mats"]))
+            if kind == "posed":
+                b["pixel_values"] = fold(s["pixel_values"])
+            else:
+                dtype = vae.quant_conv.weight.dtype
+                with torch.no_grad():
+                    mean, logvar = vae.encode(torch.from_numpy(s["pixel_values"])
+                                              .to("cuda", dtype))
+                b.update(latent_mean=fold(mean.float().cpu().numpy()),
+                         latent_logvar=fold(logvar.float().cpu().numpy()))
+        out.append(b)
+    return out
+
+
+VALIDATION = dict(sample_n_frames=16, sample_size=256, validation_steps_num=2,
+                  validation_data=dict(
+                      pose_file_0=os.path.join(HERE, "assets", "pose_files", "example_dolly.txt"),
+                      pose_file_1=os.path.join(HERE, "assets", "pose_files", "example_arc.txt"),
+                      prompts=["a scenic video"]))
+
+
+def _max_diff(torch, a, b):
+    """max |a - b| over the trainable weights of two states."""
+    with torch.no_grad():
+        return float(torch.stack([(x - y).abs().max() for x, y in
+                                  zip(a.trainable_params(), b.trainable_params())]).max())
+
+
+def _tg_step(torch, prog, batch, gen):
+    """One step of a program, timed and counted -> its record."""
+    before = dict(prog.stats["launches"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = prog.step(batch, gen)
+    torch.cuda.synchronize()
+    return dict(out, s=time.perf_counter() - t0,
+                peak=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                peak_abs=torch.cuda.max_memory_allocated() / 2 ** 30,
+                reserved=torch.cuda.max_memory_reserved() / 2 ** 30,
+                launches={n: c - before[n] for n, c in prog.stats["launches"].items()})
+
+
+def _tg_programs(torch, runs, unit, policy, S):
+    """A program per run (eager, eager, captured, by name) at one remat
+    setting; the runs' states go on from where they are."""
+    import dataclasses
+
+    from cvd_tpu_torch.train.program import TrainProgram
+
+    torch.cuda.empty_cache()        # the last setting's graphs are gone
+    progs = []
+    for name, m, state, base in runs:
+        m.unet.config = dataclasses.replace(base, remat_unit=unit or "block",
+                                            remat_policy=policy)
+        progs.append(TrainProgram(state, m, capture=name == "captured", F_mat_size=S,
+                                  remat=unit is not None))
+    return progs
+
+
+def _tg_lockstep(torch, np, runs, progs, gens, kind, batches, setting, tok, vdir):
+    """(a)-(d) for one kind at one remat setting: the three runs step in
+    lockstep on the same batches; after every step the captured run's loss,
+    grad norm and trainable weights differ from the first eager run's by no
+    more than the second eager run's do. -> per-step records by run."""
+    import logging
+
+    from cvd_tpu_torch.cli import train
+    from cvd_tpu_torch.train.checkpoint import restore, save
+
+    name = setting[0]
+    (_, ma, sa, _), (_, mb, sb, _), (_, mc, sc, _) = runs
+    recs = [[], [], []]
+    bad = []
+
+    def compare(i, got, what, weights=True):
+        want, spread = recs[0][i], recs[1][i]
+        dq = {q: (abs(spread[q] - want[q]), abs(got[q] - want[q])) for q in ("loss", "grad_norm")}
+        if weights:
+            dq["weights"] = (_max_diff(torch, sb, sa), _max_diff(torch, sc, sa))
+        log(f"[train_graphs] {what} {kind}, remat {name}, step {i + 1}: loss eager "
+            f"{want['loss']:.7f} / {spread['loss']:.7f}, captured {got['loss']:.7f}; "
+            + "; ".join(f"{q} |eager2 - eager| {a:.3g}, |captured - eager| {b:.3g}"
+                        for q, (a, b) in dq.items()))
+        over = {q: d for q, d in dq.items() if d[1] > d[0]}
+        if over:
+            bad.append((what, kind, name, i + 1, over))
+
+    resume = kind == "posed" and setting[1] is None
+    path = os.path.join(vdir, "step-2.pt")
+    captures = progs[2].stats["captures"]
+    for i, batch in enumerate(batches):
+        for r, (prog, gen) in enumerate(zip(progs, gens)):
+            recs[r].append(_tg_step(torch, prog, batch, gen))
+        compare(i, recs[2][i], "(a)")
+        if resume and i == 1:
+            save(path, sc, epoch=0)
+            at_two = gens[2].get_state()
+        if resume and i in (1, 3):     # (c) validation after captured steps
+            videos = []
+            for r, m in enumerate((ma, mb, mc)):
+                out_dir = os.path.join(vdir, f"run{r}")
+                train.run_validation(m, tok, VALIDATION, out_dir, i + 1,
+                                     logging.getLogger("chip_smoke"))
+                videos.append(np.load(os.path.join(out_dir, "validation",
+                                                   f"step-{i + 1}.npy")).astype(np.int16))
+            spread = int(np.abs(videos[1] - videos[0]).max())
+            diff = int(np.abs(videos[2] - videos[0]).max())
+            log(f"[train_graphs] (c) validation at step {i + 1} after {kind} steps, remat "
+                f"{name}: videos {videos[0].shape} uint8, max |eager2 - eager| {spread}, "
+                f"max |captured - eager| {diff}")
+            if diff > spread:
+                bad.append(("(c)", kind, name, i + 1, {"videos": (spread, diff)}))
+    launches = [{n: sum(r["launches"][n] for r in rec) for n in KERNELS} for rec in recs]
+    log(f"[train_graphs] (b) {kind}, remat {name}: K1-K7 launches over {len(batches)} steps "
+        f"equal, eager and captured: {launches[2] == launches[0] == launches[1]} "
+        f"({launches[2]}); graphs captured {progs[2].stats['captures'] - captures}")
+    if not launches[2] == launches[0] == launches[1]:
+        bad.append(("(b)", kind, name, 0, {"launches": (launches[0], launches[2])}))
+    if resume:      # (d) restore at step 2, then captured steps 3 and 4 again
+        captures = progs[2].stats["captures"]
+        restore(path, sc)
+        gens[2].set_state(at_two)
+        for j, b in enumerate(batches[2:]):
+            # the weights after step 3 again: only step 4's are comparable
+            compare(2 + j, _tg_step(torch, progs[2], b, gens[2]), "(d) resumed", weights=j == 1)
+        log(f"[train_graphs] (d) save at step 2, restore, steps 3-4 replayed again: graphs "
+            f"captured {progs[2].stats['captures'] - captures}")
+        if progs[2].stats["captures"] != captures:
+            bad.append(("(d)", kind, name, 0, {"captures": (captures, progs[2].stats["captures"])}))
+    if bad:
+        raise RuntimeError(f"captured training differs from eager beyond eager's spread: {bad}")
+    return recs
+
+
+def _tg_timing(torch, runs, kinds, settings, S):
+    """(e) captured and eager steps in turns (eager, captured, captured,
+    eager, after one captured step that captures) per kind and remat
+    setting (``settings``: (name, remat_unit, remat_policy, kinds)); the
+    graph pool's size from the reserved memory around that capture ->
+    {(setting, kind): (rows, first step, capture s, pool GiB)}."""
+    out = {}
+    gens = [torch.Generator(device="cuda").manual_seed(12) for _ in runs]
+    for name, unit, policy, names in settings:
+        pe, pc = _tg_programs(torch, runs, unit, policy, S)
+        for kind in names:
+            batches = kinds[kind]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved()
+            stats = dict(pc.stats)
+            first = _tg_step(torch, pc, batches[0], gens[1])
+            pool = (torch.cuda.memory_reserved() - before) / 2 ** 30
+            rows = {"eager": [], "captured": []}
+            for mode, b in zip(("eager", "captured", "captured", "eager"), batches):
+                prog, gen = (pc, gens[1]) if mode == "captured" else (pe, gens[0])
+                rows[mode].append(_tg_step(torch, prog, b, gen))
+            out[(name, kind)] = (rows, first, pc.stats["capture_s"] - stats["capture_s"], pool)
+        del pe, pc
+    return out
+
+
+def _tg_report_timing(timing, lockstep):
+    """The [train_graphs] (e) lines: s/step captured vs eager per setting."""
+    for (name, kind), (rows, first, capture_s, pool) in timing.items():
+        log(f"[train_graphs] (e) {kind}, remat {name}, in turns: eager s/step "
+            f"[{', '.join(f'{r['s']:.3f}' for r in rows['eager'])}], captured "
+            f"[{', '.join(f'{r['s']:.3f}' for r in rows['captured'])}]; first captured step "
+            f"{first['s']:.3f} s (eager, then the capture: {capture_s:.2f} s); an eager step's "
+            f"peak allocated above what was resident "
+            f"{max(r['peak'] for r in rows['eager']):.2f} GiB (absolute "
+            f"{max(r['peak_abs'] for r in rows['eager']):.2f}), the graph's pool "
+            f"{pool:.2f} GiB (reserved; a replay allocates nothing); peak reserved eager "
+            f"{max(r['reserved'] for r in rows['eager']):.2f} GiB (pool included)")
+    for (name, kind), recs in lockstep.items():
+        e1, e2, c = ([r["s"] for r in rec] for rec in recs)
+        log(f"[train_graphs] (e) {kind}, remat {name}, lockstep of (a) (eager, eager, captured "
+            f"each step): eager s/step [{', '.join(f'{x:.3f}' for x in e1)}] / "
+            f"[{', '.join(f'{x:.3f}' for x in e2)}], captured "
+            f"[{', '.join(f'{x:.3f}' for x in c)}]; an eager step's peak allocated above "
+            f"resident {max(r['peak'] for r in recs[0]):.2f} GiB")
+
+
+def _tg_profile(torch, progs, gens, batches):
+    """(f) torch.profiler over one captured and one eager step (the programs
+    of (a)'s last setting, remat on), after their warm-ups: the idle share
+    of each."""
+    from cvd_tpu_torch.utils.profiling import trace
+
+    idle = {}
+    for mode, prog, gen in (("eager", progs[0], gens[0]), ("captured", progs[2], gens[2])):
+        torch.cuda.synchronize()
+        with trace(_profile_dir(f"train_step_{mode}")) as prof:
+            t0 = time.perf_counter()
+            prog.step(batches[0], gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        idle[mode] = _report_profile(prof, wall, 1, f"one remat-on (block \"\") posed training "
+                                     f"step, {mode}", f"train_step_{mode}_profile.txt")
+    log(f"[train_graphs] (f) idle share of a remat-on posed step: captured "
+        f"{idle['captured']['idle_share']:.1%} ({idle['captured']['device_ms']:.1f} ms of "
+        f"kernels), eager {idle['eager']['idle_share']:.1%} "
+        f"({idle['eager']['device_ms']:.1f} ms; its AdamW.step range is counted as device "
+        f"time by the profiler)")
+
+
+def _tg_full_width(torch, np):
+    """(g) two f32 steps of the SD1.5-wide model (every tensor drawn, f32
+    frozen, TF32 off), 2 videos x 4 frames at 64 px, remat off, through the
+    program on the card (the first runs eagerly before the capture, the
+    second is replayed) against the same steps on the CPU from the same
+    weights, batch and pinned draws: the replayed step's loss to 1e-5
+    relative, its clipped gradients and the updated weights at >= 60 dB."""
+    from cvd_tpu_torch.models.clip_text import CLIPTextConfig
+    from cvd_tpu_torch.models.unet import UNetConfig
+    from cvd_tpu_torch.models.vae import VAEConfig
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+    from cvd_tpu_torch.train.program import TrainProgram
+    from cvd_tpu_torch.train.state import create_train_state
+
+    Fr, S = 4, 64
+    batch = _train_batches(torch, np, "posed", 1, Fr, S)[0]
+    rng = np.random.default_rng(12)
+    batch.update(latents=torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4))
+                                          .astype(np.float32)),
+                 noise=torch.from_numpy(rng.standard_normal((2, Fr, S // 8, S // 8, 4))
+                                        .astype(np.float32)),
+                 timesteps=torch.from_numpy(np.array([271, 804])),
+                 slope=torch.from_numpy(np.array([1.1], np.float32)))
+    del batch["pixel_values"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        # drawn on the card (fast), then loaded into an uninitialized CPU bundle
+        gpu = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(13),
+                                     random_full=True)
+        cpu = PipelineModules.create(UNetConfig(), VAEConfig(), CLIPTextConfig(), device="cpu")
+        for name in ("unet", "clip", "pose_encoder"):
+            getattr(cpu, name).load_state_dict(getattr(gpu, name).state_dict())
+        built = time.perf_counter() - t0
+        results = []
+        for m in (cpu, gpu):
+            state = create_train_state(m.unet, learning_rate=1e-4)
+            prog = TrainProgram(state, m, F_mat_size=S, remat=False)
+            gen = torch.Generator(device=m.unet.conv_in.weight.device).manual_seed(0)
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                out = prog.step(batch, gen)
+                secs.append(time.perf_counter() - t0)
+            params = state.trainable_params()
+            results.append((out, np.concatenate([p.grad.cpu().numpy().ravel() for p in params]),
+                            np.concatenate([p.detach().cpu().numpy().ravel() for p in params]),
+                            secs, prog.stats["captures"] == 1 and prog.stats["captured"]))
+            del state, prog
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (want, g_ref, w_ref, cpu_s, _), (got, g, w, gpu_s, captured) = results
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    snr_g, snr_w = _snr_db(np, g_ref, g), _snr_db(np, w_ref, w)
+    log(f"[train_graphs] (g) SD1.5-wide steps f32 (TF32 off), 2 x {Fr} frames at {S} px, remat "
+        f"off, the second {'replayed' if captured else 'EAGER'} on the card vs the CPU: loss "
+        f"{got['loss']:.7f} / {want['loss']:.7f} (rel {rel:.1e}), grad norm "
+        f"{got['grad_norm']:.6f} / {want['grad_norm']:.6f}; clipped gradients ({g.size} values) "
+        f"SNR {snr_g:.1f} dB, updated weights {snr_w:.1f} dB; card steps "
+        f"{gpu_s[0]:.2f} s (eager, capture included) / {gpu_s[1]:.2f} s (replayed), CPU "
+        f"{cpu_s[0]:.2f} / {cpu_s[1]:.2f} s, build {built:.1f} s")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    if not (captured and rel <= 1e-5 and snr_g >= 60.0 and snr_w >= 60.0):
+        raise RuntimeError(f"full-width step card vs CPU: captured {captured}, loss rel "
+                           f"{rel:.1e}, gradients {snr_g:.1f} dB, weights {snr_w:.1f} dB")
+
+
+def phase_train_graphs(torch, profile: bool):
+    """The training step replayed as CUDA graphs against eager steps (the
+    module docstring, train_graphs). -> (launches, steps) of the captured
+    run of (a)."""
+    import random
+
+    import numpy as np
+
+    from cvd_tpu_torch.cli import train
+    from cvd_tpu_torch.io.tokenizer import HashTokenizer
+    from cvd_tpu_torch.train.state import create_train_state
+
+    Fr, S, steps = 16, 256, 4
+    vdir = os.path.join(HERE, "build", "chip_smoke_train_graphs")
+    os.makedirs(vdir, exist_ok=True)
+    t0 = time.perf_counter()
+    runs = []
+    for name in ("eager", "eager2", "captured"):
+        m, _ = train.build_training_modules(dict(random_weights_full=True, bf16=True),
+                                            torch.device("cuda"))
+        state = create_train_state(m.unet, learning_rate=1e-4, scheduler="cosine",
+                                   warmup_steps=0, total_steps=40, frozen_dtype=torch.bfloat16)
+        runs.append((name, m, state, m.unet.config))
+    posed = _train_batches(torch, np, "posed", steps, Fr, S)
+    unposed = _train_batches(torch, np, "unposed", steps, Fr, S)
+    cache = _train_batches(torch, np, "cache", steps, Fr, S, vae=runs[0][1].vae)
+    draw = random.Random(43)        # hybrid, posed_ratio 0.5
+    hybrid = [posed[i] if draw.random() < 0.5 else unposed[i] for i in range(steps)]
+    log(f"[train_graphs] three bundles at SD1.5 width (bf16 frozen, f32 masters, "
+        f"{sum(p.numel() for p in runs[0][2].trainable_params())} trainable values) and the "
+        f"batches in {time.perf_counter() - t0:.1f} s; hybrid kinds "
+        f"{['posed' if 'plucker' in b else 'unposed' for b in hybrid]}")
+    tok = HashTokenizer()
+    gens = [torch.Generator(device="cuda").manual_seed(11) for _ in runs]
+    lockstep, launches, n_steps = {}, {n: 0 for n in KERNELS}, 0
+    # the runs go on from kind to kind and setting to setting: 32 steps each
+    for setting in (("off", None, ""), ('block ""', "block", "")):
+        progs = _tg_programs(torch, runs, setting[1], setting[2], S)
+        for kind, batches in (("posed", posed), ("unposed", unposed), ("hybrid", hybrid),
+                              ("cache", cache)):
+            t1 = time.perf_counter()
+            recs = _tg_lockstep(torch, np, runs, progs, gens, kind, batches, setting, tok, vdir)
+            lockstep[(setting[0], kind)] = recs
+            for r in recs[2]:
+                for n in KERNELS:
+                    launches[n] += r["launches"][n]
+            n_steps += len(recs[2])
+            log(f"[time] train_graphs (a) {kind} remat {setting[0]}: "
+                f"{time.perf_counter() - t1:.1f} s")
+        log(f"[train_graphs] (a) remat {setting[0]}: {progs[2].stats['captures']} graphs captured "
+            f"in {progs[2].stats['capture_s']:.2f} s")
+    if profile:
+        _tg_profile(torch, progs, gens, posed)
+    del progs
+    del runs[1]         # (e): the first eager run and the captured one
+    t1 = time.perf_counter()
+    both = ("posed", "unposed")
+    timing = _tg_timing(torch, runs, {"posed": posed, "unposed": unposed},
+                        (('layer ""', "layer", "", both), ("block dots", "block", "dots", both),
+                         ("block dots_no_batch", "block", "dots_no_batch", ("posed",)),
+                         ("block dots_small", "block", "dots_small", ("posed",))), S)
+    _tg_report_timing(timing, {k: v for k, v in lockstep.items()
+                               if k[1] in ("posed", "unposed")})
+    log(f"[time] train_graphs (e): {time.perf_counter() - t1:.1f} s")
+    for _, m, _, base in runs:
+        m.unet.config = base
+    del runs, posed, unposed, cache, hybrid
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _tg_full_width(torch, np)
+    log(f"[time] train_graphs (g): {time.perf_counter() - t1:.1f} s")
+    return launches, n_steps
 
 
 def _folded(torch, np, data, n_frames):
@@ -3579,6 +4004,7 @@ def _report_profile(prof, wall, steps, what, path):
                 f"{summary['device_ms'] * steps:.1f} ms\n{summary['table']}\n")
     for line in summary["lines"]:
         log(f"[profile] {line}")
+    return summary
 
 
 def _profile_sampler(torch):
@@ -3620,22 +4046,6 @@ def _profile_sampler(torch):
                         "encoders included once)", f"sampler_step_{mode}_profile.txt")
     del modules, pipe
     torch.cuda.empty_cache()
-
-
-def _profile_step(torch, state, batch, modules, gen, size):
-    """torch.profiler over one remat-on step: device time by kernel, device
-    busy time against the step's wall time (chiprun_out/)."""
-    from cvd_tpu_torch.train.train_step import train_step
-    from cvd_tpu_torch.utils.profiling import trace
-
-    train_step(state, batch, modules, gen, F_mat_size=size)
-    torch.cuda.synchronize()
-    with trace(_profile_dir("train_step")) as prof:
-        t0 = time.perf_counter()
-        train_step(state, batch, modules, gen, F_mat_size=size)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    _report_profile(prof, wall, 1, "one remat-on training step", "train_step_profile.txt")
 
 
 def _net_of_warmups(launches, records):
@@ -3695,14 +4105,16 @@ def main() -> int:
     if profile:
         timed(_profile_sampler)
         timed(_profile_nview)
-    train, train_steps, train_seconds = timed(phase_train, profile=profile)
+    train, train_steps, train_seconds = timed(phase_train)
     ((ckpt_sampler, ckpt_steps), (ckpt_train, ckpt_train_steps)), options = timed(
         phase_ckpt, _net_of_warmups(sampler, slice_records), sampler_requests=2,
         train_seconds=train_seconds, unet_ms=unet_ms, smi=smi)
     training = timed(phase_training)
+    train_graphs = timed(phase_train_graphs, profile=profile)
     # the training phase's entry-point runs count toward "launches"; its
     # per-kind means and the remat settings' loss_and_grads runs stand beside
     runs = {path: training[path] for path in ("hybrid", "multihost")}
+    runs["train_graphs"] = train_graphs
     runs.update({f"mesh_{path}": n for path, n in mesh.items()})
     runs.update({f"graphs_{path}": n for path, n in graphs.items()})
     kernels = []
@@ -3738,6 +4150,8 @@ def main() -> int:
             opts["mesh_timings"] = mesh_report[name]["timings"]
         opts.update({f"launches_per_training_{path}_step": n[name] / steps
                      for path, (n, steps) in training.items() if path not in runs})
+        # phase train_graphs: the captured runs' launches per replayed step
+        opts["launches_per_train_graphs_step"] = train_graphs[0][name] / train_graphs[1]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": (sampler[name] + nview_loop[name] + nview_batched[name]
                                      + train[name] + ckpt_sampler[name] + ckpt_train[name]

@@ -24,6 +24,14 @@ so a batch is all posed or all unposed; an epoch counts the draws of the
 first source. ``worker_type: process`` forks ``num_workers`` decode
 processes per epoch (``data/loader.py``).
 
+On a CUDA device each step is a replay of a CUDA graph of the whole step
+(``train/program.py``, the counterpart of cvd_tpu's jitted step): one graph
+per static key (the batch's kind, keys, shapes and dtypes, the remat
+settings, the auxiliary head), so a hybrid run alternates between two; the
+first step of each key runs eagerly and is then captured.
+``run(cfg, capture=False)``, the CPU and ``--multihost`` run the same step
+eagerly.
+
 ``remat: true`` recomputes activations in the backward (off by default:
 PERF.md), per ``remat_unit`` (``block`` or ``layer``) keeping what
 ``remat_policy`` saves (``""``, ``dots``, ``dots_no_batch``, ``dots_small``;
@@ -251,7 +259,7 @@ def _latents_cache(cfg: dict, dataset, modules, out_dir: str, logger):
 
 
 def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=None,
-        multihost: bool = False) -> dict:
+        multihost: bool = False, capture: bool = True) -> dict:
     """The training loop. ``sources``: map-style datasets with the sample
     keys of ``RealEstate10KPoseFolded`` (posed) or ``WebVidFolded``
     (unposed), each bare (one posed source) or as (kind, dataset, weight)
@@ -261,26 +269,32 @@ def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=No
     ``multihost``: data-parallel over the ``torchrun`` processes
     (``parallel.mesh.init_distributed``; a process group this call makes is
     destroyed at the end, one the process already holds is reused).
+    ``capture``: on a CUDA device each step is a replay of one CUDA graph per
+    static key (``train/program.py``); False runs the same step eagerly (as
+    the CPU and ``multihost`` do).
     Returns {"state", "modules", "losses", "epi_losses", "kinds" (each step's
     source kind), "step_seconds", "global_step", "epoch", "out_dir",
     "latents_cache" (``_latents_cache``'s report, or None), "rank",
-    "world_size"}."""
+    "world_size", "program" (``TrainProgram.stats``: ``captured``, ``steps``,
+    ``captures``, ``capture_s``, ``launches``)}."""
     from cvd_tpu_torch.cli.build import resolve_device
 
     _refuse_unported(cfg)
     if not multihost:
-        return _run(cfg, sources, tokenizer, widths, resolve_device(cfg.get("device")))
+        return _run(cfg, sources, tokenizer, widths, resolve_device(cfg.get("device")),
+                    capture=capture)
     with process_group(cfg.get("device"), "--multihost",
                        "cvd_tpu_torch.cli.train") as (rank, world, device):
-        return _run(cfg, sources, tokenizer, widths, device, group=(rank, world))
+        return _run(cfg, sources, tokenizer, widths, device, group=(rank, world),
+                    capture=capture)
 
 
-def _run(cfg, sources, tokenizer, widths, device, group=None) -> dict:
+def _run(cfg, sources, tokenizer, widths, device, group=None, capture=True) -> dict:
     """``run``'s loop; ``group``: (rank, world size) of the process group."""
     from cvd_tpu_torch.data.loader import DataLoader
     from cvd_tpu_torch.train.checkpoint import restore, save, save_reference_ckpt
+    from cvd_tpu_torch.train.program import TrainProgram
     from cvd_tpu_torch.train.state import create_train_state
-    from cvd_tpu_torch.train.train_step import train_step
     from cvd_tpu_torch.utils.logging import MetricsLogger, format_time, setup_logger
 
     rank, world = group or (0, 1)
@@ -351,6 +365,8 @@ def _run(cfg, sources, tokenizer, widths, device, group=None) -> dict:
     # the step's draws differ per process; the null-text and source draws
     # are the same on every process, so that all take one kind per step
     generator = torch.Generator(device=device).manual_seed(seed + rank)
+    program = TrainProgram(state, modules, capture=capture, F_mat_size=sample_size, remat=remat,
+                           epi_loss_weight=cfg.get("epi_loss_weight", 0.002))
     pyrng = random.Random(seed)
     sched_rng = random.Random(seed + 1)
 
@@ -419,8 +435,7 @@ def _run(cfg, sources, tokenizer, widths, device, group=None) -> dict:
                 sanity_dump(batch)
             device_batch = fold_batch(batch, texts)
             t0 = time.perf_counter()
-            m = train_step(state, device_batch, modules, generator, F_mat_size=sample_size,
-                           remat=remat, epi_loss_weight=cfg.get("epi_loss_weight", 0.002))
+            m = program.step(device_batch, generator)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_seconds.append(time.perf_counter() - t0)
@@ -451,7 +466,7 @@ def _run(cfg, sources, tokenizer, widths, device, group=None) -> dict:
     return {"state": state, "modules": modules, "losses": losses, "epi_losses": epi_losses,
             "kinds": kinds, "step_seconds": step_seconds, "global_step": global_step,
             "epoch": epoch, "out_dir": out_dir, "latents_cache": cache, "rank": rank,
-            "world_size": world}
+            "world_size": world, "program": program.stats}
 
 
 def build_parser() -> argparse.ArgumentParser:

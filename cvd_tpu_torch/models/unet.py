@@ -172,7 +172,10 @@ def _remat_unit(policy: str) -> Callable:
                                              _save_policy(policy))
 
     def unit(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        # nothing inside a unit draws (the train step draws its slopes
+        # before the UNet), so no RNG state is stashed for the recompute:
+        # that stash reads the CUDA generator, which a graph capture refuses
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return unit
 

@@ -25,30 +25,20 @@ Triton K4, creates the cuBLAS / cuDNN handles and fills K5's fold cache),
 and the generator is put back where it was, so that a captured request
 draws exactly the numbers the eager one draws.
 
-Random draws. A graph replays its kernels with the random offsets of the
-generators registered with it, read at every replay, so each replay draws
-new numbers. A graph records, at its capture, how far a replay moves each
-registered generator; a generator registered after the capture would not
-be moved. So the program owns ONE CUDA generator, registered with every
-graph it captures: a request sets it to the caller's generator's state
-before its first replay, and the caller's generator takes the program's
-state after the last one, which is where an eager request leaves it.
-
-Launch counters. The op wrappers count their launches in Python, and a
-replay runs no Python: each graph keeps the counts its capture added (and
-takes them back: nothing launched then) and adds them again at every
-replay. The warm-up's launches are real and count.
+The owned generator, the warm-up, the capture with its launch
+bookkeeping, the shared pool and the stamp are ``utils/graphs.py``'s, which
+the training step's program (``train/program.py``) shares.
 """
 from __future__ import annotations
 
-import contextlib
 import logging
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from cvd_tpu_torch.ops import counted_wrappers
+from cvd_tpu_torch.utils import graphs
+from cvd_tpu_torch.utils.graphs import NO_TIMER, GraphOwner, add_launches, launch_counts
 
 LOG = logging.getLogger(__name__)
 
@@ -56,9 +46,6 @@ LOG = logging.getLogger(__name__)
 Chunk = Tuple[int, int, Tuple[int, ...]]
 # body(bufs, timesteps [k], start, repeats, generator, timer) -> UNet calls made
 Body = Callable[..., int]
-
-NO_TIMER = contextlib.nullcontext()
-
 
 def chunks(repeats: Sequence[int], step_chunk: Optional[int] = None) -> List[Chunk]:
     """The timesteps in chunks of ``step_chunk`` (1 without), each with the
@@ -72,16 +59,10 @@ def chunks(repeats: Sequence[int], step_chunk: Optional[int] = None) -> List[Chu
     return [(s, min(s + k, n), tuple(repeats[s:s + k])) for s in range(0, n, k)]
 
 
-def _counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in counted_wrappers().items()}
-
-
 def _stamp(modules: Sequence[torch.nn.Module]) -> tuple:
-    """Where every weight lives and how often it was written in place: a
-    graph reads the storage it was captured with, and what it derived from
-    the weights at its capture (K5's folded weights)."""
-    return tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
-                 for m in modules for t in (*m.parameters(), *m.buffers()))
+    """Where every weight of ``modules`` lives and how often it was written
+    in place (``utils.graphs.stamp``)."""
+    return graphs.stamp(t for m in modules for t in (*m.parameters(), *m.buffers()))
 
 
 class _Graph:
@@ -92,7 +73,7 @@ class _Graph:
         self.launches = launches       # kernel launches a replay makes, by wrapper
 
 
-class SamplingProgram:
+class SamplingProgram(GraphOwner):
     """Runs a sampler's timestep body over a request's chunks: replayed
     CUDA graphs on a CUDA device, eagerly on the CPU or with ``capture=False``.
     ``watch``: the modules the body runs; a write into their weights drops
@@ -106,16 +87,11 @@ class SamplingProgram:
     (counted by the wrappers too)."""
 
     def __init__(self, device, capture: bool = True, watch: Sequence[torch.nn.Module] = ()):
-        self.device = torch.device(device)
-        self.capture = bool(capture) and self.device.type == "cuda"
+        super().__init__(device, capture, "sampling runs", LOG)
         self.watch = tuple(watch)
         self.graphs: Dict[tuple, _Graph] = {}
         self.buffers: Dict[tuple, Dict[str, torch.Tensor]] = {}
-        self.generator: Optional[torch.Generator] = None
         self.stats: dict = {}
-        self._pool = None
-        self._stamp = None
-        self._told = set()
 
     def eager_for(self, pab_config, mesh) -> bool:
         """Whether a request runs eagerly on a capturing program: PAB and a
@@ -124,18 +100,9 @@ class SamplingProgram:
         reasons = [why for why, on in (("PAB (pab_config)", pab_config is not None),
                                        ("a mesh (--sharded)", mesh is not None)) if on]
         for why in reasons:
-            if self.capture and why not in self._told:
-                self._told.add(why)
-                LOG.info("sampling runs eagerly, not as CUDA graphs: %s", why)
+            if self.capture:
+                self.say_eager(why)
         return bool(reasons)
-
-    def check_generator(self, generator: Optional[torch.Generator]) -> None:
-        """A captured body draws on the card: a host generator's draws
-        cannot be replayed."""
-        if self.capture and generator is not None and generator.device.type != "cuda":
-            raise ValueError(f"a sampler that captures CUDA graphs draws from a CUDA generator, "
-                             f"got one on {generator.device}: pass a CUDA generator, or "
-                             "construct the sampler with capture=False")
 
     def run(self, key: tuple, inputs: Dict[str, torch.Tensor], timesteps: torch.Tensor,
             plan: Sequence[Chunk], body: Body, generator: Optional[torch.Generator],
@@ -146,29 +113,22 @@ class SamplingProgram:
         inputs' shapes and types. Returns the final latents (a tensor of
         the caller's own)."""
         self.stats = dict(captured=self.capture and not eager, unet_calls=0, warmup_calls=0,
-                          captures=0, capture_s=0.0, launches={n: 0 for n in _counts()},
-                          warmup_launches={n: 0 for n in _counts()})
+                          captures=0, capture_s=0.0, launches={n: 0 for n in launch_counts()},
+                          warmup_launches={n: 0 for n in launch_counts()})
         if not self.stats["captured"]:
             for start, stop, reps in plan:
-                before = _counts()
+                before = launch_counts()
                 self.stats["unet_calls"] += body(inputs, timesteps[start:stop], start, reps,
                                                  generator, timer)
-                for name, n in _counts().items():
+                for name, n in launch_counts().items():
                     self.stats["launches"][name] += n - before[name]
             return inputs["latents"]
         self.check_generator(generator)
-        stamp = _stamp(self.watch)
-        if stamp != self._stamp:
-            self.graphs.clear()
-            self._pool = None
-            self._stamp = stamp
+        self.restamp(_stamp(self.watch))
         key = key + tuple((name, tuple(t.shape), t.stride(), t.dtype)
                           for name, t in sorted(inputs.items()))
         bufs = self._static(key, inputs)
-        gen = None
-        if generator is not None:
-            gen = self._own_generator()
-            gen.set_state(generator.get_state())
+        gen = self.take_generator(generator)
         for start, stop, reps in plan:
             graph = self.graphs.get(key + (reps,))
             if graph is None:
@@ -177,19 +137,10 @@ class SamplingProgram:
             graph.timesteps.copy_(timesteps[start:stop])
             with timer.span(graph.calls):
                 graph.graph.replay()
-            wrappers = counted_wrappers()
-            for name, n in graph.launches.items():
-                wrappers[name].launches += n
-                self.stats["launches"][name] += n
+            add_launches(graph.launches, self.stats["launches"])
             self.stats["unet_calls"] += graph.calls
-        if gen is not None:
-            generator.set_state(gen.get_state())
+        self.give_back(gen, generator)
         return bufs["latents"].clone()
-
-    def _own_generator(self) -> torch.Generator:
-        if self.generator is None:
-            self.generator = torch.Generator(device=self.device)
-        return self.generator
 
     def _static(self, key: tuple, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The static buffers of ``key``, holding this request's inputs."""
@@ -204,36 +155,20 @@ class SamplingProgram:
     def _capture(self, key, bufs, timesteps, start, reps, body, gen) -> _Graph:
         t0 = time.perf_counter()
         ts = timesteps.clone()
-        # the warm-up: eager, on a side stream, on a copy of the latents; the
-        # generator put back where it was
+        # the warm-up: on a copy of the latents; the generator put back
         scratch = dict(bufs, latents=bufs["latents"].clone())
         state = None if gen is None else gen.get_state()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        before = _counts()
-        with torch.cuda.stream(side):
-            self.stats["warmup_calls"] += body(scratch, ts, start, reps, gen, NO_TIMER)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        for name, n in _counts().items():
-            self.stats["warmup_launches"][name] += n - before[name]
+        calls, launches = self.warmup(lambda: body(scratch, ts, start, reps, gen, NO_TIMER))
+        self.stats["warmup_calls"] += calls
+        for name, n in launches.items():
+            self.stats["warmup_launches"][name] += n
         if gen is not None:
             gen.set_state(state)
         del scratch
 
-        graph = torch.cuda.CUDAGraph()
-        if gen is not None:
-            graph.register_generator_state(gen)
-        before = _counts()
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            calls = body(bufs, ts, start, reps, gen, NO_TIMER)
-        after = _counts()
-        wrappers = counted_wrappers()
-        for name, n in before.items():     # nothing launched while capturing
-            wrappers[name].launches = n
-        if self._pool is None:
-            self._pool = graph.pool()
-        out = self.graphs[key] = _Graph(graph, ts, calls,
-                                        {n: after[n] - before[n] for n in before})
+        graph, calls, launches = self.capture_graph(
+            lambda: body(bufs, ts, start, reps, gen, NO_TIMER), gen)
+        out = self.graphs[key] = _Graph(graph, ts, calls, launches)
         self.stats["captures"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0
         return out

@@ -26,6 +26,12 @@ class DDIMState:
     num_train_timesteps: int
     num_inference_steps: int
 
+    def to(self, device) -> "DDIMState":
+        """The state with its table on ``device``: a training step built on
+        it adds noise without a copy from the host (which a CUDA graph's
+        capture refuses)."""
+        return dataclasses.replace(self, alphas_cumprod=self.alphas_cumprod.to(device))
+
 
 @dataclasses.dataclass(frozen=True)
 class DDIMScheduler:

@@ -8,6 +8,16 @@ the trainable set only, and a diffusers-style LR schedule (constant or
 cosine, with warmup). Only the trainable parameters require grad, which is
 what the JAX step's ``stop_gradient`` mask does (train_step.py:127-132):
 no frozen weight gradient is ever computed.
+
+The state is one a CUDA graph can replay a step of (``train/program.py``):
+AdamW's learning rate is a 0-dim tensor on the weights' device, which
+``LambdaLR`` refills between steps; AdamW's moments and step counts and
+every trainable tensor's ``.grad`` exist from the start and are written in
+place, never freed or replaced (a graph writes the memory it was captured
+with). On a CUDA device AdamW is ``capturable``, so the eager and the
+captured step run the same optimizer kernels; on the CPU (no capture there)
+it takes the tensor learning rate one tensor at a time (torch refuses it
+with ``capturable=False, foreach=True``).
 """
 from __future__ import annotations
 
@@ -64,15 +74,61 @@ class TrainState:
         params = dict(self.model.named_parameters())
         return [params[n] for n in self.trainable]
 
-    def apply_gradients(self) -> float:
-        """Clip by global norm, take an AdamW step, advance the schedule;
-        returns the pre-clip gradient norm."""
+    def zero_grad(self) -> None:
+        """The gradients zeroed in place (made where a caller freed them)."""
+        grads = []
+        for p in self.trainable_params():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                grads.append(p.grad)
+        torch._foreach_zero_(grads)
+
+    def update(self) -> torch.Tensor:
+        """Clip by global norm and take an AdamW step, on the device (nothing
+        read back) -> the pre-clip gradient norm, a 0-dim tensor."""
         norm = torch.nn.utils.clip_grad_norm_(self.trainable_params(), self.max_grad_norm)
         self.optimizer.step()
-        self.lr_scheduler.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.step += 1
         return norm
+
+    def advance(self) -> None:
+        """After an update: the schedule's next learning rate (into the lr
+        tensor), and the step count."""
+        self.lr_scheduler.step()
+        self.step += 1
+
+    def apply_gradients(self) -> torch.Tensor:
+        """Clip by global norm, take an AdamW step, advance the schedule;
+        returns the pre-clip gradient norm."""
+        norm = self.update()
+        self.advance()
+        return norm
+
+    def optimizer_tensors(self) -> List[torch.Tensor]:
+        """AdamW's moments and step counts, and the learning-rate tensors:
+        what a step writes besides the weights and their gradients."""
+        out = [t for s in self.optimizer.state.values() for t in s.values()
+               if isinstance(t, torch.Tensor)]
+        for group in self.optimizer.param_groups:
+            out += [v for k, v in group.items() if k != "params" and isinstance(v, torch.Tensor)]
+        return out
+
+
+def _prepare(optimizer: torch.optim.Optimizer) -> None:
+    """AdamW's state as its first step would make it, and a zero ``.grad``
+    for every parameter: made now, outside any capture (torch's
+    ``Adam._init_group`` makes the same tensors lazily)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if not optimizer.state[p]:
+                on_device = group["capturable"] or group["fused"]
+                optimizer.state[p].update(
+                    step=torch.zeros((), dtype=torch.float32,
+                                     device=p.device if on_device else "cpu"),
+                    exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                    exp_avg_sq=torch.zeros_like(p, memory_format=torch.preserve_format))
 
 
 def create_train_state(
@@ -90,7 +146,8 @@ def create_train_state(
     frozen_dtype: Optional[torch.dtype] = None,
 ) -> TrainState:
     """Cast in place (frozen floats to ``frozen_dtype``, trainable ones to
-    f32 masters), then set ``requires_grad`` on the trainable set only."""
+    f32 masters), then set ``requires_grad`` on the trainable set only;
+    AdamW's state and the gradients made now (module docstring)."""
     mask = trainable_mask([n for n, _ in model.named_parameters()], trainable_substrings)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -102,10 +159,16 @@ def create_train_state(
             p.requires_grad_(mask[name])
     trainable = [n for n, keep in mask.items() if keep]
     params = dict(model.named_parameters())
-    optimizer = torch.optim.AdamW(
-        [params[n] for n in trainable], lr=learning_rate, betas=(adam_beta1, adam_beta2),
-        eps=adam_epsilon, weight_decay=adam_weight_decay)
+    weights = [params[n] for n in trainable]
+    device = weights[0].device if weights else torch.device("cpu")
+    cuda = device.type == "cuda"
+    lr = torch.tensor(learning_rate, dtype=torch.float32, device=device)
+    # torch refuses a tensor lr with capturable=False and foreach=True
+    optimizer = torch.optim.AdamW(weights, lr=lr, betas=(adam_beta1, adam_beta2),
+                                  eps=adam_epsilon, weight_decay=adam_weight_decay,
+                                  capturable=cuda, foreach=None if cuda else False)
     schedule = lr_schedule(scheduler, learning_rate, warmup_steps, total_steps)
     lr_scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda c: schedule(c) / learning_rate)
+    _prepare(optimizer)
     return TrainState(model, optimizer, lr_scheduler, trainable, max_grad_norm)
