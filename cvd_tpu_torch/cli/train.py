@@ -258,6 +258,19 @@ def _latents_cache(cfg: dict, dataset, modules, out_dir: str, logger):
     return CachedLatentsDataset(cdir), report
 
 
+def loader_stats(loaders) -> str:
+    """The log line's reading of the loaders' ``stats``, over the run: the
+    mean batches ready when a step asked, the seconds steps waited, the
+    workers' busy seconds, the draws."""
+    from cvd_tpu_torch.data.loader import PREFETCH
+
+    total = {k: sum(loader.stats[k] for _, loader, _ in loaders)
+             for k in ("draws", "ready", "wait_s", "busy_s")}
+    return (f"ready {total['ready'] / max(total['draws'], 1):.1f}/{PREFETCH}, waited "
+            f"{total['wait_s']:.2f}s, workers busy {total['busy_s']:.2f}s, "
+            f"{total['draws']} draws")
+
+
 def run(cfg: dict, sources: Optional[Sequence] = None, tokenizer=None, widths=None,
         multihost: bool = False, capture: bool = True) -> dict:
     """The training loop. ``sources``: map-style datasets with the sample
@@ -446,7 +459,7 @@ def _run(cfg, sources, tokenizer, widths, device, group=None, capture=True) -> d
             if global_step % log_every == 0:
                 logger.info(f"iter {global_step}/{max_steps} [{kind}] loss {m['loss']:.4f} "
                             f"epi {m['epi_loss']:.4f} data {t0 - t_data:.2f}s "
-                            f"iter {step_seconds[-1]:.2f}s "
+                            f"({loader_stats(loaders)}) iter {step_seconds[-1]:.2f}s "
                             f"ETA {format_time(step_seconds[-1] * (max_steps - global_step))}")
                 metrics_log.log(global_step, loss=m["loss"], epi_loss=m["epi_loss"],
                                 grad_norm=m["grad_norm"])

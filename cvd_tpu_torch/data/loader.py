@@ -2,9 +2,10 @@
 permutation, sharded by process (port of ``cvd_tpu/data/loader.py``).
 
 A worker pool maps ``__getitem__`` while the card steps; two batches are
-kept ready. Each process of a multi-process run takes a strided
-slice of the epoch's permutation (``shard_indices``, the DistributedSampler
-of train_epi_control.py:289-306).
+kept ready (``DataLoader.stats`` counts the draws, the batches ready at
+each, the consumer's wait and the workers' busy time). Each process of a
+multi-process run takes a strided slice of the epoch's permutation
+(``shard_indices``, the DistributedSampler of train_epi_control.py:289-306).
 
 Two worker types:
   * ``thread``: a thread pool. Frame decode holds the interpreter lock for
@@ -18,9 +19,11 @@ Two worker types:
 """
 from __future__ import annotations
 
+import functools
 import queue
 import random
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence
 
@@ -64,8 +67,15 @@ def _process_worker_init(seed: int, counter) -> None:
     np.random.seed(wseed % 2 ** 32)
 
 
-def _process_worker_get(i: int):
-    return _FORK_DATASET[int(i)]
+def _timed(get, i) -> tuple:
+    """(get(i), the seconds it took)."""
+    t0 = time.perf_counter()
+    sample = get(i)
+    return sample, time.perf_counter() - t0
+
+
+def _process_worker_get(i: int) -> tuple:
+    return _timed(_FORK_DATASET.__getitem__, int(i))
 
 
 def shard_indices(n: int, epoch: int, seed: int = 0, process_index: int = 0,
@@ -92,7 +102,13 @@ def _stack_batch(samples: Sequence[dict]) -> dict:
 
 
 class DataLoader:
-    """Batched iterator with background prefetch over a map-style dataset."""
+    """Batched iterator with background prefetch over a map-style dataset.
+
+    ``stats``, over the loader's life: ``draws`` (batches handed to the
+    consumer), ``ready`` (the batches ready when it asked for each, summed:
+    over ``draws`` the mean queue depth, 0 to ``PREFETCH``), ``wait_s``
+    (the seconds it waited for them) and ``busy_s`` (the workers' seconds in
+    ``__getitem__``, summed over the workers)."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, num_workers: int = 8,
                  worker_type: str = "thread", process_index: int = 0, process_count: int = 1):
@@ -106,6 +122,8 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.epoch = 0
+        self.stats = dict(draws=0, ready=0, wait_s=0.0, busy_s=0.0)
+        self._busy_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self.dataset) // self.process_count // self.batch_size
@@ -126,21 +144,28 @@ class DataLoader:
             finally:
                 _FORK_DATASET = None
 
+    def _batch(self, timed) -> dict:
+        """The batch of (sample, seconds) pairs; their seconds to ``busy_s``."""
+        samples, seconds = zip(*timed)
+        with self._busy_lock:   # an abandoned epoch's producer may still be mapping
+            self.stats["busy_s"] += sum(seconds)
+        return _stack_batch(samples)
+
     def _map_batches(self, batches, q, stop, pool) -> None:
         if pool is not None:
             for b in batches:
                 if stop.is_set():
                     return
-                samples = pool.map(_process_worker_get, list(b))
-                if not _qput(q, _stack_batch(samples), stop):
+                batch = self._batch(pool.map(_process_worker_get, list(b)))
+                if not _qput(q, batch, stop):
                     return
             return
+        get = functools.partial(_timed, self.dataset.__getitem__)
         with ThreadPoolExecutor(self.num_workers) as tpool:
             for b in batches:
                 if stop.is_set():
                     return
-                samples = list(tpool.map(self.dataset.__getitem__, b))
-                if not _qput(q, _stack_batch(samples), stop):
+                if not _qput(q, self._batch(tpool.map(get, b)), stop):
                     return
 
     def __iter__(self) -> Iterator[dict]:
@@ -165,11 +190,17 @@ class DataLoader:
         thread.start()
         try:
             while True:
+                ready = q.qsize()
+                t0 = time.perf_counter()
                 batch = q.get()
+                waited = time.perf_counter() - t0
                 if batch is None:
                     return
                 if isinstance(batch, BaseException):
                     raise batch
+                self.stats["draws"] += 1
+                self.stats["ready"] += ready
+                self.stats["wait_s"] += waited
                 yield batch
         finally:
             stop.set()

@@ -5,7 +5,8 @@ Re-derivation of ``animatediff/data/dataset_validation.py:146-299``: load
 both trajectories, reverse the second, re-express each relative to its own
 first pose, splice into a 2N-1 pose list sharing the start frame, then fold
 into two N-frame trajectories with per-frame fundamental matrices. Pure
-numpy + the geometry core (no torch).
+numpy + the geometry core; ``__getitem__`` is the span
+``data.pose_conditioning`` (``utils/tracing.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from cvd_tpu_torch.geometry.cameras import (
 )
 from cvd_tpu_torch.geometry.folding import fold_indices, folded_pair_F_mats
 from cvd_tpu_torch.geometry.plucker import ray_condition
+from cvd_tpu_torch.utils import tracing
 
 # RealEstate10K source video resolution assumed by the reference (:202)
 SOURCE_H, SOURCE_W = 1280, 720
@@ -81,30 +83,31 @@ class ValRealEstate10KPoseFolded:
         return len(self.validation_prompts)
 
     def __getitem__(self, idx: int) -> dict:
-        n = self.sample_n_frames
-        c2w, K, intr = load_pair_cameras(
-            self.pose_file_0, self.pose_file_1, self.sample_size, n_frames=n,
-            zero_first_frame_scale=self.zero_first_frame_scale,
-        )
+        with tracing.span("data.pose_conditioning"):
+            n = self.sample_n_frames
+            c2w, K, intr = load_pair_cameras(
+                self.pose_file_0, self.pose_file_1, self.sample_size, n_frames=n,
+                zero_first_frame_scale=self.zero_first_frame_scale,
+            )
 
-        plucker = np.asarray(
-            ray_condition(
-                intr[None].astype(np.float32),
-                c2w[None].astype(np.float32),
-                self.sample_size,
-                self.sample_size,
-            )[0]
-        )  # [2n-1, H, W, 6]
+            plucker = np.asarray(
+                ray_condition(
+                    intr[None].astype(np.float32),
+                    c2w[None].astype(np.float32),
+                    self.sample_size,
+                    self.sample_size,
+                )[0]
+            )  # [2n-1, H, W, 6]
 
-        F_mats = folded_pair_F_mats(c2w, K, n)  # [2n, 3, 3]
-        fold = fold_indices(n)
-        sample = {
-            "validation_prompt": self.validation_prompts[idx],
-            "plucker_embedding": plucker[fold],  # [2n, H, W, 6]
-            "F_mats": F_mats,
-            "ret_c2w": c2w[fold].astype(np.float32),
-            "ret_K_mats": K[fold].astype(np.float32),
-        }
-        if self.validation_negative_prompts is not None:
-            sample["validation_negative_prompt"] = self.validation_negative_prompts[idx]
-        return sample
+            F_mats = folded_pair_F_mats(c2w, K, n)  # [2n, 3, 3]
+            fold = fold_indices(n)
+            sample = {
+                "validation_prompt": self.validation_prompts[idx],
+                "plucker_embedding": plucker[fold],  # [2n, H, W, 6]
+                "F_mats": F_mats,
+                "ret_c2w": c2w[fold].astype(np.float32),
+                "ret_K_mats": K[fold].astype(np.float32),
+            }
+            if self.validation_negative_prompts is not None:
+                sample["validation_negative_prompt"] = self.validation_negative_prompts[idx]
+            return sample

@@ -43,14 +43,14 @@ import torch
 
 from cvd_tpu_torch.geometry.epipolar import fundamental_between_views_torch
 from cvd_tpu_torch.models.epi import EpiConditioning
-from cvd_tpu_torch.pipelines.common import (
-    PipelineModules, SpanTimer, decode_latents, encode_prompt,
-)
+from cvd_tpu_torch.pipelines.common import PipelineModules, decode_latents, encode_prompt
 from cvd_tpu_torch.parallel.mesh import constrain, gather
 from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
 from cvd_tpu_torch.pipelines.pab import PABCache
 from cvd_tpu_torch.pipelines.program import SamplingProgram, chunks
 from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
+from cvd_tpu_torch.utils import tracing
+from cvd_tpu_torch.utils.tracing import SpanTimer
 
 
 def random_pairing(generator: Optional[torch.Generator], num_views: int) -> torch.Tensor:
@@ -162,8 +162,9 @@ class AdvancedPipeline:
         plan = chunks([1 if i == last else multistep for i in range(last + 1)], step_chunk)
         eager = self.program.eager_for(pab_config, mesh)
 
-        inputs = self._prepare(prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats, H_mats,
-                               state, generator, latents, groups, n_view_path)
+        with tracing.device_span("sample.prepare", self.program.device):
+            inputs = self._prepare(prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats,
+                                   H_mats, state, generator, latents, groups, n_view_path)
         settings = _Settings(m.scheduler, num_inference_steps, float(guidance_scale), V, A,
                              groups, "h" if H_mats is not None else "n" if n_view_path else "f")
         pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
@@ -172,13 +173,14 @@ class AdvancedPipeline:
             return self._timestep_body(bufs, ts, start, repeats, gen, timer, settings, pab)
 
         timer = SpanTimer(self.program.device)
-        timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
-        latents = self.program.run(("AdvancedPipeline", settings), inputs, timesteps, plan,
-                                   body, generator, timer, eager=eager)
+        with tracing.span("sample.denoise"):
+            timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
+            latents = self.program.run(("AdvancedPipeline", settings), inputs, timesteps, plan,
+                                       body, generator, timer, eager=eager)
         self.unet_step_ms = timer.elapsed_ms()
-        if not decode:
-            return latents
-        return decode_latents(m, latents, mesh)
+        out = decode_latents(m, latents, mesh) if decode else latents
+        tracing.next_unit()
+        return out
 
     def _prepare(self, prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats, H_mats, state,
                  generator, latents, groups, n_view_path) -> dict:
@@ -189,10 +191,13 @@ class AdvancedPipeline:
         device = m.unet.conv_in.weight.device
         dtype = m.unet.conv_in.weight.dtype
         V, Fr, H, W, _ = plucker.shape
-        uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
+        with tracing.span("sample.text_encoder"):
+            uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
         inputs = {"text": constrain(torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1)
                                     .to(dtype), mesh, "rows")}
-        for i, p in enumerate(m.pose_encoder(plucker.to(device=device, dtype=dtype))):
+        with tracing.span("sample.pose_encoder"):
+            feats = m.pose_encoder(plucker.to(device=device, dtype=dtype))
+        for i, p in enumerate(feats):
             inputs[f"pose{i}"] = constrain(interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1),
                                            mesh, "rows", "frames")
         # the (view, frame) of every interleaved CFG row in the [V * F] camera arrays

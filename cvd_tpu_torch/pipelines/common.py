@@ -4,8 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -16,6 +15,7 @@ from cvd_tpu_torch.models.pose_encoder import CameraPoseEncoder
 from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
 from cvd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from cvd_tpu_torch.schedulers import DDIMScheduler
+from cvd_tpu_torch.utils import tracing
 
 VAE_SCALE = 0.18215
 
@@ -146,49 +146,6 @@ class PipelineModules:
         return cls(*out, scheduler or DDIMScheduler())
 
 
-class SpanTimer:
-    """Times each ``with timer:`` span on ``device``: CUDA events on the card
-    (no sync until ``elapsed_ms``), the host clock on the CPU. A span of
-    several UNet calls, ``with timer.span(n):`` (a CUDA graph's replay of
-    n calls), counts as n entries of its time / n: ``elapsed_ms`` holds
-    one entry per UNet call either way."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.marks = []
-        self.calls = []
-        self._next = 1
-
-    def _mark(self):
-        if self.device.type != "cuda":
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def span(self, calls: int) -> "SpanTimer":
-        self._next = calls
-        return self
-
-    def __enter__(self):
-        self.calls.append(self._next)
-        self._next = 1
-        self.marks.append(self._mark())
-
-    def __exit__(self, *exc):
-        self.marks.append(self._mark())
-
-    def elapsed_ms(self) -> List[float]:
-        """The wall time of every UNet call so far, in ms."""
-        pairs = zip(self.marks[::2], self.marks[1::2])
-        if self.device.type != "cuda":
-            spans = [1e3 * (b - a) for a, b in pairs]
-        else:
-            torch.cuda.synchronize(self.device)
-            spans = [a.elapsed_time(b) for a, b in pairs]
-        return [ms / n for ms, n in zip(spans, self.calls) for _ in range(n)]
-
-
 def encode_prompt(modules: PipelineModules, prompt_ids: torch.Tensor,
                   negative_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (uncond, cond) embeddings, each [B, 77, hidden]."""
@@ -204,9 +161,10 @@ def decode_latents(modules: PipelineModules, latents: torch.Tensor,
         return None
     B, Fr, h, w, c = latents.shape
     dtype = modules.vae.post_quant_conv.weight.dtype
-    z = (latents.reshape(B * Fr, h, w, c) / VAE_SCALE).to(dtype)
-    imgs = modules.vae.decode(z).float()
-    imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
+    with tracing.device_span("sample.decode", latents.device):
+        z = (latents.reshape(B * Fr, h, w, c) / VAE_SCALE).to(dtype)
+        imgs = modules.vae.decode(z).float()
+        imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
     return imgs.reshape(B, Fr, *imgs.shape[1:])
 
 

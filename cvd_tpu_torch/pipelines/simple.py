@@ -30,14 +30,14 @@ from typing import List, Optional
 import torch
 
 from cvd_tpu_torch.models.epi import EpiConditioning
-from cvd_tpu_torch.pipelines.common import (
-    PipelineModules, SpanTimer, decode_latents, encode_prompt,
-)
+from cvd_tpu_torch.pipelines.common import PipelineModules, decode_latents, encode_prompt
 from cvd_tpu_torch.parallel.mesh import constrain, gather
 from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
 from cvd_tpu_torch.pipelines.pab import PABCache
 from cvd_tpu_torch.pipelines.program import SamplingProgram, chunks
 from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
+from cvd_tpu_torch.utils import tracing
+from cvd_tpu_torch.utils.tracing import SpanTimer
 
 
 def _cfg4(x: torch.Tensor) -> torch.Tensor:
@@ -114,8 +114,9 @@ class SimplePipeline:
             check_divides(mesh, 4, Fw, "SimplePipeline")
         eager = self.program.eager_for(pab_config, mesh)
         state = m.scheduler.set_timesteps(num_inference_steps)
-        inputs = self._prepare(prompt_ids, negative_ids, plucker, F_mats, state, generator,
-                               latents, Fw, stride, windows)
+        with tracing.device_span("sample.prepare", self.program.device):
+            inputs = self._prepare(prompt_ids, negative_ids, plucker, F_mats, state, generator,
+                                   latents, Fw, stride, windows)
         settings = _Settings(m.scheduler, num_inference_steps, float(guidance_scale),
                              windows, Fw, stride)
         pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
@@ -124,14 +125,15 @@ class SimplePipeline:
             return self._timestep_body(bufs, ts, start, repeats, gen, timer, settings, pab)
 
         timer = SpanTimer(self.program.device)
-        timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
-        latents = self.program.run(("SimplePipeline", settings), inputs, timesteps,
-                                   chunks([1] * len(state.timesteps)), body, generator, timer,
-                                   eager=eager)
+        with tracing.span("sample.denoise"):
+            timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
+            latents = self.program.run(("SimplePipeline", settings), inputs, timesteps,
+                                       chunks([1] * len(state.timesteps)), body, generator,
+                                       timer, eager=eager)
         self.unet_step_ms = timer.elapsed_ms()
-        if not decode:
-            return latents
-        return decode_latents(m, latents, mesh)
+        out = decode_latents(m, latents, mesh) if decode else latents
+        tracing.next_unit()
+        return out
 
     def _prepare(self, prompt_ids, negative_ids, plucker, F_mats, state, generator, latents,
                  Fw, stride, windows) -> dict:
@@ -143,12 +145,15 @@ class SimplePipeline:
         device = m.unet.conv_in.weight.device
         dtype = m.unet.conv_in.weight.dtype
         _, Fr, H, W, _ = plucker.shape
-        uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
+        with tracing.span("sample.text_encoder"):
+            uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
         inputs = {"text": torch.cat([uncond, cond, uncond, cond], dim=0).to(dtype)}
         # the pose encoder in its own dtype: a training bundle's (validation)
         # differs from the UNet's bf16 frozen weights
         pose_dtype = m.pose_encoder.encoder_conv_in.weight.dtype
-        for i, p in enumerate(m.pose_encoder(plucker.to(device=device, dtype=pose_dtype))):
+        with tracing.span("sample.pose_encoder"):
+            feats = m.pose_encoder(plucker.to(device=device, dtype=pose_dtype))
+        for i, p in enumerate(feats):
             inputs[f"pose{i}"] = _cfg4(p.to(dtype))
         inputs["F4"] = _cfg4(F_mats.to(device=device, dtype=torch.float32))   # [4, F, 3, 3]
         # the overlap-average weights: 1 / the number of windows over each frame

@@ -37,6 +37,9 @@ per static key and replays it:
   capturing (a hit would freeze that fold into the graph). The eager first
   step makes whatever gradient or AdamW state is missing, so none is made
   inside a graph (in its pool, zeroed by every replay).
+* **Tracing** (``utils/tracing.py``, where on): host spans ``train.stamp``,
+  ``train.fill`` and ``train.replay``; the body's phases, timed by marks a
+  capture keeps (``StepBody.phases``), read after each step's results.
 * **The stamp**: where the weights, the gradients, AdamW's state and the
   learning rate live, and the frozen weights' version counters; a change
   (a tensor replaced, a ``load_state_dict`` into a frozen module) drops the
@@ -58,7 +61,7 @@ import torch
 from cvd_tpu_torch.pipelines.common import PipelineModules
 from cvd_tpu_torch.train.state import TrainState
 from cvd_tpu_torch.train.train_step import StepBody
-from cvd_tpu_torch.utils import graphs
+from cvd_tpu_torch.utils import graphs, tracing
 from cvd_tpu_torch.utils.graphs import GraphOwner, add_launches, bump_versions, launch_counts
 
 LOG = logging.getLogger(__name__)
@@ -117,7 +120,9 @@ class TrainProgram(GraphOwner):
              generator: Optional[torch.Generator] = None) -> Dict[str, float]:
         """One optimization step on ``batch`` (``train_step``'s keys, host or
         device tensors; pinned draws as ``noise`` / ``timesteps`` /
-        ``slope``) -> {"loss", "epi_loss", "grad_norm"}."""
+        ``slope``) -> {"loss", "epi_loss", "grad_norm"}. Where tracing is on
+        (``utils/tracing.py``), the step's phases are read after its
+        results, as device spans."""
         if self.eager_reason() is None:
             self._graph_step(batch, generator)
         else:
@@ -125,7 +130,10 @@ class TrainProgram(GraphOwner):
             self.stats["captured"] = False
         self.state.advance()
         self.stats["steps"] += 1
-        return self.body.results()
+        out = self.body.results()
+        self.body.phases.record()
+        tracing.next_unit()
+        return out
 
     def _eager(self, fn) -> None:
         before = launch_counts()
@@ -140,8 +148,9 @@ class TrainProgram(GraphOwner):
             generator = torch.cuda.default_generators[self.device.index or 0]
         if any(p.grad is None for p in self.state.trainable_params()):
             self.state.zero_grad()      # gradients a caller freed, made outside any graph
-        written = self.written()
-        self.restamp(self._stamp_now(written))
+        with tracing.span("train.stamp"):
+            written = self.written()
+            self.restamp(self._stamp_now(written))
         key = self.key(batch)
         graph = self.graphs.get(key)
         gen = self.take_generator(generator)
@@ -149,9 +158,11 @@ class TrainProgram(GraphOwner):
             self._first_step(key, batch, gen)
         else:
             self._fill(graph.bufs, batch)
-            graph.graph.replay()
+            with tracing.span("train.replay"):
+                graph.graph.replay()
             add_launches(graph.launches, self.stats["launches"])
-            bump_versions(written)
+            with tracing.span("train.stamp"):
+                bump_versions(written)
         self.give_back(gen, generator)
         self.stats["captured"] = True
 
@@ -169,10 +180,11 @@ class TrainProgram(GraphOwner):
         return [*params, *(p.grad for p in params), *self.state.optimizer_tensors()]
 
     def _fill(self, bufs, batch) -> None:
-        for name, t in batch.items():
-            if t.device.type == "cpu" and self.device.type == "cuda":
-                t = t.pin_memory()
-            bufs[name].copy_(t, non_blocking=True)
+        with tracing.span("train.fill"):
+            for name, t in batch.items():
+                if t.device.type == "cpu" and self.device.type == "cuda":
+                    t = t.pin_memory()
+                bufs[name].copy_(t, non_blocking=True)
 
     def _first_step(self, key, batch, gen) -> None:
         """``key``'s first step, eagerly on a side stream, then its capture."""

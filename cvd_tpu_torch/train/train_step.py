@@ -33,6 +33,14 @@ from cvd_tpu_torch.pipelines.common import VAE_SCALE, PipelineModules, encode_im
 from cvd_tpu_torch.schedulers.ddim import DDIMState
 from cvd_tpu_torch.train.losses import epi_distance_loss, masked_mse_loss
 from cvd_tpu_torch.train.state import TrainState
+from cvd_tpu_torch.utils.tracing import PhaseTimer
+
+# the step's phases, as ``StepBody.phases`` names them: encode (the
+# gradients' zeroing, the VAE encode or the posterior draw, the noise and
+# timesteps, add_noise, CLIP, the pose encoder), forward (the UNet and the
+# loss), backward (loss.backward(), zero gradients for unused tensors, the
+# all-reduce under a process group), optimizer (clip, AdamW, the results)
+PHASES = ("train.encode", "train.forward", "train.backward", "train.optimizer")
 
 
 def _draw(fn, shape, generator, device, **kw):
@@ -95,7 +103,8 @@ class StepBody:
     learning-rate schedule and the step count advance outside it
     (``TrainState.advance``). Its results land in ``out`` ("loss",
     "epi_loss", "grad_norm": 0-dim f32 tensors made with the body, outside
-    any capture)."""
+    any capture). ``phases`` marks the boundaries of ``PHASES`` in every run
+    of the body, replays of a graph captured from it included."""
 
     def __init__(self, state: TrainState, modules: PipelineModules, *, F_mat_size: int = 256,
                  rand_slope_ff: bool = True, num_train_timesteps: int = 1000,
@@ -110,18 +119,22 @@ class StepBody:
         self.noise_state: DDIMState = modules.scheduler.set_timesteps(50).to(self.device)
         self.out = {k: torch.zeros((), device=self.device)
                     for k in ("loss", "epi_loss", "grad_norm")}
+        self.phases = PhaseTimer(self.device, PHASES)
 
     def __call__(self, bufs: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator]) -> None:
         state = self.state
+        self.phases.mark(0)
         state.zero_grad()
         loss, epi_loss = self.loss_and_grads(bufs, generator)
         if torch.distributed.is_available() and torch.distributed.is_initialized():
             all_reduce_gradients(state)
+        self.phases.mark(3)
         norm = state.update()
         self.out["loss"].copy_(loss)
         self.out["epi_loss"].copy_(epi_loss)
         self.out["grad_norm"].copy_(norm)
+        self.phases.mark(4)
 
     def results(self) -> Dict[str, float]:
         """The last step's {"loss", "epi_loss", "grad_norm"}, read to the host
@@ -187,6 +200,7 @@ class StepBody:
             mask = batch["warped_masks"].to(device=device, dtype=torch.float32)
         lora_scale = 1.0 if posed else 0.0
         epi_loss = torch.zeros((), device=device)
+        self.phases.mark(1)
         if unet.config.additional_channel > 0:
             pred, extras = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=self.remat,
                                 lora_scale=lora_scale, return_extras=True)
@@ -198,6 +212,7 @@ class StepBody:
             pred = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=self.remat,
                         lora_scale=lora_scale)
             loss = masked_mse_loss(pred.float(), noise, mask)
+        self.phases.mark(2)
         loss.backward()
         # a trainable tensor this step did not use (the auxiliary head on an
         # unposed batch) gets a zero gradient, as in JAX: AdamW still decays

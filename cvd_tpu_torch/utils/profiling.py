@@ -1,12 +1,12 @@
 """Profiling helpers (port of ``cvd_tpu/utils/profiling.py``): a
-``torch.profiler`` trace of a region, step timing with an ETA, device
-memory, and the per-kernel summary of a trace that ``chip_smoke.py`` prints.
+``torch.profiler`` trace of a region, and the per-kernel summary of a trace
+that ``chip_smoke.py`` prints. The program's own spans are
+``utils/tracing.py``'s.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Iterator, Optional, Sequence
 
 
@@ -31,44 +31,6 @@ def trace(log_dir: Optional[str]) -> Iterator[Optional[object]]:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-class StepTimer:
-    """Rolling step timing with an ETA (train_epi_control.py:663-671)."""
-
-    def __init__(self):
-        self.t_last = time.time()
-        self.data_s = 0.0
-        self.iter_s = 0.0
-
-    def mark_data(self):
-        now = time.time()
-        self.data_s = now - self.t_last
-        self.t_last = now
-
-    def mark_step(self):
-        now = time.time()
-        self.iter_s = now - self.t_last
-        self.t_last = now
-
-    def eta(self, steps_left: int) -> float:
-        return (self.data_s + self.iter_s) * steps_left
-
-
-def device_memory_stats() -> dict:
-    """Bytes in use and their peak, per local CUDA device
-    (``torch.cuda.memory_stats``; the reference logs
-    torch.cuda.max_memory_allocated). Empty without a card."""
-    import torch
-
-    if not torch.cuda.is_available():
-        return {}
-    out = {}
-    for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {"bytes_in_use": stats.get("allocated_bytes.all.current", -1),
-                            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", -1)}
-    return out
-
-
 def kernel_summary(prof, wall_s: float, steps: int, what: str,
                    families: Sequence[str] = ()) -> dict:
     """Device time of a profiled window of ``steps`` steps that took
@@ -76,9 +38,13 @@ def kernel_summary(prof, wall_s: float, steps: int, what: str,
     "lines": one line of totals and one per kernel (the 20 longest, then
     each of ``families`` summed over its instantiations), per step,
     "device_ms": kernel time per step, "idle_share": the share of the wall
-    time no kernel ran}."""
+    time no kernel ran}. Device time is that of kernels, memory copies and
+    memory sets: user and profiler ranges on the device's timeline
+    (``gpu_user_annotation``, e.g. ``Optimizer.step``) span kernels and are
+    not counted."""
     events = prof.key_averages()
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in events
+               if str(e.device_type).endswith("CUDA") and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     host_ms = sum(e.self_cpu_time_total for e in events) / 1e3
     idle = 1 - device_ms / (wall_s * 1e3) if wall_s > 0 else float("nan")

@@ -98,7 +98,7 @@ def test_chunks_split_the_timesteps_by_their_repeats():
 
 
 def test_span_timer_gives_a_replay_one_entry_per_call():
-    from cvd_tpu_torch.pipelines.common import SpanTimer
+    from cvd_tpu_torch.utils.tracing import SpanTimer
 
     timer = SpanTimer("cpu")
     with timer:

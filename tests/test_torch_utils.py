@@ -9,8 +9,8 @@
   and the rest is XLA's elementwise count. That is the tolerance: the
   counts must meet those identities exactly, and their totals differ by
   the padded taps less the elementwise count (+7.62% here).
-* ``utils.profiling``: ``StepTimer``, ``trace(None)``, ``trace(dir)`` on the
-  CPU and ``device_memory_stats`` without a card.
+* ``utils.profiling``: ``trace(None)``, ``trace(dir)`` on the CPU, and
+  ``kernel_summary`` on a stub of ``key_averages()``.
 * ``utils.visualize.visualize_correspondence`` bit-equal to cvd_tpu's, fed
   from the q / k maps of the tiny UNet's ``return_extras``.
 * ``data.extract_frames`` on written mp4 clips: the pngs of both packages'
@@ -20,7 +20,6 @@ import os
 import random
 import re
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -87,24 +86,54 @@ def test_meta_tensors_take_the_plain_paths():
 
 # --------------------------------------------------------------- profiling
 
-def test_step_timer_and_trace(tmp_path):
-    from cvd_tpu.utils.profiling import StepTimer as JaxStepTimer
-    from cvd_tpu_torch.utils.profiling import StepTimer, device_memory_stats, trace
+def test_trace(tmp_path):
+    from cvd_tpu_torch.utils.profiling import trace
 
-    timer = StepTimer()
-    time.sleep(0.01)
-    timer.mark_data()
-    time.sleep(0.02)
-    timer.mark_step()
-    assert 0.005 < timer.data_s < timer.iter_s
-    assert timer.eta(10) == pytest.approx(10 * (timer.data_s + timer.iter_s))
-    assert set(vars(timer)) == set(vars(JaxStepTimer()))
     with trace(None) as prof:
         assert prof is None
     with trace(str(tmp_path / "t")) as prof:
         torch.ones(4) @ torch.ones(4)
     assert prof is not None and os.path.getsize(tmp_path / "t" / "trace.json") > 0
-    assert device_memory_stats() == {}     # no card here
+
+
+class _Avg:
+    """A stand-in for one row of ``prof.key_averages()``."""
+
+    def __init__(self, key, device, self_us, annotation=False, count=1):
+        self.key, self.count = key, count
+        self.device_type = f"DeviceType.{device}"
+        self.self_device_time_total = self_us if device == "CUDA" else 0
+        self.self_cpu_time_total = 0 if device == "CUDA" else self_us
+        self.is_user_annotation = annotation
+
+
+class _Averages(list):
+    def table(self, sort_by, row_limit):
+        return f"{len(self)} rows by {sort_by}"
+
+
+def test_kernel_summary_counts_no_user_ranges():
+    """Device time is kernels', copies' and memsets': the optimizer's range
+    on the device's timeline (32 ms here, spanning the AdamW kernels) and a
+    program span's range are not, so the idle share is that of the rest."""
+    from cvd_tpu_torch.utils.profiling import kernel_summary
+
+    class Prof:
+        def key_averages(self):
+            return _Averages([
+                _Avg("ln_mm_kernel", "CUDA", 40_000, count=2),
+                _Avg("Memcpy HtoD (Pageable -> Device)", "CUDA", 8_000),
+                _Avg("Memset (Device)", "CUDA", 2_000),
+                _Avg("Optimizer.step#AdamW.step", "CUDA", 32_000, annotation=True),
+                _Avg("cvd/train.fill", "CUDA", 9_000, annotation=True),
+                _Avg("aten::mm", "CPU", 5_000)])
+
+    got = kernel_summary(Prof(), wall_s=0.1, steps=2, what="two steps",
+                         families=("ln_mm",))
+    assert got["device_ms"] == pytest.approx(25.0)       # (40 + 8 + 2) ms over 2 steps
+    assert got["idle_share"] == pytest.approx(0.5)       # 50 of 100 ms
+    assert not any("Optimizer" in line or "cvd/" in line for line in got["lines"])
+    assert got["lines"][-1].endswith("every ln_mm*") and "20.00 ms" in got["lines"][-1]
 
 
 # --------------------------------------------------------------- visualize
