@@ -142,13 +142,13 @@ class RealEstate10KPoseFolded:
         c2w = relative_poses(np.array(c2ws), tar_idx=n - 1)
         K = np.array(Ks)
         intr = np.array(intr, np.float32)
-        plucker = np.asarray(ray_condition(intr[None], c2w[None].astype(np.float32),
-                                           self.sample_size, self.sample_size)[0])
         fold = fold_indices(n)
+        plucker = ray_condition(intr[fold][None], c2w[fold][None].astype(np.float32),
+                                self.sample_size, self.sample_size)[0]
         return {
             "pixel_values": np.stack(imgs)[fold],        # [2n, H, W, 3]
             "text": entry["caption"],
-            "plucker_embedding": plucker[fold],          # [2n, H, W, 6]
+            "plucker_embedding": plucker,                # [2n, H, W, 6]
             "F_mats": folded_pair_F_mats(c2w, K, n),     # [2n, 3, 3]
             "ret_c2w": c2w[fold].astype(np.float32),
             "ret_K_mats": K[fold].astype(np.float32),

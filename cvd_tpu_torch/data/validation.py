@@ -90,20 +90,15 @@ class ValRealEstate10KPoseFolded:
                 zero_first_frame_scale=self.zero_first_frame_scale,
             )
 
-            plucker = np.asarray(
-                ray_condition(
-                    intr[None].astype(np.float32),
-                    c2w[None].astype(np.float32),
-                    self.sample_size,
-                    self.sample_size,
-                )[0]
-            )  # [2n-1, H, W, 6]
-
             F_mats = folded_pair_F_mats(c2w, K, n)  # [2n, 3, 3]
             fold = fold_indices(n)
+            # rays are per frame, so the cameras are folded, not the rays
+            plucker = ray_condition(intr[fold][None].astype(np.float32),
+                                    c2w[fold][None].astype(np.float32),
+                                    self.sample_size, self.sample_size)[0]
             sample = {
                 "validation_prompt": self.validation_prompts[idx],
-                "plucker_embedding": plucker[fold],  # [2n, H, W, 6]
+                "plucker_embedding": plucker,  # [2n, H, W, 6]
                 "F_mats": F_mats,
                 "ret_c2w": c2w[fold].astype(np.float32),
                 "ret_K_mats": K[fold].astype(np.float32),
