@@ -20,7 +20,7 @@ import time
 
 import numpy as np
 
-from port_bench.lib import port, runtime
+from port_bench.lib import names, port, runtime
 from port_bench.lib.context import Context, Record, check, mean
 from port_bench.lib.trace import Tracer, span
 from port_bench.traffic import generate
@@ -92,15 +92,16 @@ def reference_video(ctx: Context, spec: dict, precision: str = "f32") -> np.ndar
     (the program's state freed before)."""
     import torch
 
-    from port_bench.reference import geometry, ops, sampling
+    from port_bench.reference import geometry, ops
 
     mix, S, dev = ctx.mix, ctx.mix["size"], ctx.device
     p0, p1 = _pose_files(ctx, spec)
     plucker, F_mats = geometry.pair_conditioning(p0, p1, mix["frames"], S)
+    arch = names.architecture(ctx.config["architecture"])
     mods = port.reference_modules(ctx.config, ctx.seed, dev)
     try:
         with runtime.exact_float32(), ops.precision(precision):
-            video = sampling.request(
+            video = arch.reference_request(
                 mods, ctx.config,
                 torch.from_numpy(generate.tokenize([spec["prompt"]])).to(dev),
                 torch.from_numpy(generate.tokenize([spec["negative"]])).to(dev),

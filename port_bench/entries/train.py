@@ -22,7 +22,7 @@ import time
 
 import numpy as np
 
-from port_bench.lib import port, runtime
+from port_bench.lib import names, port, runtime
 from port_bench.lib.context import Context, Record, check, mean
 from port_bench.lib.trace import Tracer, span
 from port_bench.traffic import generate
@@ -158,7 +158,7 @@ def reference_steps(ctx: Context, first: dict, precision: str = "f32",
     steps, "program_change": the same of the program's weights}."""
     import torch
 
-    from port_bench.reference import data, ops, training
+    from port_bench.reference import data, ops
 
     mix, dev, cfg = ctx.mix, ctx.device, ctx.config
     n = len(first["loss"])
@@ -172,16 +172,16 @@ def reference_steps(ctx: Context, first: dict, precision: str = "f32",
         if half_batch:
             b = {k: v[:1] for k, v in b.items()}
         batches.append(b)
+    arch = names.architecture(cfg["architecture"])
     mods = port.reference_modules(cfg, ctx.seed, dev, vae_encoder=True)
     try:
-        start = {k: p.detach().clone() for k, p in training.trainable(mods).items()}
         gen = torch.Generator(device=dev).manual_seed(ctx.stream("steps"))
         with runtime.exact_float32(), ops.precision(precision):
-            out = training.steps(mods, cfg, batches, gen, port.dtype(cfg["dtype"]))
-        now = training.trainable(mods)
+            out = arch.reference_steps(mods, cfg, batches, gen, port.dtype(cfg["dtype"]))
+        start, end = out["start"], out["end"]
         return {"loss": out["loss"],
                 "grad": {k: float(g.norm()) for k, g in out["grad"].items()},
-                "change": {k: float((now[k].detach() - start[k]).norm()) for k in start},
+                "change": {k: float((end[k] - start[k]).norm()) for k in start},
                 "program_change": {k: float((w.to(dev) - start[k]).norm())
                                    for k, w in first["weights"].items()}}
     finally:

@@ -1,6 +1,7 @@
 """Names to files: a cell, a configuration, a traffic mix, an entry kind, a
-per-layer metric and a kernel family are each a file found by its name, so
-a later change adds one by adding files and ``BENCHMARK.json`` entries."""
+model architecture, a per-layer metric and a kernel family are each a file
+found by its name, so a later change adds one by adding files and
+``BENCHMARK.json`` entries."""
 from __future__ import annotations
 
 import hashlib
@@ -32,7 +33,14 @@ def cell(name: str) -> dict:
 
 
 def config(name: str) -> dict:
-    return read_json(os.path.join(BENCH_DIR, "configs", check_name(name) + ".json"))
+    """A configuration; it names its architecture (``architectures/<name>.py``)
+    under ``"architecture"``, which has no default."""
+    path = os.path.join(BENCH_DIR, "configs", check_name(name) + ".json")
+    got = read_json(path)
+    if "architecture" not in got:
+        raise KeyError(f"{path}: no \"architecture\" key (the name of a file in "
+                       "port_bench/architectures/)")
+    return got
 
 
 def traffic(name: str) -> dict:
@@ -53,6 +61,14 @@ def load_module(path: str, name: str) -> ModuleType:
 def entry(kind: str) -> ModuleType:
     return load_module(os.path.join(BENCH_DIR, "entries", check_name(kind) + ".py"),
                        f"port_bench_entry_{kind}")
+
+
+def architecture(name: str) -> ModuleType:
+    """The module that builds a configuration's models: ``reference``,
+    ``program``, ``request_parts``, ``train_step_parts``,
+    ``reference_request`` and ``reference_steps``."""
+    return load_module(os.path.join(BENCH_DIR, "architectures", check_name(name) + ".py"),
+                       "port_bench_architecture_" + name.replace(".", "_").replace("-", "_"))
 
 
 def metric_reader(name: str) -> ModuleType:

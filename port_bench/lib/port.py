@@ -1,11 +1,13 @@
 """The system under test, as the benchmark builds it: the program's modules
-at a configuration's widths, filled with the run's seeded weights through
-``load_state_dict`` (as a build from the released files fills them)."""
+at a configuration's widths, built by the configuration's architecture
+(``architectures/<name>.py``) and filled with the run's seeded weights
+through ``load_state_dict`` (as a build from the released files fills
+them); and the reference's models holding the same weights."""
 from __future__ import annotations
 
 import torch
 
-from . import weights
+from . import names, weights
 from .names import derive
 
 
@@ -27,50 +29,29 @@ def weight_dtype(config: dict):
 
 
 def weight_table(config: dict, vae_encoder: bool) -> weights.Shapes:
-    from ..reference import model as ref_model
-
-    return weights.shapes(ref_model.build(config, "meta", vae_encoder))
+    """What the weights are drawn from: the shapes of the architecture's
+    ``reference`` models."""
+    return weights.shapes(names.architecture(config["architecture"]).reference(
+        config, "meta", vae_encoder))
 
 
 def build_modules(config: dict, seed: int, device, vae_encoder: bool = False,
                   unet_dtype=None):
-    """The program's ``PipelineModules`` at ``config``'s widths on ``device``,
-    weights drawn from ``seed``; ``unet_dtype`` where the UNet is held in
-    another type than the rest (training: float32 until the train state
-    casts its frozen part)."""
-    from cvd_tpu_torch.models.clip_text import CLIPTextConfig
-    from cvd_tpu_torch.models.unet import UNetConfig
-    from cvd_tpu_torch.models.vae import VAEConfig
-    from cvd_tpu_torch.pipelines.common import PipelineModules
-    from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
-
-    def tuples(d):
-        return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
-
-    pe = config["pose_encoder"]
-    modules = PipelineModules.create(
-        unet_config=UNetConfig(**tuples(config["unet"])),
-        vae_config=VAEConfig(**tuples(config["vae"])),
-        clip_config=CLIPTextConfig(**config["clip"]),
-        pose_encoder_kwargs=dict(downscale_factor=pe["downscale_factor"], nums_rb=pe["nums_rb"],
-                                 cin=pe["cin"],
-                                 temporal_attention_nhead=pe["temporal_attention_nhead"],
-                                 temporal_pe_max_len=pe["temporal_position_encoding_max_len"]),
-        scheduler=DDIMScheduler(**config["scheduler"]), device=device,
-        dtype=dtype(config["dtype"]), unet_dtype=unet_dtype, vae_encoder=vae_encoder)
-    table = weight_table(config, vae_encoder)
-    for name, state in weights.draw(table, derive(seed, "weights"), device,
-                                    weight_dtype(config)):
+    """The program's modules at ``config``'s widths on ``device``, as its
+    architecture's ``program`` builds them, weights drawn from ``seed``;
+    ``unet_dtype`` where the UNet is held in another type than the rest."""
+    modules = names.architecture(config["architecture"]).program(config, device, vae_encoder,
+                                                                 unet_dtype)
+    for name, state in weights.draw(weight_table(config, vae_encoder), derive(seed, "weights"),
+                                    device, weight_dtype(config)):
         getattr(modules, name).load_state_dict(state, strict=True)
     return modules
 
 
 def reference_modules(config: dict, seed: int, device, vae_encoder: bool = False):
-    """The reference's models on ``device`` in float32, holding the same
-    weights as ``build_modules`` gives the program."""
-    from ..reference import model as ref_model
-
-    mods = ref_model.build(config, device, vae_encoder)
+    """The architecture's ``reference`` models on ``device`` in float32,
+    holding the same weights as ``build_modules`` gives the program."""
+    mods = names.architecture(config["architecture"]).reference(config, device, vae_encoder)
     for name, state in weights.draw(weights.shapes(mods), derive(seed, "weights"), device,
                                     weight_dtype(config)):
         mods[name].load_state_dict(state, strict=True)

@@ -1,4 +1,4 @@
-"""Seeded weights: every tensor of the four models' state dicts drawn on the
+"""Seeded weights: every tensor of the models' state dicts drawn on the
 device from ``--seed``, one large draw per model and type, in the type it
 is served in. The same call gives the program and the reference the same
 values (the reference takes them in float32).
@@ -20,7 +20,8 @@ Shapes = Dict[str, Dict[str, Tuple[int, ...]]]
 
 
 def shapes(mods) -> Shapes:
-    """{model: {state-dict key: shape}} of a ``reference.model.build`` bundle."""
+    """{model: {state-dict key: shape}} of the architecture's ``reference``
+    bundle."""
     return {name: {k: tuple(t.shape) for k, t in mod.state_dict().items()}
             for name, mod in mods.items()}
 

@@ -4,8 +4,9 @@
 
 Everything about the cell is data found by name: ``workloads/<cell>.json``
 (configuration, traffic mix, entry kind, chips, the check's limits),
-``configs/<config>.json``, ``traffic/<mix>.json``, ``entries/<kind>.py``, and
-for ``--trace 1`` one reader per per-layer metric (``metrics/<name>.py``)
+``configs/<config>.json``, the architecture it names
+(``architectures/<name>.py``: the models of the reference and of the
+program), ``traffic/<mix>.json``, ``entries/<kind>.py``, and for ``--trace 1`` one reader per per-layer metric (``metrics/<name>.py``)
 that ``BENCHMARK.json`` gives the cell. The last line of standard output is
 the result: ``correct``, ``attempted``, ``failed``, ``metrics`` (the end-to-
 end ones, or with ``--trace 1`` the per-layer ones), ``device``,

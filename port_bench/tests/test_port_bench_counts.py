@@ -1,6 +1,7 @@
 """The work stored for each cell (``work/<config>.<traffic>.json``) is the
-reference's count on the meta device, and a UNet call's FLOPs agree with
-the program's own count within 0.1%."""
+reference's count on the meta device, by the parts its configuration's
+architecture gives, and a UNet call's FLOPs agree with the program's own
+count within 0.1%."""
 import json
 import os
 
@@ -17,10 +18,8 @@ def test_stored_work_is_the_reference_count(cell):
     cfg, mix = names.config(c["config"]), names.traffic(c["traffic"])
     stored = names.read_json(os.path.join(names.BENCH_DIR, "work",
                                           f"{c['config']}.{c['traffic']}.json"))
-    if stored["unit"] == "request":
-        parts = count.request(cfg, mix["frames"], mix["size"], mix["steps"])
-    else:
-        parts = count.train_step(cfg, mix["frames"], mix["size"])
+    parts = count.unit_parts(cfg, stored["unit"], mix["frames"], mix["size"],
+                             mix.get("steps", 0))
     assert json.loads(json.dumps(parts)) == stored["parts"]
 
 

@@ -36,7 +36,8 @@ def test_whole_name_comparison():
         "cvd_tpu.ops", "flax.linen", "jax"]
 
 
-@pytest.mark.parametrize("sub", ["reference", "lib", "entries", "metrics", "traffic"])
+@pytest.mark.parametrize("sub", ["reference", "lib", "entries", "architectures", "metrics",
+                                 "traffic"])
 def test_sources_name_no_forbidden_module(sub):
     for path in _py_files(sub):
         for mod in _imported(path):
@@ -54,6 +55,8 @@ def test_loaded_modules():
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'cvd_tpu_torch')\n"
         "from port_bench.lib import names, port, count, readers, trace, result\n"
         "for kind in ('sample_pair', 'train'): names.entry(kind)\n"
+        "for f in glob.glob(os.path.join(names.BENCH_DIR, 'architectures', '*.py')):\n"
+        "    names.architecture(os.path.basename(f)[:-3])\n"
         "for f in glob.glob(os.path.join(names.BENCH_DIR, 'metrics', '*.py')):\n"
         "    names.metric_reader(os.path.basename(f)[:-3])\n"
         "import cvd_tpu_torch.pipelines.simple, cvd_tpu_torch.train.program\n"

@@ -46,7 +46,10 @@ def test_entry(section, entry):
         assert entry["file"].startswith("port_bench/") and os.path.exists(
             os.path.join(ROOT, entry["file"]))
         assert len(entry["reduced"]) <= 16 and all(NAME.match(k) for k in entry["reduced"])
-        assert names.config(entry["name"])["name"] == entry["name"]
+        cfg = names.config(entry["name"])
+        assert cfg["name"] == entry["name"]
+        assert os.path.exists(os.path.join(names.BENCH_DIR, "architectures",
+                                           names.check_name(cfg["architecture"]) + ".py"))
     elif section == "workloads":
         assert set(entry) == {"name", "config", "traffic", "chips", "why"}
         assert entry["chips"] in (1, 4) and TEXT.match(entry["why"])
@@ -113,3 +116,13 @@ def test_files_are_named_from_names():
             if f.endswith(".pyc"):
                 continue
             assert re.match(r"^[A-Za-z0-9_.-]+$", f), f
+
+
+def test_a_configuration_names_its_architecture(tmp_path, monkeypatch):
+    (tmp_path / "configs").mkdir()
+    cfg = names.config("tiny-cpu")
+    del cfg["architecture"]
+    (tmp_path / "configs" / "no-arch.json").write_text(json.dumps(cfg))
+    monkeypatch.setattr(names, "BENCH_DIR", str(tmp_path))
+    with pytest.raises(KeyError, match="no-arch.json"):
+        names.config("no-arch")

@@ -27,28 +27,27 @@ def _close(a, b, tol):
 @pytest.mark.parametrize("config", ["tiny-cpu", "cvd-sd15-256-sample", "cvd-sd15-256-train"])
 @pytest.mark.parametrize("encoder", [False, True])
 def test_same_keys_and_shapes(config, encoder):
-    from cvd_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
-    from cvd_tpu_torch.models.pose_encoder import CameraPoseEncoder
-    from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
-    from cvd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-
     cfg = names.config(config)
-    tup = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg["unet"].items()}
-    pe = cfg["pose_encoder"]
-    with torch.device("meta"):
-        program = {
-            "unet": UNet3DConditionModel(UNetConfig(**tup)),
-            "vae": AutoencoderKL(VAEConfig(**{k: tuple(v) if isinstance(v, list) else v
-                                              for k, v in cfg["vae"].items()}), encoder),
-            "clip": CLIPTextEncoder(CLIPTextConfig(**cfg["clip"])),
-            "pose_encoder": CameraPoseEncoder(
-                channels=tuple(pe["channels"]), downscale_factor=pe["downscale_factor"],
-                nums_rb=pe["nums_rb"], cin=pe["cin"],
-                temporal_attention_nhead=pe["temporal_attention_nhead"],
-                temporal_pe_max_len=pe["temporal_position_encoding_max_len"])}
-    table = weights.shapes(ref_model.build(cfg, "meta", encoder))
-    for name, mod in program.items():
-        assert {k: tuple(t.shape) for k, t in mod.state_dict().items()} == table[name]
+    arch = names.architecture(cfg["architecture"])
+    program = arch.program(cfg, "meta", encoder)
+    table = weights.shapes(arch.reference(cfg, "meta", encoder))
+    for name, shapes in table.items():
+        got = getattr(program, name).state_dict()
+        assert {k: tuple(t.shape) for k, t in got.items()} == shapes
+
+
+def test_pose_encoder_takes_the_configured_channels():
+    """The program's ``create`` ties the pose encoder's widths to the UNet's;
+    a configuration that states others gets them, as the reference does."""
+    cfg = dict(TINY, pose_encoder=dict(TINY["pose_encoder"], channels=[16, 32, 48, 64]))
+    arch = names.architecture(cfg["architecture"])
+    program = arch.program(cfg, "cpu")
+    got = {k: tuple(t.shape) for k, t in program.pose_encoder.state_dict().items()}
+    assert got == weights.shapes(arch.reference(cfg, "meta"))["pose_encoder"]
+    assert got["encoder_conv_in.weight"][0] == 16
+    p = next(program.pose_encoder.parameters())
+    assert p.dtype == torch.float32 and not p.requires_grad and not program.pose_encoder.training
+    assert tuple(program.unet.config.block_out_channels) == (32, 64, 64, 64)
 
 
 @pytest.fixture(scope="module")

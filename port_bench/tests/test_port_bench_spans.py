@@ -5,7 +5,6 @@ counted other units, gives none; and the program's ``cvd/`` ranges in a
 trace move nothing that the trace's reduction gives the other readers."""
 import copy
 import dataclasses
-import os
 import sys
 
 import pytest
@@ -13,16 +12,14 @@ import pytest
 from port_bench.lib import program_spans, readers
 from port_bench.lib.context import Record
 from port_bench.lib.trace import breakdown, reduce
-from port_bench.tests.helpers import ROOT, run_cell
+from port_bench.tests.helpers import run_cell
 
-SPANS_BENCH = os.path.join(ROOT, "port_bench", "tests", "data", "tiny_benchmark_spans.json")
 REQUEST = {"pose_cond_ms", "prepare_ms", "decode_ms"}
 PHASES = {"train_encode_ms", "train_forward_ms", "train_backward_ms", "train_optimizer_ms"}
 
 
 def test_tiny_pair_reports_the_request_path():
-    rc, line, err = run_cell("tiny-pair", seed=2 ** 33 + 5, seconds=1, trace=1,
-                             bench=SPANS_BENCH)
+    rc, line, err = run_cell("tiny-pair", seed=2 ** 33 + 5, seconds=1, trace=1)
     assert rc == 0, err[-3000:]
     assert line["correct"] is True, err[-3000:]
     got = line["metrics"]
@@ -31,8 +28,7 @@ def test_tiny_pair_reports_the_request_path():
 
 
 def test_tiny_train_held_reports_the_step_phases():
-    rc, line, err = run_cell("tiny-train-held", seed=987654321987, seconds=2, trace=1,
-                             bench=SPANS_BENCH)
+    rc, line, err = run_cell("tiny-train-held", seed=987654321987, seconds=2, trace=1)
     assert rc == 0, err[-3000:]
     assert line["correct"] is True, err[-3000:]
     got = line["metrics"]
@@ -48,7 +44,12 @@ def _record(units=2):
 
 
 def test_a_program_without_tracing_gives_nothing(monkeypatch):
+    import cvd_tpu_torch.utils
+
     monkeypatch.setitem(sys.modules, "cvd_tpu_torch.utils.tracing", None)   # import fails
+    # also where an earlier test in this process imported it: ``from`` finds
+    # the package's attribute before it looks in ``sys.modules``
+    monkeypatch.delattr(cvd_tpu_torch.utils, "tracing", raising=False)
     rec = _record()
     assert program_spans.program(rec) is None
     assert program_spans.per_unit_ms(rec, "sample.decode", device=True) is None
