@@ -17,7 +17,11 @@ Phases (any failure raises and exits non-zero):
 3. kernels: each forward kernel against its plain PyTorch version at the
    2-view sampler's shapes, K2 with spatial extended attention's keys (Lk =
    2 Lq at res 32 and 16, timed), K1-K5 at multidiff's 12-frame windows (48
-   frame rows, K3 at F 12), at the N-view sampler's (128, 192 and 256 frame
+   frame rows, K3 at F 12), at the SDXL cell's (512 px, 64 frame rows: K1 at
+   4096 / 1024 / 256 tokens a frame on a 512 px image's geometry, K2 with
+   heads 64 wide, 10 at 1024 tokens and 20 at 256, K3 at 4096 and 256 tokens,
+   GroupNorm at the UNet's and the VAE's slabs, K5 at res 64 / 32 / 16), at
+   the N-view sampler's (128, 192 and 256 frame
    rows; K1 routed by a random perfect matching of 4 and of 6 views over
    interleaved CFG rows, and by the two offset groups of
    ``accumulate_batched``) and at the kernels' edges (64 tokens, head_dim 160, a
@@ -444,19 +448,30 @@ def _temporal_mask(torch, g, kind, Fr, G):
     return causal_temporal_mask(kind, Fr).to("cuda")
 
 
-def _epi_inputs(torch, g, B, feat, route=None):
+def _epi_inputs(torch, g, B, feat, route=None, size=256):
     """The epipolar geometry and routing (default: the 2-view half swap) of B
-    frame rows at a feat x feat grid."""
+    frame rows at a feat x feat grid of a size x size image."""
     from cvd_tpu_torch.geometry.epipolar_mask import (
         epipolar_lines, lines_and_band, pixel_grid_coords,
     )
 
     F_mats = torch.randn(B, 3, 3, generator=g, device="cuda") * 1e-3
-    coords = pixel_grid_coords(feat, 256, "cuda")
-    lines, band, alpha = lines_and_band(epipolar_lines(F_mats, coords), feat, 256)
+    coords = pixel_grid_coords(feat, size, "cuda")
+    lines, band, alpha = lines_and_band(epipolar_lines(F_mats, coords), feat, size)
     if route is None:
         route = torch.cat([torch.arange(B // 2, B), torch.arange(0, B // 2)])
     return (lines, coords[:, :2].T.contiguous(), band, alpha), route.to("cuda", torch.int32)
+
+
+def _plain_by_rows(torch, epi_flash, q, k, v, geom, route, heads, rows=8):
+    """``epi_flash._plain`` over blocks of ``rows`` query rows (k / v whole,
+    read through the route): the same numbers without the whole call's
+    [B, heads, N, N] logits at once (34 GB in f32 at 64 rows of 4096 tokens)."""
+    lines, coords, band, alpha = geom
+    return torch.cat([epi_flash._plain(q[i:i + rows], k, v,
+                                       (lines[i:i + rows], coords, band[i:i + rows],
+                                        alpha[i:i + rows]), route[i:i + rows], heads)
+                      for i in range(0, q.shape[0], rows)])
 
 
 def _nview_route(torch, g, views, groups, frames=16):
@@ -499,14 +514,15 @@ def _cases(torch, dtype, g, mesh=False):
     def randn(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=g, device=dev) * scale + shift).to(dtype)
 
-    def epi_launch(q, k, v, geom, route):
-        prep = epi_flash._prepare(q, k, v, geom, route, 8)
-        return lambda: epi_flash._launch(*prep, 8)
+    def epi_launch(q, k, v, geom, route, heads=8):
+        prep = epi_flash._prepare(q, k, v, geom, route, heads)
+        return lambda: epi_flash._launch(*prep, heads)
 
-    def epi_library(q, k, v, geom, route):
+    def epi_library(q, k, v, geom, route, heads=8):
         # outside the timed call: the [B, 1, N, N] bias and the routed k / v
-        qh = _heads(q, 8)
-        kh, vh = ((_heads(x, 8) if route is None else _heads(x[route.long()], 8)) for x in (k, v))
+        qh = _heads(q, heads)
+        kh, vh = ((_heads(x, heads) if route is None else _heads(x[route.long()], heads))
+                  for x in (k, v))
         mask = None if geom is None else epi_flash.bias_from_geometry(*geom)[:, None].to(q.dtype)
         return lambda: sdpa(qh, kh, vh, attn_mask=mask)
 
@@ -564,6 +580,33 @@ def _cases(torch, dtype, g, mesh=False):
             cases.append(temporal_case(f"B4 N{N} F16 C{C} h8 {_layout(split)}",
                                        _temporal_inputs(randn, 4, N, 16, 16, C, split), None, 8,
                                        feat == 32))
+    # CVD on the SDXL backbone at 512 px, 16 frames, 2 views (64 frame rows): the
+    # epi modules' 8 heads at 4096 / 1024 / 256 tokens a frame on a 512 px image's
+    # geometry (the plain version in blocks of rows), the spatial attentions' heads
+    # 64 wide (10 at 1024 tokens, 20 at 256), the motion modules at 4096 and 256
+    for feat, C in ((64, 320), (32, 640), (16, 1280)):
+        N = feat * feat
+        q, k, v = randn(64, N, C), randn(64, N, C), randn(64, N, C)
+        geom, route = _epi_inputs(torch, g, 64, feat, size=512)
+        cases.append(_case(
+            "epi_flash_attention", f"B64 N{N} C{C} h8 routed, 512 px (SDXL)",
+            lambda q=q, k=k, v=v, geom=geom, route=route:
+            epi_flash.epi_flash_attention(q, k, v, *geom, heads=8, kv_index=route),
+            lambda q=q, k=k, v=v, geom=geom, route=route:
+            _plain_by_rows(torch, epi_flash, q, k, v, geom, route, 8)))
+    for N, C, h in ((1024, 640, 10), (256, 1280, 20)):
+        q, k, v = randn(64, N, C), randn(64, N, C), randn(64, N, C)
+        cases.append(_case(
+            "flash_attention", f"B64 N{N} C{C} h{h} (SDXL)",
+            lambda q=q, k=k, v=v, h=h: epi_flash.flash_attention(q, k, v, heads=h),
+            lambda q=q, k=k, v=v, h=h: epi_flash._plain(q, k, v, None, None, h), True,
+            launch=lambda q=q, k=k, v=v, h=h: epi_launch(q, k, v, None, None, h),
+            library=lambda q=q, k=k, v=v, h=h: epi_library(q, k, v, None, None, h),
+            library_call="scaled_dot_product_attention",
+            work=(*work.attention_fwd(64, h, N, N, C // h, size), "bfloat16")))
+    for N, C in ((4096, 320), (256, 1280)):
+        cases.append(temporal_case(f"B4 N{N} F16 C{C} h8 {_layout(True)} (SDXL)",
+                                   _temporal_inputs(randn, 4, N, 16, 16, C, True), None, 8))
     # the N-view sampler's rows: V views x 2 CFG rows x 16 frames, routed by a
     # random perfect matching of the views; with accumulate_batched, 2 groups
     for views, groups, feat, C, timed in ((4, 1, 32, 320, True), (4, 1, 16, 640, False),
@@ -615,7 +658,14 @@ def _cases(torch, dtype, g, mesh=False):
                            (64, 64, 2560, False), (5, 200, 1344, False), (32, 65536, 128, True),
                            (128, 1024, 320, True), (256, 1024, 320, True),
                            (48, 1024, 320, False), (60, 1024, 640, True), (60, 1024, 960, True),
-                           (60, 16, 2560, True), (60, 16, 3840, True)):
+                           (60, 16, 2560, True), (60, 16, 3840, True),
+                           # SDXL at 512 px: the UNet's slabs (res 64 / 32 / 16, the
+                           # up path's concatenations) and the VAE's at 128 / 256 / 512
+                           (64, 4096, 320, False), (64, 4096, 640, False),
+                           (64, 4096, 960, False), (64, 1024, 1280, False),
+                           (64, 1024, 1920, False), (64, 256, 1280, False),
+                           (64, 256, 2560, False), (32, 65536, 512, False),
+                           (32, 262144, 256, False), (32, 262144, 128, False)):
         x = randn(R, S, C, scale=2.0, shift=3.0)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         p = norms.plan(R, S, C, 32, size, sms)
@@ -642,7 +692,11 @@ def _cases(torch, dtype, g, mesh=False):
     for T, C, Ks in ((65536, 320, (2560,)), (65536, 320, (320, 320, 320)), (16384, 640, (5120,)),
                      (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320)),
                      (131072, 320, (2560,)), (262144, 320, (2560,)),
-                     (8192, 1280, (1280, 1280, 1280)), (49152, 320, (2560,))):
+                     (8192, 1280, (1280, 1280, 1280)), (49152, 320, (2560,)),
+                     # SDXL at 512 px: the motion / epi modules at res 64, the
+                     # transformers at res 32 and 16
+                     (262144, 320, (320, 320, 320)), (65536, 640, (640, 640, 640)),
+                     (16384, 1280, (1280, 1280, 1280)), (16384, 1280, (10240,))):
         x = randn(T, C)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         ws = [randn(K, C, scale=1.0 / math.sqrt(C)) for K in Ks]

@@ -17,7 +17,11 @@ single-file LDM checkpoint: ``.ckpt``, or ``.safetensors`` with the
 weights, and ``--civitai_lora_ckpt`` (a kohya LoRA) is fused into the UNet
 at 0.6 (``io/ldm_convert.py``), after the other files, in the JAX package's
 order. ``--scan_layers`` is taken and does nothing (an XLA compile-time
-layer dedup).
+layer dedup). ``--model_config`` sets the modules' layout, for files and
+random weights alike; one with a ``backbone`` section (CVD on the SDXL
+backbone: ``configs/sdxl_inference_config.yaml``) also gives every width,
+the motion and epi modules' heads, the second text encoder (its diffusers
+folder's ``text_encoder_2/``) and the VAE's scale.
 """
 from __future__ import annotations
 
@@ -48,10 +52,10 @@ SMOKE_WIDTHS = (SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP)
 # what a build from checkpoint files is as wide as unless the caller says
 # otherwise: the released artifacts are all SD1.5's
 SD15_WIDTHS = (UNetConfig(), VAEConfig(), CLIPTextConfig())
-# the options that name weights or their layout: --random-weights[-full] refuses them
+# the options that name weights: --random-weights[-full] refuses them
 _WEIGHT_OPTIONS = ("ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
                    "epi_module_ckpt", "pose_adaptor_ckpt", "image_lora_ckpt", "controlnet_ckpt",
-                   "civitai_base_model", "civitai_lora_ckpt", "model_config")
+                   "civitai_base_model", "civitai_lora_ckpt")
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
@@ -167,15 +171,29 @@ def load_sparse_controlnet(path: str, unet_cfg: UNetConfig, simplified: bool,
     return model
 
 
+def _model_config(path: str, unet_cfg: UNetConfig, vae_cfg: VAEConfig,
+                  clip_cfg: CLIPTextConfig) -> tuple:
+    """-> (UNet, VAE, CLIP, second CLIP or None, pose-encoder kwargs,
+    scheduler) of the model config at ``path``: the given widths, or its
+    backbone's."""
+    from cvd_tpu_torch.io.model_config import load_model_config
+
+    unet_cfg, pose_encoder_kwargs, scheduler, extra = load_model_config(path, base=unet_cfg)
+    backbone = extra["backbone"] or {"vae": vae_cfg, "clip": clip_cfg, "clip_2": None}
+    return (unet_cfg, backbone["vae"], backbone["clip"], backbone["clip_2"],
+            pose_encoder_kwargs, scheduler)
+
+
 def build_modules(args, device: torch.device, vae_encoder: bool = False,
                   unet_dtype: Optional[torch.dtype] = None, tokenizer: Optional[object] = None,
                   report: Optional[dict] = None, widths=SD15_WIDTHS
                   ) -> Tuple[PipelineModules, object]:
     """-> (modules, tokenizer). With ``--random-weights[-full]`` a seeded
-    random bundle and the hash tokenizer (a weight option or
-    ``--model_config`` beside it raises: it would be ignored); else the
-    modules at ``widths`` (UNet, VAE and CLIP configs; SD1.5's, narrower only
-    for narrow files) with what ``--model_config`` sets, initialized by ``default_init_``
+    random bundle at the smoke widths or SD1.5's, with what
+    ``--model_config`` sets, and the hash tokenizer (a weight option beside
+    it raises: it would be ignored); else the modules at ``widths`` (UNet,
+    VAE and CLIP configs; SD1.5's, narrower only for narrow files) with what
+    ``--model_config`` sets, initialized by ``default_init_``
     (so a module that no checkpoint is given for starts as the reference's
     fresh one: without ``--epi_module_ckpt`` the epi modules are the
     identity, a LoRA's ``up`` zero) and then filled from ``--ori_model_path``
@@ -192,50 +210,45 @@ def build_modules(args, device: torch.device, vae_encoder: bool = False,
     the keys consumed and the seconds taken."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     random_full = getattr(args, "random_weights_full", False)
+    random = args.random_weights or random_full
     generator = torch.Generator(device=device).manual_seed(0)
-    if args.random_weights or random_full:
+    if random:
         given = [name for name in _WEIGHT_OPTIONS if getattr(args, name, None)]
         if given:
             raise ValueError("--random-weights / --random-weights-full build from no file: "
                              "drop " + ", ".join(f"--{name}" for name in given))
-        unet_cfg, vae_cfg, clip_cfg = SD15_WIDTHS if random_full else SMOKE_WIDTHS
-        modules = PipelineModules.create(
-            unet_config=unet_options(args, unet_cfg),
-            vae_config=vae_cfg, clip_config=clip_cfg,
-            device=device, dtype=dtype, unet_dtype=unet_dtype, generator=generator,
-            vae_encoder=vae_encoder, random_full=random_full,
-        )
-        return modules, tokenizer or get_tokenizer(None)
-    if not getattr(args, "ori_model_path", None):
-        raise ValueError("no weights to build from: pass --ori_model_path (an SD1.5 diffusers "
-                         "folder; config key `ori_model_path`) or --random-weights / "
-                         "--random-weights-full (`random_weights` / `random_weights_full`)")
-    if getattr(args, "motion_lora_ckpt", None) and not args.motion_module_ckpt:
-        raise ValueError("--motion_lora_ckpt fuses into the motion module: it needs "
-                         "--motion_module_ckpt")
-    # before the weights are read: a wrong folder fails in no time
-    tokenizer = tokenizer or get_tokenizer(args.ori_model_path)
+        widths = SD15_WIDTHS if random_full else SMOKE_WIDTHS
+    else:
+        if not getattr(args, "ori_model_path", None):
+            raise ValueError("no weights to build from: pass --ori_model_path (an SD1.5 "
+                             "diffusers folder; config key `ori_model_path`) or "
+                             "--random-weights / --random-weights-full (`random_weights` / "
+                             "`random_weights_full`)")
+        if getattr(args, "motion_lora_ckpt", None) and not args.motion_module_ckpt:
+            raise ValueError("--motion_lora_ckpt fuses into the motion module: it needs "
+                             "--motion_module_ckpt")
+        # before the weights are read: a wrong folder fails in no time
+        tokenizer = tokenizer or get_tokenizer(args.ori_model_path)
 
-    scheduler = None
-    pose_encoder_kwargs = None
     unet_cfg, vae_cfg, clip_cfg = widths
+    clip_2_cfg = pose_encoder_kwargs = scheduler = None
     if getattr(args, "model_config", None):
-        from cvd_tpu_torch.io.model_config import load_model_config
-
-        unet_cfg, pose_encoder_kwargs, scheduler, _extra = load_model_config(
-            args.model_config, base=unet_cfg)
+        unet_cfg, vae_cfg, clip_cfg, clip_2_cfg, pose_encoder_kwargs, scheduler = _model_config(
+            args.model_config, unet_cfg, vae_cfg, clip_cfg)
     modules = PipelineModules.create(
         unet_config=unet_options(args, unet_cfg),
-        vae_config=vae_cfg, clip_config=clip_cfg,
+        vae_config=vae_cfg, clip_config=clip_cfg, clip_2_config=clip_2_cfg,
         pose_encoder_kwargs=pose_encoder_kwargs, scheduler=scheduler,
         device=device, dtype=dtype, unet_dtype=unet_dtype, generator=generator,
-        vae_encoder=vae_encoder,
+        vae_encoder=vae_encoder, random_full=random_full,
     )
+    if random:
+        return modules, tokenizer or get_tokenizer(None)
 
     from cvd_tpu_torch.io.checkpoints import load_sd_pipeline_weights
 
     loaded = load_sd_pipeline_weights(
-        modules.unet, modules.vae, modules.clip, args.ori_model_path,
+        modules.unet, modules.vae, modules.clip, args.ori_model_path, clip_2=modules.clip_2,
         unet_subfolder=getattr(args, "unet_subfolder", None) or "unet",
         motion_module_ckpt=args.motion_module_ckpt,
         epi_module_ckpt=args.epi_module_ckpt,

@@ -37,8 +37,8 @@ def _intrinsics_vec(K_mats: np.ndarray) -> np.ndarray:
 
 def make_encode_fn(modules, frame_chunk: int = 8) -> Callable:
     """-> encode(images [N, H, W, 3] in [-1, 1], numpy or tensor) -> (mean,
-    logvar) f32 [N, H/8, W/8, 4] on the VAE's device (unscaled: VAE_SCALE
-    applies after sampling). ``frame_chunk`` frames at a time, no grad."""
+    logvar) f32 [N, H/8, W/8, 4] on the VAE's device (unscaled: the VAE's
+    ``scaling_factor`` applies after sampling). ``frame_chunk`` frames at a time, no grad."""
     vae = modules.vae
     weight = vae.quant_conv.weight
 

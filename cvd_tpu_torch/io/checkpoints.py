@@ -158,8 +158,10 @@ def load_vae_weights(vae: nn.Module, folder: str, subfolder: str = "vae") -> Lis
 
 def load_clip_weights(clip: nn.Module, folder: str, subfolder: str = "text_encoder") -> List[str]:
     state = load_diffusers_folder_weights(os.path.join(folder, subfolder))
-    # drop projection heads if present (full CLIP checkpoints)
-    state = {k: v for k, v in state.items() if "text_projection" not in k}
+    # drop projection heads if present (full CLIP checkpoints), unless the
+    # encoder has one (SDXL's text_encoder_2: the pooled embedding)
+    if getattr(clip, "text_projection", None) is None:
+        state = {k: v for k, v in state.items() if "text_projection" not in k}
     return merge_torch_state(clip, state, rename=clip_rename)
 
 
@@ -267,10 +269,12 @@ def load_sd_pipeline_weights(
     motion_lora_ckpt: Optional[str] = None,
     motion_lora_scale: float = 1.0,
     image_lora_ckpt: Optional[str] = None,
+    clip_2: Optional[nn.Module] = None,
 ) -> Dict[str, dict]:
     """The full reference load sequence, into the modules in place, one
     artifact at a time (each file's tensors are let go before the next is
-    read). Returns {artifact: {"keys": consumed count, "seconds": taken}}."""
+    read); ``clip_2`` (SDXL) from the folder's ``text_encoder_2/``. Returns
+    {artifact: {"keys": consumed count, "seconds": taken}}."""
     report: Dict[str, dict] = {}
 
     def load(name, fn, *args, **kw):
@@ -281,6 +285,8 @@ def load_sd_pipeline_weights(
     load("unet", load_sd_unet_weights, unet, sd_folder, unet_subfolder)
     load("vae", load_vae_weights, vae, sd_folder)
     load("text_encoder", load_clip_weights, clip, sd_folder)
+    if clip_2 is not None:
+        load("text_encoder_2", load_clip_weights, clip_2, sd_folder, "text_encoder_2")
     if motion_module_ckpt:
         load("motion_module", load_motion_module_weights, unet, motion_module_ckpt,
              motion_lora_ckpt=motion_lora_ckpt, motion_lora_scale=motion_lora_scale)

@@ -4,6 +4,9 @@ the reference loads, for import validation without the real files.
 Artifact kinds and their reference load sites (inference_epi.py:72-145):
 
 * SD1.5 diffusers folder: unet / vae / text_encoder   (:76-80)
+* SDXL base diffusers folder: unet, text_encoder_2 (the SDXL backbone;
+  ``sdxl_unet_manifest``, ``sdxl_clip_2_manifest``; its text_encoder and
+  vae are SD1.5's layouts)
 * AnimateDiff v3 motion module .ckpt                  (:100-105)
 * CameraCtrl pose adaptor .ckpt
   (pose_encoder_state_dict + attention_processor_state_dict, :115-123)
@@ -67,20 +70,24 @@ def _resnet(m: Manifest, p: str, cin: int, cout: int, temb: int = TEMB):
         _conv(m, f"{p}.conv_shortcut", cout, cin, 1)
 
 
-def _spatial_transformer(m: Manifest, p: str, c: int, cross: int = CROSS):
+def _spatial_transformer(m: Manifest, p: str, c: int, cross: int = CROSS, depth: int = 1,
+                         linear: bool = False):
     _norm(m, f"{p}.norm", c)
-    _conv(m, f"{p}.proj_in", c, c, 1)
-    tb = f"{p}.transformer_blocks.0"
-    for a, kdim in (("attn1", c), ("attn2", cross)):
-        m[f"{tb}.{a}.to_q.weight"] = (c, c)
-        m[f"{tb}.{a}.to_k.weight"] = (c, kdim)
-        m[f"{tb}.{a}.to_v.weight"] = (c, kdim)
-        _linear(m, f"{tb}.{a}.to_out.0", c, c)
-    for n in ("norm1", "norm2", "norm3"):
-        _norm(m, f"{tb}.{n}", c)
-    _linear(m, f"{tb}.ff.net.0.proj", 8 * c, c)
-    _linear(m, f"{tb}.ff.net.2", c, 4 * c)
-    _conv(m, f"{p}.proj_out", c, c, 1)
+    proj = (lambda name: _linear(m, name, c, c)) if linear else (
+        lambda name: _conv(m, name, c, c, 1))
+    proj(f"{p}.proj_in")
+    for d in range(depth):
+        tb = f"{p}.transformer_blocks.{d}"
+        for a, kdim in (("attn1", c), ("attn2", cross)):
+            m[f"{tb}.{a}.to_q.weight"] = (c, c)
+            m[f"{tb}.{a}.to_k.weight"] = (c, kdim)
+            m[f"{tb}.{a}.to_v.weight"] = (c, kdim)
+            _linear(m, f"{tb}.{a}.to_out.0", c, c)
+        for n in ("norm1", "norm2", "norm3"):
+            _norm(m, f"{tb}.{n}", c)
+        _linear(m, f"{tb}.ff.net.0.proj", 8 * c, c)
+        _linear(m, f"{tb}.ff.net.2", c, 4 * c)
+    proj(f"{p}.proj_out")
 
 
 def _up_resnet_channels(i: int) -> List[Tuple[int, int]]:
@@ -122,6 +129,55 @@ def sd15_unet_manifest() -> Manifest:
             _conv(m, f"up_blocks.{i}.upsamplers.0.conv", RCH[i], RCH[i], 3)
     _norm(m, "conv_norm_out", CH[0])
     _conv(m, "conv_out", 4, CH[0], 3)
+    return m
+
+
+SDXL_CH = (320, 640, 1280)
+# transformer blocks per level (the first level's DownBlock2D / UpBlock2D
+# has none) and in the mid block; cross-attention width: CLIP-L + bigG
+SDXL_DEPTH = (0, 2, 10)
+SDXL_MID_DEPTH = 10
+SDXL_CROSS = 2048
+SDXL_ADD_IN = 2816                 # pooled bigG 1280 + 6 time ids x 256
+
+
+def sdxl_unet_manifest() -> Manifest:
+    """diffusers UNet2DConditionModel (SDXL base) state-dict keys + shapes:
+    three levels, Linear projections, the ``text_time`` add_embedding."""
+    m: Manifest = {}
+    ch, n = SDXL_CH, len(SDXL_CH)
+    _conv(m, "conv_in", ch[0], 4, 3)
+    _linear(m, "time_embedding.linear_1", TEMB, ch[0])
+    _linear(m, "time_embedding.linear_2", TEMB, TEMB)
+    _linear(m, "add_embedding.linear_1", TEMB, SDXL_ADD_IN)
+    _linear(m, "add_embedding.linear_2", TEMB, TEMB)
+    skips = [ch[0]]
+    for i, c in enumerate(ch):
+        for j in range(2):
+            _resnet(m, f"down_blocks.{i}.resnets.{j}", ch[max(i - 1, 0)] if j == 0 else c, c)
+            if SDXL_DEPTH[i]:
+                _spatial_transformer(m, f"down_blocks.{i}.attentions.{j}", c, SDXL_CROSS,
+                                     SDXL_DEPTH[i], linear=True)
+        skips += [c] * (2 if i == n - 1 else 3)
+        if i < n - 1:
+            _conv(m, f"down_blocks.{i}.downsamplers.0.conv", c, c, 3)
+    _resnet(m, "mid_block.resnets.0", ch[-1], ch[-1])
+    _spatial_transformer(m, "mid_block.attentions.0", ch[-1], SDXL_CROSS, SDXL_MID_DEPTH,
+                         linear=True)
+    _resnet(m, "mid_block.resnets.1", ch[-1], ch[-1])
+    cur = ch[-1]
+    for i, c in enumerate(reversed(ch)):
+        level = n - 1 - i
+        for j in range(3):
+            _resnet(m, f"up_blocks.{i}.resnets.{j}", (cur if j == 0 else c) + skips.pop(), c)
+            if SDXL_DEPTH[level]:
+                _spatial_transformer(m, f"up_blocks.{i}.attentions.{j}", c, SDXL_CROSS,
+                                     SDXL_DEPTH[level], linear=True)
+        if level:
+            _conv(m, f"up_blocks.{i}.upsamplers.0.conv", c, c, 3)
+        cur = c
+    _norm(m, "conv_norm_out", ch[0])
+    _conv(m, "conv_out", 4, ch[0], 3)
     return m
 
 
@@ -175,8 +231,20 @@ def sd15_vae_manifest() -> Manifest:
 
 def sd15_clip_manifest(include_position_ids: bool = True) -> Manifest:
     """transformers CLIPTextModel (openai/clip-vit-large-patch14) keys."""
+    return _clip_text(768, 3072, 12, include_position_ids)
+
+
+def sdxl_clip_2_manifest(include_position_ids: bool = True) -> Manifest:
+    """transformers CLIPTextModelWithProjection (SDXL's ``text_encoder_2``,
+    OpenCLIP ViT-bigG/14's text tower) keys: 32 layers of width 1280 and the
+    pooled ``text_projection`` (no bias)."""
+    m = _clip_text(1280, 5120, 32, include_position_ids)
+    m["text_projection.weight"] = (1280, 1280)
+    return m
+
+
+def _clip_text(D: int, FF: int, L: int, include_position_ids: bool) -> Manifest:
     m: Manifest = {}
-    D, FF, L = 768, 3072, 12
     m["text_model.embeddings.token_embedding.weight"] = (49408, D)
     m["text_model.embeddings.position_embedding.weight"] = (77, D)
     if include_position_ids:  # present in .bin-era exports; skipped on import

@@ -1,12 +1,24 @@
 """CLIP text encoder (openai/clip-vit-large-patch14 text model), port of
 ``cvd_tpu/models/clip_text.py``: input_ids [B, 77] -> last_hidden_state
-[B, 77, hidden]."""
+[B, 77, hidden].
+
+``encode`` gives what SDXL's pipeline takes from each of its two text
+encoders (CLIP-L and OpenCLIP ViT-bigG's text tower, transformers'
+``CLIPTextModel`` / ``CLIPTextModelWithProjection``): the penultimate
+layer's states, with no final LayerNorm, and, where the encoder has a
+``text_projection`` (``projection_dim`` > 0), the pooled embedding: the
+final-LayerNormed state at the first position of the largest id (the EOS
+token, as transformers picks it for a config whose ``eos_token_id`` is 2,
+bigG's) times ``text_projection``. ``hidden_act`` is CLIP-L's "quick_gelu"
+or bigG's "gelu" (exact erf)."""
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -19,10 +31,21 @@ class CLIPTextConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    # the pooled embedding's width (``text_projection``, no bias); 0: none
+    projection_dim: int = 0
+
+    def __post_init__(self):
+        if self.hidden_act not in ACTIVATIONS:
+            raise ValueError(f"hidden_act={self.hidden_act!r}: expected one of "
+                             f"{tuple(ACTIVATIONS)}")
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
 
 
 class CLIPAttention(nn.Module):
@@ -53,9 +76,10 @@ class CLIPMLP(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.act = ACTIVATIONS[cfg.hidden_act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -80,11 +104,30 @@ class CLIPTextEncoder(nn.Module):
             torch.zeros(c.max_position_embeddings, c.hidden_size))
         self.layers = nn.ModuleList([CLIPEncoderLayer(c) for _ in range(c.num_layers)])
         self.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.text_projection = (nn.Linear(c.hidden_size, c.projection_dim, bias=False)
+                                if c.projection_dim else None)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def _layers(self, input_ids: torch.Tensor, stop: Optional[int] = None):
+        """The states after the first ``stop`` layers (all without)."""
         B, L = input_ids.shape
         x = self.token_embedding(input_ids.long()) + self.position_embedding[:L]
         causal = torch.triu(torch.full((L, L), float("-inf"), device=x.device), diagonal=1)
-        for layer in self.layers:
+        for layer in self.layers[:stop]:
             x = layer(x, causal.to(x.dtype))
-        return self.final_layer_norm(x)
+        return x, causal
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.final_layer_norm(self._layers(input_ids)[0])
+
+    def encode(self, input_ids: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (the penultimate layer's states [B, L, hidden], the pooled
+        embedding [B, projection_dim] or None without a projection). The
+        last layer runs only for the pooled embedding."""
+        x, causal = self._layers(input_ids, -1)
+        if self.text_projection is None:
+            return x, None
+        last = self.final_layer_norm(self.layers[-1](x, causal.to(x.dtype)))
+        eos = input_ids.argmax(dim=-1)
+        pooled = last[torch.arange(last.shape[0], device=last.device), eos]
+        return x, self.text_projection(pooled)

@@ -394,22 +394,28 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Spatial transformer with 1x1-conv projections (SD1.5). Input
-    [N, H, W, C]; context [N, L, C_ctx]."""
+    """Spatial transformer of ``depth`` blocks with 1x1-conv projections
+    (SD1.5), or with ``linear_projection`` Linear ones (SDXL's
+    ``use_linear_projection``: state-dict shapes [C, C], not [C, C, 1, 1]).
+    Input [N, H, W, C]; context [N, L, C_ctx]."""
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int = 1,
                  cross_attention_dim: int = 768, groups: int = 32,
-                 extended_attention: bool = False, lora_rank: int = 0):
+                 extended_attention: bool = False, lora_rank: int = 0,
+                 linear_projection: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.norm = FusedGroupNorm(in_channels, groups, 1e-6)
-        self.proj_in = Conv2d(in_channels, inner, 1, 1, 0)
+        def proj(cin, cout):
+            return nn.Linear(cin, cout) if linear_projection else Conv2d(cin, cout, 1, 1, 0)
+
+        self.proj_in = proj(in_channels, inner)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim,
                                   extended_attention, lora_rank)
             for _ in range(depth)
         ])
-        self.proj_out = Conv2d(inner, in_channels, 1, 1, 0)
+        self.proj_out = proj(inner, in_channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, lora_scale: float = 1.0,
                 pab=None, mesh=None, frames: int = 1) -> torch.Tensor:

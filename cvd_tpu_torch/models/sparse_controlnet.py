@@ -95,7 +95,7 @@ class SparseControlNetModel(nn.Module):
         for i, c in enumerate(ch):
             is_final = i == len(ch) - 1
             down.append(CrossAttnDownBlock(
-                cfg, ch[max(i - 1, 0)], c, temb_dim, with_attn=not is_final,
+                cfg, ch[max(i - 1, 0)], c, temb_dim, cfg.depth(i), cfg.heads(i),
                 use_motion=True, use_epi=False, add_downsample=not is_final))
             res_channels += [c] * (cfg.layers_per_block + (0 if is_final else 1))
         self.down_blocks = nn.ModuleList(down)

@@ -19,6 +19,16 @@ names; ``pab`` is a request's Pyramid Attention Broadcast cache
 (``pipelines/pab.py``). Not ported: the layer scan
 (``scan_identical_layers``, an XLA compile lever).
 
+The SD1.5 widths are the defaults. SDXL's UNet (arXiv:2307.01952, the base
+model's ``unet/config.json``) sets ``transformer_layers_per_block`` (the
+spatial transformer's depth at each level, 0 for none: its first level has
+no attention), ``mid_transformer_layers``, ``spatial_heads`` (its
+``attention_head_dim``, which diffusers reads as the head count: heads 64
+wide, while the motion and epi modules keep ``attention_heads``),
+``use_linear_projection`` and the ``text_time`` added embedding: the pooled
+text and the six time ids (``added_cond``) through ``add_embedding`` into
+the time embedding. A UNet of n levels takes n pose features.
+
 ``fuse_first_frame`` adds the first-frame fusion blocks (``down_fusers.0``
 after ``conv_in``, ``mid_fuser`` after the mid block); a SparseCtrl model's
 residuals come in as ``down_block_additional_residuals`` /
@@ -48,6 +58,7 @@ from cvd_tpu_torch.models.layers import (
 )
 from cvd_tpu_torch.models.motion import MotionModule
 from cvd_tpu_torch.parallel.mesh import Mesh, all_gather
+from cvd_tpu_torch.utils.tracing import sublayer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +113,29 @@ class UNetConfig:
     remat_unit: str = "block"
     # what a checkpointed unit keeps for the backward (REMAT_POLICIES)
     remat_policy: str = ""
+    # the spatial transformer's depth per level, 0 for none; () is SD1.5's
+    # one block at every level but the last
+    transformer_layers_per_block: Tuple[int, ...] = ()
+    mid_transformer_layers: int = 1
+    # the spatial attentions' heads per level; (): ``attention_heads``
+    spatial_heads: Tuple[int, ...] = ()
+    # Linear proj_in / proj_out in the spatial transformers (SDXL)
+    use_linear_projection: bool = False
+    # "text_time" (SDXL): add_embedding(cat(pooled text, the sinusoids of
+    # the six time ids)) is added to the time embedding; "": none
+    addition_embed_type: str = ""
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
+
+    def depth(self, level: int) -> int:
+        """The spatial transformer's depth at ``level`` (0: none)."""
+        if self.transformer_layers_per_block:
+            return self.transformer_layers_per_block[level]
+        return int(level != len(self.block_out_channels) - 1)
+
+    def heads(self, level: int) -> int:
+        """The spatial attentions' heads at ``level``."""
+        return self.spatial_heads[level] if self.spatial_heads else self.attention_heads
 
     def __post_init__(self):
         # a typo would silently change the memory / recompute trade-off
@@ -110,6 +144,13 @@ class UNetConfig:
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={self.remat_policy!r}: expected one of "
                              f"{REMAT_POLICIES}")
+        n = len(self.block_out_channels)
+        for name in ("transformer_layers_per_block", "spatial_heads"):
+            if getattr(self, name) and len(getattr(self, name)) != n:
+                raise ValueError(f"{name}={getattr(self, name)}: one per level ({n})")
+        if self.addition_embed_type not in ("", "text_time"):
+            raise ValueError(f"addition_embed_type={self.addition_embed_type!r}: expected "
+                             "'' or 'text_time'")
 
 
 REMAT_UNITS = ("block", "layer")
@@ -233,20 +274,22 @@ class _Block(nn.Module):
     epi?, then an optional down/upsampler."""
 
     def __init__(self, cfg: UNetConfig, in_channels: Sequence[int], channels: int,
-                 temb_dim: int, with_attn: bool, use_motion: bool, use_epi: bool):
+                 temb_dim: int, depth: int, heads: int, use_motion: bool, use_epi: bool):
+        """``depth``: the spatial transformers' blocks (0: none), ``heads``
+        their heads."""
         super().__init__()
-        heads = cfg.attention_heads
         self.resnets = nn.ModuleList([
             ResnetBlock2D(c_in, channels, temb_dim, cfg.norm_num_groups)
             for c_in in in_channels])
         n = len(in_channels)
         self.attentions = nn.ModuleList([
-            Transformer2DModel(channels, heads, channels // heads,
+            Transformer2DModel(channels, heads, channels // heads, depth=depth,
                                cross_attention_dim=cfg.cross_attention_dim,
                                groups=cfg.norm_num_groups,
                                extended_attention=cfg.spatial_extended_attention,
-                               lora_rank=_lora_rank(cfg, channels))
-            for _ in range(n)]) if with_attn else None
+                               lora_rank=_lora_rank(cfg, channels),
+                               linear_projection=cfg.use_linear_projection)
+            for _ in range(n)]) if depth else None
         self.motion_modules = nn.ModuleList(
             [_motion(cfg, channels) for _ in range(n)]) if use_motion else None
         self.epi_modules = nn.ModuleList(
@@ -264,16 +307,19 @@ class _Block(nn.Module):
         B, Fr = x.shape[:2]
         h = unit(self.resnets[j], _fold(x), temb_f)
         if self.attentions is not None:
-            h = unit(self.attentions[j], h, context_f, lora_scale, pab, mesh, Fr)
+            with sublayer("unet.spatial"):
+                h = unit(self.attentions[j], h, context_f, lora_scale, pab, mesh, Fr)
         x = _unfold(h, B)
         if self.motion_modules is not None:
-            x = unit(self.motion_modules[j], x, pose_feature, pab, mesh)
+            with sublayer("unet.motion"):
+                x = unit(self.motion_modules[j], x, pose_feature, pab, mesh)
         if self.epi_modules is not None:
-            if qk is None:
-                x = unit(self.epi_modules[j], x, epi_cond, pab)
-            else:
-                x, maps = unit(_with_qk(self.epi_modules[j]), x, epi_cond, pab)
-                qk.extend(maps)
+            with sublayer("unet.epi"):
+                if qk is None:
+                    x = unit(self.epi_modules[j], x, epi_cond, pab)
+                else:
+                    x, maps = unit(_with_qk(self.epi_modules[j]), x, epi_cond, pab)
+                    qk.extend(maps)
         return x
 
     def last_qk(self, want_qk: bool, j: int) -> Optional[list]:
@@ -284,10 +330,10 @@ class _Block(nn.Module):
 
 
 class CrossAttnDownBlock(_Block):
-    def __init__(self, cfg, in_channels, channels, temb_dim, with_attn, use_motion,
+    def __init__(self, cfg, in_channels, channels, temb_dim, depth, heads, use_motion,
                  use_epi, add_downsample):
         super().__init__(cfg, [in_channels] + [channels] * (cfg.layers_per_block - 1),
-                         channels, temb_dim, with_attn, use_motion, use_epi)
+                         channels, temb_dim, depth, heads, use_motion, use_epi)
         self.downsamplers = (nn.ModuleList([Downsample2D(channels)])
                              if add_downsample else None)
 
@@ -309,7 +355,8 @@ class CrossAttnDownBlock(_Block):
 
 class MidBlock(_Block):
     def __init__(self, cfg, channels, temb_dim, use_motion, use_epi):
-        super().__init__(cfg, [channels], channels, temb_dim, True, use_motion, use_epi)
+        super().__init__(cfg, [channels], channels, temb_dim, cfg.mid_transformer_layers,
+                         cfg.heads(len(cfg.block_out_channels) - 1), use_motion, use_epi)
         self.resnets.append(ResnetBlock2D(channels, channels, temb_dim, cfg.norm_num_groups))
 
     def forward(self, x, temb_f, context_f, pose_feature, epi_cond, lora_scale=1.0, pab=None,
@@ -321,9 +368,9 @@ class MidBlock(_Block):
 
 
 class CrossAttnUpBlock(_Block):
-    def __init__(self, cfg, in_channels, channels, temb_dim, with_attn, use_motion,
+    def __init__(self, cfg, in_channels, channels, temb_dim, depth, heads, use_motion,
                  use_epi, add_upsample):
-        super().__init__(cfg, in_channels, channels, temb_dim, with_attn, use_motion,
+        super().__init__(cfg, in_channels, channels, temb_dim, depth, heads, use_motion,
                          use_epi)
         self.upsamplers = nn.ModuleList([Upsample2D(channels)]) if add_upsample else None
 
@@ -349,6 +396,9 @@ class UNet3DConditionModel(nn.Module):
         ch = cfg.block_out_channels
         temb_dim = ch[0] * 4
         self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+        if cfg.addition_embed_type:
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
+                                                   temb_dim)
         self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, 1, 1)
 
         if cfg.fuse_first_frame:
@@ -359,7 +409,7 @@ class UNet3DConditionModel(nn.Module):
         for i, c in enumerate(ch):
             is_final = i == len(ch) - 1
             down.append(CrossAttnDownBlock(
-                cfg, ch[max(i - 1, 0)], c, temb_dim, with_attn=not is_final,
+                cfg, ch[max(i - 1, 0)], c, temb_dim, cfg.depth(i), cfg.heads(i),
                 use_motion=cfg.use_motion_module and 2 ** i in cfg.motion_module_resolutions,
                 use_epi=cfg.use_epi_module and 2 ** i in cfg.epi_module_resolutions,
                 add_downsample=not is_final))
@@ -373,14 +423,15 @@ class UNet3DConditionModel(nn.Module):
         rev = list(reversed(ch))
         up, cur = [], rev[0]
         for i, c in enumerate(rev):
+            level = len(ch) - 1 - i
             n_layers = cfg.layers_per_block + 1
             skips = res_channels[-n_layers:][::-1]
             res_channels = res_channels[:-n_layers]
             in_chs = [(cur if j == 0 else c) + s for j, s in enumerate(skips)]
             up.append(CrossAttnUpBlock(
-                cfg, in_chs, c, temb_dim, with_attn=i != 0,
-                use_motion=cfg.use_motion_module and 2 ** (3 - i) in cfg.motion_module_resolutions,
-                use_epi=cfg.use_epi_module and 2 ** (3 - i) in cfg.epi_module_resolutions,
+                cfg, in_chs, c, temb_dim, cfg.depth(level), cfg.heads(level),
+                use_motion=cfg.use_motion_module and 2 ** level in cfg.motion_module_resolutions,
+                use_epi=cfg.use_epi_module and 2 ** level in cfg.epi_module_resolutions,
                 add_upsample=i != len(ch) - 1))
             cur = c
         self.up_blocks = nn.ModuleList(up)
@@ -415,7 +466,7 @@ class UNet3DConditionModel(nn.Module):
         sample: torch.Tensor,                    # [B, F, H, W, C_in]
         timesteps,                               # int, [] or [B]
         encoder_hidden_states: torch.Tensor,     # [B, L, cross_dim]
-        pose_features: Optional[Sequence[torch.Tensor]] = None,  # 4x [B, F, h, w, c]
+        pose_features: Optional[Sequence[torch.Tensor]] = None,  # a level each: [B, F, h, w, c]
         epi_cond: Optional[EpiConditioning] = None,
         remat: bool = False,
         lora_scale: float = 1.0,
@@ -424,6 +475,7 @@ class UNet3DConditionModel(nn.Module):
         mid_block_additional_residual: Optional[torch.Tensor] = None,
         return_extras: bool = False,
         mesh: Optional[Mesh] = None,
+        added_cond: Optional[dict] = None,
     ):
         """``remat``: recompute activations in the backward instead of
         keeping them, per the config's ``remat_unit`` and ``remat_policy``
@@ -441,7 +493,9 @@ class UNet3DConditionModel(nn.Module):
         (``parallel/mesh.py``) of which ``sample``, ``encoder_hidden_states``,
         the pose features and ``epi_cond`` (whose ``mesh`` it must be) hold
         this rank's block of batch rows and frames; the output is this
-        rank's block too."""
+        rank's block too. ``added_cond``: with ``addition_embed_type``
+        "text_time", {"text_embeds": [B, P] pooled text, "time_ids": [B, 6]
+        (original size, crop corner, target size)}."""
         cfg = self.config
         B, Fr = sample.shape[:2]
         if mesh is not None and (epi_cond is None or epi_cond.mesh is not mesh):
@@ -461,10 +515,19 @@ class UNet3DConditionModel(nn.Module):
             timesteps = timesteps.expand(B)
         t_emb = sinusoidal_time_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(t_emb.to(dtype))
+        if cfg.addition_embed_type:
+            if added_cond is None:
+                raise ValueError("addition_embed_type 'text_time' takes added_cond: "
+                                 "{'text_embeds', 'time_ids'}")
+            time_ids = added_cond["time_ids"]
+            time_embeds = sinusoidal_time_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim).reshape(time_ids.shape[0], -1)
+            add = torch.cat([added_cond["text_embeds"].to(dtype), time_embeds.to(dtype)], -1)
+            temb = temb + self.add_embedding(add)
         temb_f = temb.repeat_interleave(Fr, dim=0)
         context_f = encoder_hidden_states.to(dtype).repeat_interleave(Fr, dim=0)
         if pose_features is None:
-            pose_features = [None] * 4
+            pose_features = [None] * len(cfg.block_out_channels)
 
         def fuse(fuser, x):
             if mesh is None:

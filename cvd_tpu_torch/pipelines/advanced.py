@@ -192,7 +192,7 @@ class AdvancedPipeline:
         dtype = m.unet.conv_in.weight.dtype
         V, Fr, H, W, _ = plucker.shape
         with tracing.span("sample.text_encoder"):
-            uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
+            uncond, cond, _, _ = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
         inputs = {"text": constrain(torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1)
                                     .to(dtype), mesh, "rows")}
         with tracing.span("sample.pose_encoder"):

@@ -1,10 +1,14 @@
 """Shared pipeline machinery: the module bundle, text encoding, VAE encode
-and decode (port of ``cvd_tpu/pipelines/common.py``)."""
+and decode (port of ``cvd_tpu/pipelines/common.py``). A bundle with a
+second text encoder (``clip_2``: SDXL's OpenCLIP bigG) conditions as SDXL's
+pipeline does: both encoders' penultimate states joined along the width,
+and the second's pooled embedding. The latents' scale is the VAE's
+``scaling_factor`` (SD's 0.18215, SDXL's 0.13025)."""
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -16,8 +20,6 @@ from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
 from cvd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from cvd_tpu_torch.schedulers import DDIMScheduler
 from cvd_tpu_torch.utils import tracing
-
-VAE_SCALE = 0.18215
 
 
 @torch.no_grad()
@@ -87,6 +89,8 @@ class PipelineModules:
     # down / mid additional-residual inputs. No pipeline consumes it, as in
     # the JAX package (common.py:38-41)
     controlnet: Optional[nn.Module] = None
+    # SDXL's second text encoder (``encode_prompt``); None: CLIP alone
+    clip_2: Optional[CLIPTextEncoder] = None
 
     @classmethod
     def create(
@@ -102,6 +106,7 @@ class PipelineModules:
         pose_encoder_kwargs: Optional[dict] = None,
         scheduler: Optional[DDIMScheduler] = None,
         unet_dtype: Optional[torch.dtype] = None,
+        clip_2_config: Optional[CLIPTextConfig] = None,
     ) -> "PipelineModules":
         """Build the bundle on ``device``. With ``generator`` the weights are
         initialized from it, on the generator's device: ``default_init_``
@@ -117,7 +122,8 @@ class PipelineModules:
         VAE's encoder (training); ``pose_encoder_kwargs`` and ``scheduler``
         are a model config's (``io/model_config.py``); ``unet_dtype`` is the
         UNet's where it differs from ``dtype`` (training holds it in f32
-        until ``create_train_state`` casts its frozen part)."""
+        until ``create_train_state`` casts its frozen part); ``clip_2_config``
+        adds the second text encoder (SDXL)."""
         if random_full and generator is None:
             raise ValueError("random_full needs a generator")
         unet_config = unet_config or UNetConfig()
@@ -129,6 +135,8 @@ class PipelineModules:
                 CameraPoseEncoder(channels=unet_config.block_out_channels,
                                   **(pose_encoder_kwargs or {})),
             ]
+            if clip_2_config is not None:
+                mods.append(CLIPTextEncoder(clip_2_config))
         out = []
         for m in mods:
             m = m.to_empty(device=device)
@@ -143,13 +151,26 @@ class PipelineModules:
             if torch.device(device).type == "cuda":
                 m = m.to(memory_format=torch.channels_last)
             out.append(m)
-        return cls(*out, scheduler or DDIMScheduler())
+        return cls(*out[:4], scheduler or DDIMScheduler(),
+                   clip_2=out[4] if len(out) > 4 else None)
 
 
 def encode_prompt(modules: PipelineModules, prompt_ids: torch.Tensor,
-                  negative_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (uncond, cond) embeddings, each [B, 77, hidden]."""
-    return modules.clip(negative_ids), modules.clip(prompt_ids)
+                  negative_ids: torch.Tensor) -> tuple:
+    """-> (uncond, cond) embeddings, each [B, 77, hidden], and (uncond,
+    cond) pooled embeddings, None without ``clip_2``. With ``clip_2`` the
+    embeddings are both encoders' penultimate states joined along the width
+    (SDXL), the pooled ones the second's; both encoders take the same ids."""
+    if modules.clip_2 is None:
+        return modules.clip(negative_ids), modules.clip(prompt_ids), None, None
+    states, pools = [], []
+    for ids in (negative_ids, prompt_ids):
+        first, _ = modules.clip.encode(ids)
+        with tracing.span("sample.text_encoder_2"):
+            second, pool = modules.clip_2.encode(ids)
+        states.append(torch.cat([first, second.to(first.dtype)], dim=-1))
+        pools.append(pool)
+    return (*states, *pools)
 
 
 def decode_latents(modules: PipelineModules, latents: torch.Tensor,
@@ -162,7 +183,7 @@ def decode_latents(modules: PipelineModules, latents: torch.Tensor,
     B, Fr, h, w, c = latents.shape
     dtype = modules.vae.post_quant_conv.weight.dtype
     with tracing.device_span("sample.decode", latents.device):
-        z = (latents.reshape(B * Fr, h, w, c) / VAE_SCALE).to(dtype)
+        z = (latents.reshape(B * Fr, h, w, c) / modules.vae.config.scaling_factor).to(dtype)
         imgs = modules.vae.decode(z).float()
         imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
     return imgs.reshape(B, Fr, *imgs.shape[1:])
@@ -177,4 +198,4 @@ def encode_images(modules: PipelineModules, images: torch.Tensor,
     dtype = modules.vae.quant_conv.weight.dtype
     z = [modules.vae.sample_posterior(images[i:i + frame_chunk].to(dtype), generator).float()
          for i in range(0, images.shape[0], frame_chunk)]
-    return torch.cat(z) * VAE_SCALE
+    return torch.cat(z) * modules.vae.config.scaling_factor

@@ -13,6 +13,12 @@
   denoised as ``multidiff_total_steps`` overlapping windows per step, their
   noise predictions averaged where they overlap (simple.py:151-217);
 * Pyramid Attention Broadcast (``pipelines/pab.py``), not with multidiff;
+* SDXL's added conditioning where the UNet takes it (``text_time``): the
+  pooled text of the 4 CFG rows and their time ids (the image's size, no
+  crop, the same size as the target), inputs of every UNet call;
+* the UNet call's sublayers timed by kind (``utils/tracing.SublayerTimer``,
+  kept by the captured graph) and recorded as device spans where tracing
+  is on;
 * a whole-video VAE decode;
 * sharded sampling over a ("rows", "frames") mesh (``parallel/mesh.py``,
   SPMD over ``torchrun``'s processes): every rank encodes the text and the
@@ -37,7 +43,7 @@ from cvd_tpu_torch.pipelines.pab import PABCache
 from cvd_tpu_torch.pipelines.program import SamplingProgram, chunks
 from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
 from cvd_tpu_torch.utils import tracing
-from cvd_tpu_torch.utils.tracing import SpanTimer
+from cvd_tpu_torch.utils.tracing import SpanTimer, SublayerTimer
 
 
 def _cfg4(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +70,8 @@ class SimplePipeline:
         # wall time of each UNet call of the last run, in ms (CUDA events on
         # the card, the host clock on the CPU; a replay's time over its calls)
         self.unet_step_ms: List[float] = []
+        # the last UNet call's sublayers by kind
+        self.sublayers = SublayerTimer(self.program.device)
 
     @torch.no_grad()
     def __call__(
@@ -132,6 +140,7 @@ class SimplePipeline:
                                        timer, eager=eager)
         self.unet_step_ms = timer.elapsed_ms()
         out = decode_latents(m, latents, mesh) if decode else latents
+        self.sublayers.record()
         tracing.next_unit()
         return out
 
@@ -146,8 +155,14 @@ class SimplePipeline:
         dtype = m.unet.conv_in.weight.dtype
         _, Fr, H, W, _ = plucker.shape
         with tracing.span("sample.text_encoder"):
-            uncond, cond = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
+            uncond, cond, uncond_pool, cond_pool = encode_prompt(
+                m, prompt_ids.to(device), negative_ids.to(device))
         inputs = {"text": torch.cat([uncond, cond, uncond, cond], dim=0).to(dtype)}
+        if m.unet.config.addition_embed_type:
+            inputs["add_text"] = torch.cat([uncond_pool, cond_pool] * 2, dim=0).to(dtype)
+            # (original H, W, crop top, left, target H, W), as SDXL's pipeline
+            inputs["add_time"] = torch.tensor([[H, W, 0, 0, H, W]] * 4, dtype=torch.float32,
+                                              device=device)
         # the pose encoder in its own dtype: a training bundle's (validation)
         # differs from the UNet's bf16 frozen weights
         pose_dtype = m.pose_encoder.encoder_conv_in.weight.dtype
@@ -194,6 +209,9 @@ class SimplePipeline:
 
         starts = [w * s.stride for w in range(s.windows)]
         conds = [window_cond(w) for w in starts]
+        added = ({"text_embeds": constrain(bufs["add_text"], mesh, "rows"),
+                  "time_ids": constrain(bufs["add_time"], mesh, "rows")}
+                 if "add_text" in bufs else None)
         latents, calls = bufs["latents"], 0
         for j in range(len(repeats)):
             t = ts[j]
@@ -201,10 +219,10 @@ class SimplePipeline:
                 pab.at_step(start + j)
             eps_full = torch.zeros_like(latents)
             for w, (pf, epi_cond) in zip(starts, conds):
-                with timer:
+                with timer, self.sublayers:
                     lat_in = constrain(_cfg4(latents[:, w:w + s.window]), mesh, "rows", "frames")
                     eps = m.unet(lat_in, t, constrain(text, mesh, "rows"), pf, epi_cond,
-                                 pab=pab, mesh=mesh)
+                                 pab=pab, mesh=mesh, added_cond=added)
                     eps = gather(eps, mesh, "rows", "frames").float()
                 calls += 1
                 # chunk(4): uncond rows (0, 2), cond rows (1, 3)

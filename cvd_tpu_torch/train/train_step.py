@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from cvd_tpu_torch.models.epi import EpiConditioning
-from cvd_tpu_torch.pipelines.common import VAE_SCALE, PipelineModules, encode_images
+from cvd_tpu_torch.pipelines.common import PipelineModules, encode_images
 from cvd_tpu_torch.schedulers.ddim import DDIMState
 from cvd_tpu_torch.train.losses import epi_distance_loss, masked_mse_loss
 from cvd_tpu_torch.train.state import TrainState
@@ -155,7 +155,7 @@ class StepBody:
                 std = torch.exp(0.5 * batch["latent_logvar"].to(device=device,
                                                                  dtype=torch.float32))
                 latents = (mean + std * _draw(torch.randn, mean.shape, generator, device)
-                           ) * VAE_SCALE
+                           ) * m.vae.config.scaling_factor
             else:
                 px = batch["pixel_values"].to(device)
                 B, F = px.shape[:2]

@@ -29,7 +29,10 @@ step's phases, timed by ``PhaseTimer``'s marks inside its CUDA graph.
 spans and what reads each are listed in PERF.md, section 3.
 
 ``SpanTimer`` is always on: CUDA events around each UNet call or replay,
-read by the samplers' ``unet_step_ms``.
+read by the samplers' ``unet_step_ms``. ``SublayerTimer`` brackets the
+sublayers of a UNet call by kind (``unet.spatial``, ``unet.motion``,
+``unet.epi``) with marks made as ``PhaseTimer``'s, which the 2-view
+sampler's timestep body records, so a captured graph keeps them.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ class _State:
         self.spans: List[dict] = []
         self.device: List[dict] = []
         self.local = threading.local()
+        self.sublayers: Optional["SublayerTimer"] = None   # the UNet call's, where one is timed
 
     def stack(self) -> list:
         stack = getattr(self.local, "stack", None)
@@ -246,3 +250,67 @@ class SpanTimer:
             torch.cuda.synchronize(self.device)
         spans = [_ms(a, b) for a, b in zip(self.marks[::2], self.marks[1::2])]
         return [ms / n for ms, n in zip(spans, self.calls) for _ in range(n)]
+
+
+class SublayerTimer:
+    """Marks around each sublayer of one UNet call, summed by kind: inside
+    ``with timer:`` (the call) every ``sublayer(kind)`` takes the next pair
+    of marks in the call's order, made on first use as ``PhaseTimer``'s
+    (CUDA events created ``external``: a capture keeps them as nodes of its
+    graph, so every replay records them). ``elapsed_ms`` reads the last
+    call's marks: {kind: ms}. On the CPU the marks are the host clock."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.pairs: List[list] = []     # [kind, start, end] in the call's order
+        self.used = 0
+
+    def __enter__(self):
+        self.used = 0
+        _STATE.sublayers = self
+        return self
+
+    def __exit__(self, *exc):
+        _STATE.sublayers = None
+
+    def _mark(self, pair: list, i: int) -> None:
+        if self.cuda:
+            pair[i].record()
+        else:
+            pair[i] = time.perf_counter()
+
+    @contextlib.contextmanager
+    def span(self, kind: str):
+        if self.used == len(self.pairs):
+            marks = ([torch.cuda.Event(enable_timing=True, external=True) for _ in range(2)]
+                     if self.cuda else [0.0, 0.0])
+            self.pairs.append([kind, *marks])
+        pair = self.pairs[self.used]
+        pair[0] = kind
+        self.used += 1
+        self._mark(pair, 1)
+        yield
+        self._mark(pair, 2)
+
+    def elapsed_ms(self) -> Dict[str, float]:
+        """Each kind's time in the last call, in ms (waits for its marks)."""
+        pairs = self.pairs[:self.used]
+        if self.cuda and pairs:
+            pairs[-1][2].synchronize()
+        out: Dict[str, float] = {}
+        for kind, a, b in pairs:
+            out[kind] = out.get(kind, 0.0) + _ms(a, b)
+        return out
+
+    def record(self) -> None:
+        """The last call's kinds as device spans, where tracing is on."""
+        if active():
+            for name, ms in self.elapsed_ms().items():
+                record(name, ms)
+
+
+def sublayer(kind: str):
+    """A sublayer of the UNet call being timed (``SublayerTimer``), or the
+    null context where none is."""
+    timer = _STATE.sublayers
+    return _NULL if timer is None else timer.span(kind)

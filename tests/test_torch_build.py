@@ -307,7 +307,7 @@ def test_no_weights_source_raises_naming_both():
 
 @pytest.mark.parametrize("mode", ["random_weights", "random_weights_full"])
 @pytest.mark.parametrize("option", ["ori_model_path", "motion_module_ckpt", "motion_lora_ckpt",
-                                    "epi_module_ckpt", "pose_adaptor_ckpt", "model_config"])
+                                    "epi_module_ckpt", "pose_adaptor_ckpt"])
 def test_random_weights_refuse_a_weight_option(mode, option):
     """It would be ignored: the random-weights branch reads no file."""
     from cvd_tpu_torch.cli.build import build_modules
@@ -315,6 +315,31 @@ def test_random_weights_refuse_a_weight_option(mode, option):
     args = model_args({option: "/nonexistent/file"}, **{mode: True})
     with pytest.raises(ValueError, match=f"--{option}"):
         build_modules(args, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("edit", [False, True], ids=["released", "edited"])
+def test_random_weights_take_a_model_config(edit, tmp_path):
+    """A model config is a layout, not weights: random weights are drawn at
+    the smoke widths with the modules and scheduler it sets."""
+    import yaml
+
+    from cvd_tpu_torch.cli.build import build_modules
+
+    path = MODEL_CONFIG
+    if edit:
+        raw = yaml.safe_load(open(MODEL_CONFIG))
+        raw["unet_additional_kwargs"]["motion_module_resolutions"] = [1, 2]
+        raw["noise_scheduler_kwargs"]["beta_schedule"] = "scaled_linear"
+        path = str(tmp_path / "edited.yaml")
+        open(path, "w").write(yaml.safe_dump(raw))
+    m, _ = build_modules(model_args({"model_config": path}, random_weights=True),
+                         torch.device("cpu"))
+    cfg = m.unet.config
+    assert cfg.block_out_channels == SMOKE_WIDTHS[0].block_out_channels and m.clip_2 is None
+    assert cfg.motion_module_resolutions == ((1, 2) if edit else (1, 2, 4, 8))
+    assert m.scheduler.beta_schedule == ("scaled_linear" if edit else "linear")
+    assert [b.motion_modules is not None for b in m.unet.down_blocks] == (
+        [True, True, False, False] if edit else [True] * 4)
 
 
 def test_a_pickle_that_weights_only_refuses_is_read_with_a_warning(tmp_path):

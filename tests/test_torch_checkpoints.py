@@ -188,6 +188,19 @@ def full_size():
     return PipelineModules.create(device="meta", vae_encoder=True)
 
 
+@pytest.fixture(scope="module")
+def sdxl_full_size():
+    """The SDXL-backbone bundle of ``configs/sdxl_inference_config.yaml`` on
+    ``meta``."""
+    from cvd_tpu_torch.cli.build import SD15_WIDTHS, _model_config
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    unet, vae, clip, clip_2, pose, _ = _model_config(
+        os.path.join(REPO, "configs", "sdxl_inference_config.yaml"), *SD15_WIDTHS)
+    return PipelineModules.create(unet, vae, clip, device="meta", pose_encoder_kwargs=pose,
+                                  clip_2_config=clip_2)
+
+
 def _manifest_cases():
     from cvd_tpu_torch.io import manifests as M
     from cvd_tpu_torch.io.checkpoints import clip_rename, vae_legacy_rename
@@ -200,6 +213,8 @@ def _manifest_cases():
         "sd15_vae": ("vae", M.sd15_vae_manifest(), vae_legacy_rename, 248),
         "sd15_clip": ("clip", M.sd15_clip_manifest(), clip_rename, 197),
         "pose_encoder": ("pose_encoder", M.cameractrl_pose_encoder_manifest(), None, 150),
+        "sdxl_unet": ("unet", M.sdxl_unet_manifest(), None, 1680),
+        "sdxl_clip_2": ("clip_2", M.sdxl_clip_2_manifest(), clip_rename, 518),
     }
 
 
@@ -215,15 +230,16 @@ _LORA_CASES = {
 @pytest.mark.parametrize("artifact", ["sd15_unet", "motion_module", "epi_module",
                                       "attention_processor", "sd15_vae", "sd15_clip",
                                       "pose_encoder", *_LORA_CASES, "sparsectrl",
-                                      "sparsectrl_simplified"])
-def test_manifest_keys_are_the_ports_state_dict_keys(artifact, full_size):
+                                      "sparsectrl_simplified", "sdxl_unet", "sdxl_clip_2"])
+def test_manifest_keys_are_the_ports_state_dict_keys(artifact, full_size, request):
     """Every key of the manifest, after its rename, is a key of the port's
     full-size ``state_dict()`` with the same shape, or a named skipped
     buffer: held key by key, not through the importer. The sync-LoRA (ranks
     4 and 32) and the image LoRA (``--image_lora_rank 2``) against a
     ``meta`` UNet built with them, which has no other LoRA key; SparseCtrl
     (both layouts) against a ``meta`` ``SparseControlNetModel`` of the same
-    layout, which the file fills whole."""
+    layout, which the file fills whole. The SDXL UNet and ``text_encoder_2``
+    against the bundle of ``configs/sdxl_inference_config.yaml``."""
     from cvd_tpu_torch.io import manifests as M
     from cvd_tpu_torch.io.checkpoints import SKIP_SUBSTRINGS
     from cvd_tpu_torch.models.sparse_controlnet import SparseControlNetModel
@@ -255,6 +271,8 @@ def test_manifest_keys_are_the_ports_state_dict_keys(artifact, full_size):
         return
     name, manifest, rename, n_keys = _manifest_cases()[artifact]
     assert len(manifest) == n_keys
+    if artifact.startswith("sdxl"):
+        full_size = request.getfixturevalue("sdxl_full_size")
     sd = getattr(full_size, name).state_dict()
     skipped = 0
     for key, shape in manifest.items():
@@ -264,7 +282,8 @@ def test_manifest_keys_are_the_ports_state_dict_keys(artifact, full_size):
             continue
         assert key in sd, f"{artifact}: the port has no {key}"
         assert tuple(sd[key].shape) == tuple(shape), key
-    want_skipped = {"motion_module": 40, "sd15_clip": 1, "pose_encoder": 8}.get(artifact, 0)
+    want_skipped = {"motion_module": 40, "sd15_clip": 1, "pose_encoder": 8,
+                    "sdxl_clip_2": 1}.get(artifact, 0)
     assert skipped == want_skipped
     if name != "unet":   # one artifact fills the whole module
         assert len(sd) == len(manifest) - skipped
@@ -305,10 +324,11 @@ def test_manifests_are_cvd_tpus(name):
     from cvd_tpu_torch.io import manifests as PM
 
     assert getattr(PM, name)() == getattr(JM, name)()
-    # the port adds the image LoRA's, which cvd_tpu has none of
+    # the port adds the image LoRA's and the SDXL backbone's, which cvd_tpu has none of
     assert [n for n in dir(JM) if n.endswith("_manifest") and not n.startswith("_")] == \
         [n for n in dir(PM) if n.endswith("_manifest") and not n.startswith("_")
-         and n != "cameractrl_image_lora_manifest"]
+         and n not in ("cameractrl_image_lora_manifest", "sdxl_clip_2_manifest",
+                       "sdxl_unet_manifest")]
 
 
 def test_random_state_has_the_manifests_layout():
@@ -726,6 +746,14 @@ def test_load_model_config_matches_jax_field_by_field():
     pc, ppose, psched, pextra = load_model_config(path, F_mat_size=256)
     mine = dataclasses.asdict(pc)
     theirs = dataclasses.asdict(jc)
+    # the SDXL backbone's fields, which cvd_tpu has none of, keep SD1.5's values
+    sdxl = ("transformer_layers_per_block", "mid_transformer_layers", "spatial_heads",
+            "use_linear_projection", "addition_embed_type", "addition_time_embed_dim",
+            "projection_class_embeddings_input_dim")
+    from cvd_tpu_torch.models.unet import UNetConfig
+
+    assert {f: mine.pop(f) for f in sdxl} == {f: getattr(UNetConfig(), f) for f in sdxl}
+    assert pextra["backbone"] is None
     assert len(mine) >= 20 and set(mine) <= set(theirs)
     for field, value in mine.items():
         assert value == theirs[field], field
