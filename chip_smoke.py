@@ -25,7 +25,9 @@ Phases (any failure raises and exits non-zero):
    rows; K1 routed by a random perfect matching of 4 and of 6 views over
    interleaved CFG rows, and by the two offset groups of
    ``accumulate_batched``) and at the kernels' edges (64 tokens, head_dim 160, a
-   ragged key length, a ragged token count; for GroupNorm every kind of
+   ragged key length, a ragged token count; for K5 each case names its
+   route (``kernel_route``), and the wide route is held at T 4104, K 1288,
+   T 64, T 1024 and on a strided x at C 1280; for GroupNorm every kind of
    slab of the UNet, C/G off a power of two, the first-frame fusion blocks'
    (60 rows = 4 CFG rows x 15 frames: C 640 / 960 at S 1024, C 2560 / 3840
    at S 16, SiLU, eps 1e-6, timed), and which path each shape takes), and
@@ -689,15 +691,23 @@ def _cases(torch, dtype, g, mesh=False):
                 launch=gn_launch if p.one_pass else None, library=gn_library, library_call="2 calls: group_norm + silu on [R, C, S]",
                 work=(*work.group_norm(R, S, C, size), "float32")))
     # T = 131072 and 262144 tokens: the N-view sampler's 128 and 256 frame rows at res 32
-    for T, C, Ks in ((65536, 320, (2560,)), (65536, 320, (320, 320, 320)), (16384, 640, (5120,)),
-                     (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320)),
-                     (131072, 320, (2560,)), (262144, 320, (2560,)),
-                     (8192, 1280, (1280, 1280, 1280)), (49152, 320, (2560,)),
-                     # SDXL at 512 px: the motion / epi modules at res 64, the
-                     # transformers at res 32 and 16
-                     (262144, 320, (320, 320, 320)), (65536, 640, (640, 640, 640)),
-                     (16384, 1280, (1280, 1280, 1280)), (16384, 1280, (10240,))):
-        x = randn(T, C)
+    for T, C, Ks, *strided in (
+            (65536, 320, (2560,)), (65536, 320, (320, 320, 320)), (16384, 640, (5120,)),
+            (4096, 1280, (1280, 1280, 1280)), (1000, 320, (320, 320, 320)),
+            (131072, 320, (2560,)), (262144, 320, (2560,)),
+            (8192, 1280, (1280, 1280, 1280)), (49152, 320, (2560,)),
+            # SDXL at 512 px: the motion / epi modules at res 64, the
+            # transformers at res 32 and 16
+            (262144, 320, (320, 320, 320)), (65536, 640, (640, 640, 640)),
+            (16384, 1280, (1280, 1280, 1280)), (16384, 1280, (10240,)),
+            (16384, 1280, (1280,)), (65536, 640, (5120,)),
+            # the wide route's edges: T off the 128-row tile, K off the
+            # 256-column tile, one row of tiles, few tokens, a row stride > C
+            (4104, 1280, (3840,)), (4096, 1280, (1288,)),
+            (64, 1280, (1280, 1280, 1280)), (1024, 1280, (10240,)),
+            (4104, 1280, (1280, 1280, 1280), "strided")):
+        # strided: the tokens as a view of wider rows (row stride 2C), uncopied by the wrapper
+        x = randn(T, 2 * C)[:, C:] if strided else randn(T, C)
         gam, bet = randn(C, scale=0.5, shift=1.0), randn(C, scale=0.1)
         ws = [randn(K, C, scale=1.0 / math.sqrt(C)) for K in Ks]
         bs = [None] * len(Ks) if len(Ks) > 1 else [randn(Ks[0], scale=0.1)]
@@ -711,8 +721,9 @@ def _cases(torch, dtype, g, mesh=False):
             b_all = None if bs[0] is None else torch.cat(bs)
             return lambda: F.linear(F.layer_norm(x, (x.shape[-1],), gam, bet, 1e-5), w_all, b_all)
 
+        route = ln_matmul.kernel_route(T, C, sum(Ks), str(dtype)[6:])
         cases.append(_case(
-            "layer_norm_matmul", f"T{T} C{C} K{sum(Ks)}",
+            "layer_norm_matmul", f"T{T} C{C} K{sum(Ks)}{' strided x' if strided else ''} [{route}]",
             lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
             torch.cat(ln_matmul.layer_norm_matmul(x, gam, bet, ws, bs), -1),
             lambda x=x, gam=gam, bet=bet, ws=ws, bs=bs:
@@ -2528,6 +2539,8 @@ def phase_slice(torch):
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
+    k5 = wrappers["layer_norm_matmul"]
+    k5.routes = dict.fromkeys(k5.routes, 0)
     t0 = time.perf_counter()
     records = inference.main(args)
     torch.cuda.synchronize()
@@ -2545,7 +2558,8 @@ def phase_slice(torch):
             f"{prog['captures']} capture(s) in {prog['capture_s']:.2f} s, warm-up UNet calls "
             f"{prog['warmup_calls']}")
     log(f"[slice] 2 requests in {seconds:.2f} s (module build included), "
-        f"peak allocated {peak / 2**30:.2f} GiB, launches {launches}")
+        f"peak allocated {peak / 2**30:.2f} GiB, launches {launches}, K5's "
+        f"{launches['layer_norm_matmul']} by route {k5.routes}")
     missing = [n for n in FORWARD if launches[n] == 0]
     if len(records) != 2 or missing:
         raise RuntimeError(f"kernels not launched on the main path: {missing}")

@@ -35,7 +35,31 @@ _SIGNATURE = {"ln_matmul_fwd": [
     _build.I, _build.I, _build.I, _build.F, _build.P,
 ]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_C_BF16 = 1280  # the widest token panel the bf16 kernel holds in shared memory
+_MAX_C_BF16 = 1280  # the widest token the bf16 kernels take
+_PANEL_MAX_C = 320  # the widest token of the 128-row panel kernel
+
+
+def kernel_route(T: int, C: int, K: int, dtype: str) -> str:
+    """Which device kernel K5 launches for T tokens of C channels into K
+    outputs in ``dtype`` ("float32" or "bfloat16"): ``"panel"``
+    (``ln_matmul_bf16_kernel<PANEL, TNW>``: a block's tokens held whole in
+    shared memory, up to C 320), ``"wide"`` (``ln_matmul_bf16_kernel_wide_stats``
+    then ``ln_matmul_bf16_kernel_wide``: 128-token tiles with x and W'
+    streamed, C 328 to 1280, any T) or ``"f32"`` (``ln_stats_kernel`` +
+    ``ln_matmul_f32_kernel``). Raises where the wrapper raises. Plain
+    arithmetic on the shapes, nothing else."""
+    if dtype not in ("float32", "bfloat16"):
+        raise TypeError(f"ln_matmul kernel takes f32 or bf16, got {dtype}")
+    if T < 0 or C < 1 or K < 1:
+        raise ValueError(f"ln_matmul kernel: no route for T={T} C={C} K={K}")
+    if C % (4 if dtype == "float32" else 8):
+        raise ValueError(f"C={C} is not a multiple of 16 bytes")
+    if dtype == "float32":
+        return "f32"
+    if C > _MAX_C_BF16 or K % 8:
+        raise ValueError(f"the bf16 ln_matmul kernel takes C <= {_MAX_C_BF16} and K a "
+                         f"multiple of 8, got C={C} K={K}")
+    return "wide" if C > _PANEL_MAX_C else "panel"
 
 
 def fold_weights(gamma: torch.Tensor, beta: torch.Tensor,
@@ -111,22 +135,18 @@ def _launch(x2, w_folded, b_folded, eps):
         raise TypeError(f"ln_matmul kernel takes f32 or bf16, got {x2.dtype}")
     T, C = x2.shape
     K = w_folded.shape[0]
-    if C % (16 // x2.element_size()):
-        raise ValueError(f"C={C} is not a multiple of 16 bytes")
-    bf16 = x2.dtype == torch.bfloat16
-    if bf16 and (C > _MAX_C_BF16 or K % 8):
-        raise ValueError(f"the bf16 ln_matmul kernel takes C <= {_MAX_C_BF16} and K a "
-                         f"multiple of 8, got C={C} K={K}")
+    route = kernel_route(T, C, K, str(x2.dtype)[6:])  # raises on what no kernel takes
     if x2.stride(-1) != 1 or (x2.stride(0) * x2.element_size()) % 16 or x2.data_ptr() % 16:
         x2 = x2.contiguous()
     out = torch.empty((T, K), device=x2.device, dtype=x2.dtype)
-    # per-token mean / rstd scratch: the f32 path only (bf16 keeps them on chip)
-    stats = None if bf16 else torch.empty((T, 2), device=x2.device, dtype=torch.float32)
+    # per-token mean / rstd scratch: the f32 and wide paths (the panel keeps them on chip)
+    stats = None if route == "panel" else torch.empty((T, 2), device=x2.device,
+                                                      dtype=torch.float32)
     lib = _build.library("ln_matmul_fwd", _SIGNATURE)
     err = lib.ln_matmul_fwd(
         _DTYPES[x2.dtype], x2.data_ptr(), x2.stride(0), w_folded.data_ptr(),
-        b_folded.data_ptr(), None if bf16 else stats.data_ptr(), out.data_ptr(), out.stride(0),
-        T, C, K, eps, torch.cuda.current_stream(x2.device).cuda_stream,
+        b_folded.data_ptr(), None if stats is None else stats.data_ptr(), out.data_ptr(),
+        out.stride(0), T, C, K, eps, torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(err, "ln_matmul_fwd")
     return out
@@ -182,9 +202,13 @@ def layer_norm_matmul(
         else:
             out = _fused(x, gamma, beta, weights, biases, float(eps))
         layer_norm_matmul.launches += 1
+        route = kernel_route(x.numel() // x.shape[-1], x.shape[-1], out.shape[-1],
+                             str(x.dtype)[6:])
+        layer_norm_matmul.routes[route] += 1
     else:
         raise ValueError(f"layer_norm_matmul: no kernel for {x.device}")
     return tuple(torch.split(out, sizes, dim=-1))
 
 
 layer_norm_matmul.launches = 0
+layer_norm_matmul.routes = {"panel": 0, "wide": 0, "f32": 0}  # launches by kernel_route

@@ -20,7 +20,8 @@ training programs.
 * **Capture with launch bookkeeping**: the op wrappers count their launches
   in Python and a replay runs no Python, so a capture's counts are taken
   back (nothing launched then) and kept by the graph, and every replay
-  adds them again (``add_launches``). The warm-up's launches are real.
+  adds them again (``add_launches``); K5's counts by route with them. The
+  warm-up's launches are real.
 * **One memory pool** for all of a program's graphs: safe because nothing
   that must outlive a replay is allocated while capturing.
 * **Eager runs and host generators**: why a program runs eagerly is
@@ -41,14 +42,30 @@ NO_TIMER = contextlib.nullcontext()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in counted_wrappers().items()}
+    """The wrappers' launch counts by name, and by ``<name>/<route>`` those of
+    a wrapper that counts its launches by route too (K5's ``routes``)."""
+    counts = {}
+    for name, fn in counted_wrappers().items():
+        counts[name] = fn.launches
+        for route, n in getattr(fn, "routes", {}).items():
+            counts[f"{name}/{route}"] = n
+    return counts
+
+
+def _set_count(name: str, n: int) -> None:
+    wrapper, _, route = name.partition("/")
+    fn = counted_wrappers()[wrapper]
+    if route:
+        fn.routes[route] = n
+    else:
+        fn.launches = n
 
 
 def add_launches(launches: Dict[str, int], into: Optional[Dict[str, int]] = None) -> None:
     """A replay's launches, added to the wrappers' counts (and to ``into``)."""
-    wrappers = counted_wrappers()
+    counts = launch_counts()
     for name, n in launches.items():
-        wrappers[name].launches += n
+        _set_count(name, counts[name] + n)
         if into is not None:
             into[name] += n
 
@@ -146,9 +163,8 @@ class GraphOwner:
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             out = fn()
         after = launch_counts()
-        wrappers = counted_wrappers()
         for name, n in before.items():     # nothing launched while capturing
-            wrappers[name].launches = n
+            _set_count(name, n)
         if self._pool is None:
             self._pool = graph.pool()
         return graph, out, {n: after[n] - before[n] for n in before}

@@ -32,8 +32,8 @@ For each named kernel (default: all) it
 ``--phases`` also builds K5 with ``-DLNMM_PROF`` and prints the clock cycles a
 block spends per phase (panel copy, standardization, product loop; inside
 the loop: epilogue, waits for copies, waits for wgmma), as warpgroup 0's
-thread 0 sees them. ``--root DIR`` only times the wrappers of K6, K4, K3 and
-K7 (those named, default all four), at the same shapes, as another checkout
+thread 0 sees them. ``--root DIR`` only times the wrappers of K5, K6, K4, K3
+and K7 (those named, default all five), at the same shapes, as another checkout
 of the repository has them (the parent commit unpacked into a git-ignored
 directory), so that two versions are compared inside one call on one card.
 Exits non-zero if anything disagrees.
@@ -98,7 +98,8 @@ def ptxas_report(_build, names):
                 # the mangled name holds the template arguments: ...kernelILb1ELi5EE...
                 name = re.search(r"((?:epi_flash_fwd|epi_flash_bwd_dq|epi_flash_bwd_dkdv|ln_matmul|"
                                  r"temporal_attn_fwd|temporal_attn_bwd)"
-                                 r"_(?:bf16|mma)_kernelI(?:L[bi]\d+E)+)", line)
+                                 r"_(?:bf16|mma)_kernel(?:_wide(?:_stats)?)?(?:I(?:L[bi]\d+E)+)?)",
+                                 line)
                 print("  " + (name.group(1) if name else line), "|", lines[i + 2].strip(), "|",
                       lines[i + 3].strip())
 
@@ -185,7 +186,8 @@ def check_ln_matmul(torch, g, _build, phases):
 
     bad = 0
     for T, C, K in [(4096, 320, 960), (1000, 320, 2560), (4096, 640, 5120), (4096, 1280, 3840),
-                    (300, 1280, 1280), (512, 32, 96), (777, 64, 256), (65536, 320, 2560)]:
+                    (300, 1280, 1280), (512, 32, 96), (777, 64, 256), (65536, 320, 2560),
+                    *K5_WIDE_EDGES]:
         x, gam, bet, w, b, (wf, bf) = inputs(T, C, K)
         got = ln_matmul._launch(x, wf, bf, 1e-5)
         torch.cuda.synchronize()
@@ -195,13 +197,14 @@ def check_ln_matmul(torch, g, _build, phases):
         ref = max(1.0, float(want.abs().max()))
         ok = math.isfinite(err) and err <= TOL * ref
         bad += not ok
-        print(f"K5 T{T} C{C} K{K}: err {err:.3e} (limit {TOL * ref:.3e}) "
-              f"{'ok' if ok else 'FAILED'}")
-    x, gam, bet, w, b, (wf, bf) = inputs(2048, 320, 960)
-    xs = torch.cat([x, x], -1)[:, :320]          # a row stride of 640 elements
-    same = torch.equal(ln_matmul._launch(xs, wf, bf, 1e-5), ln_matmul._launch(x, wf, bf, 1e-5))
-    bad += not same
-    print(f"K5 strided x equals contiguous x: {same}")
+        print(f"K5 T{T} C{C} K{K} [{ln_matmul.kernel_route(T, C, K, 'bfloat16')}]: err {err:.3e} "
+              f"(limit {TOL * ref:.3e}) {'ok' if ok else 'FAILED'}")
+    for T, C, K in ((2048, 320, 960), (1000, 1280, 3840)):
+        x, gam, bet, w, b, (wf, bf) = inputs(T, C, K)
+        xs = torch.cat([x, x], -1)[:, :C]          # a row stride of 2C elements
+        same = torch.equal(ln_matmul._launch(xs, wf, bf, 1e-5), ln_matmul._launch(x, wf, bf, 1e-5))
+        bad += not same
+        print(f"K5 T{T} C{C} K{K} strided x equals contiguous x: {same}")
     if phases:
         so = os.path.join(HERE, "build", "kernels", "ln_matmul_prof.so")
         os.makedirs(os.path.dirname(so), exist_ok=True)
@@ -210,15 +213,14 @@ def check_ln_matmul(torch, g, _build, phases):
         lib = ctypes.CDLL(so)
         lib.ln_matmul_fwd.argtypes = ln_matmul._SIGNATURE["ln_matmul_fwd"]
         lib.ln_matmul_prof.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    for T, C, K in [(65536, 320, 2560), (65536, 320, 960), (16384, 640, 5120),
-                    (4096, 1280, 10240), (4096, 1280, 3840)]:
+    for T, C, K in [(65536, 320, 2560), (65536, 320, 960), *K5_TIMED]:
         x, gam, bet, w, b, (wf, bf) = inputs(T, C, K)
         for _ in range(2):
             print(f"time K5 T{T} C{C} K{K}: {_time_ms(torch, lambda: ln_matmul._launch(x, wf, bf, 1e-5)):.3f} ms"
                   f"  layer_norm + linear "
                   f"{_time_ms(torch, lambda: F.linear(F.layer_norm(x, (C,), gam, bet, 1e-5), w, b)):.3f}"
                   f" ms  linear alone {_time_ms(torch, lambda: F.linear(x, w, b)):.3f} ms")
-        if phases:
+        if phases and ln_matmul.kernel_route(T, C, K, "bfloat16") == "panel":
             out = torch.empty(T, K, device=dev, dtype=torch.bfloat16)
             lib.ln_matmul_prof(None, 1)
             err = lib.ln_matmul_fwd(1, x.data_ptr(), C, wf.data_ptr(), bf.data_ptr(), None,
@@ -265,6 +267,18 @@ def _bwd_inputs(torch, g, B, Lq, Lk, C, h, bias, route, strided, dtype=None):
 
 
 K6_TIMED = [(32, 1024, 320), (32, 256, 640), (32, 64, 1280)]  # (B, N, C): res 32, 16, 8
+# (T, C, K): SDXL at 512 px (res 16: attn2's q, q|k|v, the GEGLU input; res
+# 32: the GEGLU input, q|k|v), then SD1.5 at 256 px (res 8 and 16), each
+# beside LayerNorm + cuBLAS; with --root DIR the wrappers of that checkout
+K5_TIMED = [(16384, 1280, 1280), (16384, 1280, 3840), (16384, 1280, 10240), (65536, 640, 5120),
+            (65536, 640, 1920), (4096, 1280, 10240), (16384, 640, 5120), (16384, 640, 1920)]
+# the wide route at its edges: T off the 128-row tile, K off the 256-column
+# tile, one tile of rows, few tokens, C 1000 and 328 (the last 64-channel
+# piece ragged: zeros from the copy), SDXL's shapes at res 16
+K5_WIDE_EDGES = [(4104, 1280, 3840), (4096, 1280, 1288), (64, 1280, 3840), (1024, 1280, 10240),
+                 (1000, 1000, 1288), (777, 328, 968), (4104, 640, 1288), (64, 640, 1920),
+                 (16384, 1280, 1280),
+                 (16384, 1280, 3840), (16384, 1280, 10240), (65536, 640, 1920)]
 # (B, N, C) at 16 frames, 8 heads, res 32 and 16: the sampler's 4 CFG rows, one folded pair
 K3_TIMED = [(4, 1024, 320), (4, 256, 640)]
 K7_TIMED = [(2, 1024, 320), (2, 256, 640)]
@@ -273,9 +287,23 @@ K4_TIMED = [(64, 1024, 320), (64, 256, 1920), (32, 65536, 128), (2, 1024, 320)]
 
 
 def time_wrappers(torch, g, names):
-    """The whole wrappers of the named kernels (K6, K4, K3, K7) at the
+    """The whole wrappers of the named kernels (K5, K6, K4, K3, K7) at the
     training / sampling shapes."""
-    from cvd_tpu_torch.ops import epi_flash, norms, temporal_attn
+    import torch.nn.functional as F
+
+    from cvd_tpu_torch.ops import epi_flash, ln_matmul, norms, temporal_attn
+
+    for T, C, K in K5_TIMED if "ln_matmul_fwd" in names else ():
+        x = torch.randn(T, C, generator=g, device="cuda").to(torch.bfloat16)
+        gam = (torch.randn(C, generator=g, device="cuda") * 0.5 + 1).to(torch.bfloat16)
+        bet = (torch.randn(C, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        w = (torch.randn(K, C, generator=g, device="cuda") / math.sqrt(C)).to(torch.bfloat16)
+        b = (torch.randn(K, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        ms = [_time_ms(torch, lambda: ln_matmul.layer_norm_matmul(x, gam, bet, [w], [b]))
+              for _ in range(2)]
+        lib = _time_ms(torch, lambda: F.linear(F.layer_norm(x, (C,), gam, bet, 1e-5), w, b))
+        print(f"time K5 wrapper T{T} C{C} K{K}: {ms[0]:.3f} {ms[1]:.3f} ms  "
+              f"layer_norm + linear {lib:.3f} ms")
 
     for B, N, C in K3_TIMED if "temporal_attn_fwd" in names else ():
         for split in (False, True):

@@ -451,6 +451,124 @@ def test_folded_product_matches_jax_layer_norm_matmul(n_proj):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("T", [1024, 4096, 16384])
+@pytest.mark.parametrize("C,K,want", [(320, 960, "panel"), (320, 2560, "panel"),
+                                      (640, 1920, "wide"), (640, 5120, "wide"),
+                                      (1280, 3840, "wide"), (1280, 10240, "wide"),
+                                      (1280, 1288, "wide")])
+def test_ln_matmul_kernel_route_on_the_main_paths(T, C, K, want):
+    """bf16: the token panel up to C 320, the streamed 128-token tiles above;
+    f32 keeps its own pair of kernels at every width."""
+    from cvd_tpu_torch.ops.ln_matmul import kernel_route
+
+    assert kernel_route(T, C, K, "bfloat16") == want
+    assert kernel_route(T, C, K, "float32") == "f32"
+
+
+@pytest.mark.parametrize("T,C,K,dtype,want", [
+    (64, 1280, 3840, "bfloat16", "wide"), (4104, 1280, 3840, "bfloat16", "wide"),
+    (1, 328, 8, "bfloat16", "wide"), (1000, 704, 1288, "bfloat16", "wide"),
+    (65536, 640, 1920, "bfloat16", "wide"), (777, 64, 256, "bfloat16", "panel"),
+    (512, 32, 96, "bfloat16", "panel"), (0, 320, 960, "bfloat16", "panel"),
+    (16, 2048, 100, "float32", "f32"), (16, 4, 3, "float32", "f32"),
+])
+def test_ln_matmul_kernel_route_at_the_edges(T, C, K, dtype, want):
+    from cvd_tpu_torch.ops.ln_matmul import kernel_route
+
+    assert kernel_route(T, C, K, dtype) == want
+
+
+@pytest.mark.parametrize("T,C,K,dtype,error", [
+    (1024, 1344, 3840, "bfloat16", ValueError), (1024, 1288, 3840, "bfloat16", ValueError),
+    (1024, 1280, 3844, "bfloat16", ValueError), (1024, 320, 962, "bfloat16", ValueError),
+    (1024, 1284, 3840, "bfloat16", ValueError), (1024, 322, 960, "float32", ValueError),
+    (1024, 1280, 3840, "float16", TypeError), (1024, 1280, 3840, "float64", TypeError),
+])
+def test_ln_matmul_kernel_route_raises_where_the_wrapper_raises(T, C, K, dtype, error):
+    """What no kernel takes: kernel_route and the launch refuse it alike,
+    before anything is built."""
+    from cvd_tpu_torch.ops import ln_matmul
+
+    with pytest.raises(error):
+        ln_matmul.kernel_route(T, C, K, dtype)
+    dt = getattr(torch, dtype)
+    with pytest.raises(error):
+        ln_matmul._launch(torch.zeros(T, C, dtype=dt), torch.zeros(K, C, dtype=dt),
+                          torch.zeros(K), 1e-5)
+
+
+def test_ln_matmul_route_constants_match_the_cuda_dispatch():
+    """kernel_route promises each route what ``ln_matmul_fwd``'s dispatch
+    gives it: the panel kernel up to 5 atoms of 64 channels (C 320), the wide
+    kernel up to 20 (C 1280)."""
+    import re
+    from pathlib import Path
+
+    from cvd_tpu_torch.ops import _build, ln_matmul
+
+    src = Path(_build.CSRC / "ln_matmul_fwd.cu").read_text()
+    dispatch = src[src.index('extern "C" int ln_matmul_fwd('):]
+    found = re.findall(r"if \(CB <= (\d+)\)\n    return static_cast<int>\(launch_(bf16<128, 128>|wide)\(",
+                       dispatch)
+    assert [(int(cb), kind) for cb, kind in found] == [
+        (ln_matmul._PANEL_MAX_C // 64, "bf16<128, 128>"), (ln_matmul._MAX_C_BF16 // 64, "wide")]
+
+
+def test_layer_norm_matmul_counts_launches_by_route(monkeypatch):
+    """``layer_norm_matmul.routes`` counts each kernel launch under the route
+    the dispatch takes for its shape and type, beside ``launches``; the CPU's
+    plain path counts nothing. (The kernel itself is stood in for: a tensor
+    that says it is on the card, and a ``_fused`` that returns zeros.)"""
+    from cvd_tpu_torch.ops import ln_matmul
+
+    class OnCard(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    def fused(x, gamma, beta, weights, biases, eps):
+        return torch.zeros(*x.shape[:-1], sum(w.shape[0] for w in weights), dtype=x.dtype)
+
+    fn = ln_matmul.layer_norm_matmul
+    monkeypatch.setattr(ln_matmul, "_fused", fused)
+    monkeypatch.setattr(fn, "routes", {"panel": 0, "wide": 0, "f32": 0})
+    monkeypatch.setattr(fn, "launches", 0)
+    calls = [((4, 1024, 320), (320, 320, 320), torch.bfloat16),
+             ((4, 256, 1280), (10240,), torch.bfloat16),
+             ((4, 16, 1280), (1280, 1280, 1280), torch.bfloat16),
+             ((4, 16, 1280), (1280,), torch.float32),
+             ((2, 64, 320), (2560,), torch.bfloat16)]
+    with torch.no_grad():
+        for shape, Ks, dtype in calls:
+            C = shape[-1]
+            x = torch.zeros(shape, dtype=dtype).as_subclass(OnCard)
+            out = fn(x, torch.ones(C), torch.zeros(C), [torch.zeros(K, C) for K in Ks],
+                     [None] * len(Ks))
+            assert [o.shape[-1] for o in out] == list(Ks)
+        fn(torch.zeros(2, 8, 1280), torch.ones(1280), torch.zeros(1280),
+           [torch.zeros(16, 1280)], [None])   # the CPU: plain, not counted
+    assert fn.launches == len(calls)
+    assert fn.routes == {"panel": 2, "wide": 2, "f32": 1}
+
+
+def test_graph_bookkeeping_carries_k5_routes(monkeypatch):
+    """A CUDA graph's replay adds the launches its capture counted, K5's by
+    route beside its total (``utils/graphs``), so that ``routes`` sums to
+    ``launches`` on a captured path too."""
+    from cvd_tpu_torch.ops import ln_matmul
+    from cvd_tpu_torch.utils import graphs
+
+    fn = ln_matmul.layer_norm_matmul
+    monkeypatch.setattr(fn, "routes", {"panel": 1, "wide": 2, "f32": 0})
+    monkeypatch.setattr(fn, "launches", 3)
+    counts = graphs.launch_counts()
+    assert counts["layer_norm_matmul"] == 3 and counts["layer_norm_matmul/wide"] == 2
+    into = {n: 0 for n in counts}
+    graphs.add_launches({"layer_norm_matmul": 2, "layer_norm_matmul/wide": 2}, into)
+    assert fn.launches == 5 and fn.routes == {"panel": 1, "wide": 4, "f32": 0}
+    assert into["layer_norm_matmul"] == 2 and into["layer_norm_matmul/wide"] == 2
+
+
 # every GroupNorm input of the SD1.5 UNet at 256 px (64 frame rows): (S, C) of
 # the down path, the mid block and the up path's concatenations
 UNET_GN_SHAPES = [(1024, 320), (1024, 640), (1024, 960), (256, 320), (256, 640), (256, 960),
