@@ -110,8 +110,8 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "'dots_small' those of 'dots' of at most "
                         "CVD_TPU_REMAT_SAVE_MAX_BYTES bytes (default 96 MiB); the three "
                         "'dots' values exist for the JAX package's configs: on an H100 "
-                        "each took more memory and more time than remat_unit 'layer' "
-                        "with '' (PERF.md, section 5)")
+                        "each took more memory than remat_unit 'layer' with '', and "
+                        "more time only eagerly (PERF.md, section 5)")
     p.add_argument("--model_config", default=None,
                    help="reference-format model config yaml")
     p.add_argument("--scan_layers", action=argparse.BooleanOptionalAction, default=None,

@@ -16,7 +16,8 @@ a NeRF-style ``transforms.json`` (OpenCV -> OpenGL axes, reference
 (the views stacked) and ``images/<view>/%04d.png``. ``--pab
 [--pab_ranges ...]`` turns on Pyramid Attention Broadcast. The run log is
 ``<out_root>/log_p0.txt``. ``--scan_layers`` is taken and does nothing.
-Not ported, and refused (ROADMAP.md, queue 1): ``--step_chunk``.
+``--step_chunk k`` puts k timesteps in each replayed CUDA graph: the same
+videos as without it.
 
 ``--sharded`` samples over a ("rows", "frames") mesh of the processes that
 ``torchrun`` starts, as ``cli/inference.py`` does: the 2V CFG rows (2V *

@@ -21,8 +21,8 @@ nothing is transposed and a key lands on the parameter of the same name.
 Every loader holds the coverage contract of the reference's load-time
 asserts (inference_epi.py:97-122): each checkpoint key it accepts lands on
 a parameter of equal shape or is a named skipped buffer, else ``KeyError``.
-Each returns the keys it consumed. Not ported yet: civitai single-file
-models (ROADMAP.md, queue 1).
+Each returns the keys it consumed. Civitai single-file models and their
+kohya LoRAs are imported by ``io/ldm_convert.py``.
 """
 from __future__ import annotations
 

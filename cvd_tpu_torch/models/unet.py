@@ -58,7 +58,6 @@ from cvd_tpu_torch.models.layers import (
 )
 from cvd_tpu_torch.models.motion import MotionModule
 from cvd_tpu_torch.parallel.mesh import Mesh, all_gather
-from cvd_tpu_torch.utils.tracing import sublayer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,7 +199,7 @@ def _save_policy(name: str) -> Callable:
     return policy
 
 
-def _call(fn, *args):
+def _call(fn, *args, kind=None):
     return fn(*args)
 
 
@@ -212,13 +211,25 @@ def _remat_unit(policy: str) -> Callable:
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                              _save_policy(policy))
 
-    def unit(fn, *args):
+    def unit(fn, *args, kind=None):
         # nothing inside a unit draws (the train step draws its slopes
         # before the UNet), so no RNG state is stashed for the recompute:
         # that stash reads the CUDA generator, which a graph capture refuses
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return unit
+
+
+def _timed(unit: Callable, timer) -> Callable:
+    """``unit`` with each sublayer of a kind between two marks of ``timer``
+    (an ``IntervalTimer``, ``utils/tracing.py``), named by the kind."""
+    def timed(fn, *args, kind=None):
+        if kind is None:
+            return unit(fn, *args)
+        with timer.span(kind):
+            return unit(fn, *args)
+
+    return timed
 
 
 def _with_qk(epi: nn.Module) -> Callable:
@@ -301,25 +312,23 @@ class _Block(nn.Module):
               pab=None, qk: Optional[list] = None, unit: Callable = _call,
               mesh: Optional[Mesh] = None) -> torch.Tensor:
         """``qk``: a list that receives the epi attentions' q/k maps.
-        ``unit``: runs each sublayer (``remat_unit="layer"``: checkpointed).
-        ``mesh``: the ("rows", "frames") mesh of which ``x`` is this rank's
-        block."""
+        ``unit``: runs each sublayer (``remat_unit="layer"``: checkpointed),
+        told the kind of the timed ones. ``mesh``: the ("rows", "frames")
+        mesh of which ``x`` is this rank's block."""
         B, Fr = x.shape[:2]
         h = unit(self.resnets[j], _fold(x), temb_f)
         if self.attentions is not None:
-            with sublayer("unet.spatial"):
-                h = unit(self.attentions[j], h, context_f, lora_scale, pab, mesh, Fr)
+            h = unit(self.attentions[j], h, context_f, lora_scale, pab, mesh, Fr,
+                     kind="unet.spatial")
         x = _unfold(h, B)
         if self.motion_modules is not None:
-            with sublayer("unet.motion"):
-                x = unit(self.motion_modules[j], x, pose_feature, pab, mesh)
+            x = unit(self.motion_modules[j], x, pose_feature, pab, mesh, kind="unet.motion")
         if self.epi_modules is not None:
-            with sublayer("unet.epi"):
-                if qk is None:
-                    x = unit(self.epi_modules[j], x, epi_cond, pab)
-                else:
-                    x, maps = unit(_with_qk(self.epi_modules[j]), x, epi_cond, pab)
-                    qk.extend(maps)
+            if qk is None:
+                x = unit(self.epi_modules[j], x, epi_cond, pab, kind="unet.epi")
+            else:
+                x, maps = unit(_with_qk(self.epi_modules[j]), x, epi_cond, pab, kind="unet.epi")
+                qk.extend(maps)
         return x
 
     def last_qk(self, want_qk: bool, j: int) -> Optional[list]:
@@ -476,6 +485,7 @@ class UNet3DConditionModel(nn.Module):
         return_extras: bool = False,
         mesh: Optional[Mesh] = None,
         added_cond: Optional[dict] = None,
+        timer=None,
     ):
         """``remat``: recompute activations in the backward instead of
         keeping them, per the config's ``remat_unit`` and ``remat_policy``
@@ -495,7 +505,10 @@ class UNet3DConditionModel(nn.Module):
         this rank's block of batch rows and frames; the output is this
         rank's block too. ``added_cond``: with ``addition_embed_type``
         "text_time", {"text_embeds": [B, P] pooled text, "time_ids": [B, 6]
-        (original size, crop corner, target size)}."""
+        (original size, crop corner, target size)}. ``timer``: an
+        ``IntervalTimer`` (``utils/tracing.py``) that this call starts and
+        marks around each spatial transformer, motion module and epi module,
+        named ``unet.spatial``, ``unet.motion``, ``unet.epi``."""
         cfg = self.config
         B, Fr = sample.shape[:2]
         if mesh is not None and (epi_cond is None or epi_cond.mesh is not mesh):
@@ -506,6 +519,9 @@ class UNet3DConditionModel(nn.Module):
                 else _call)
         # the unit wraps whole blocks, or each sublayer inside them
         run, sub = (unit, _call) if cfg.remat_unit == "block" else (_call, unit)
+        if timer is not None:
+            timer.start()
+            sub = _timed(sub, timer)
 
         dtype = self.conv_in.weight.dtype
         # a [] / [B] tensor on the device passes as it comes (the samplers' timestep

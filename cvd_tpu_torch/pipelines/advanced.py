@@ -32,25 +32,24 @@ graph (one without), as cvd_tpu's chunk program (:87-124, ``_call_chunked``
 :203-263); it runs eagerly on the CPU, with ``capture=False``, with PAB or
 on a mesh. Every random draw (initial latents, pairings, re-noise, epi
 slopes) comes from the one ``generator`` the caller passes; a captured
-request draws the numbers the eager one draws.
+request draws the numbers the eager one draws. The request's path and the
+preparation the two samplers share are ``pipelines/common.Sampler``'s; a
+UNet with added conditioning (SDXL's ``text_time``) is refused.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
 from cvd_tpu_torch.geometry.epipolar import fundamental_between_views_torch
 from cvd_tpu_torch.models.epi import EpiConditioning
-from cvd_tpu_torch.pipelines.common import PipelineModules, decode_latents, encode_prompt
 from cvd_tpu_torch.parallel.mesh import constrain, gather
 from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
-from cvd_tpu_torch.pipelines.pab import PABCache
-from cvd_tpu_torch.pipelines.program import SamplingProgram, chunks
+from cvd_tpu_torch.pipelines.common import PipelineModules, Sampler, interleave_cfg
+from cvd_tpu_torch.pipelines.program import chunks
 from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
-from cvd_tpu_torch.utils import tracing
-from cvd_tpu_torch.utils.tracing import SpanTimer
 
 
 def random_pairing(generator: Optional[torch.Generator], num_views: int) -> torch.Tensor:
@@ -75,43 +74,22 @@ def partner_rows(partner: torch.Tensor, num_frames: int) -> torch.Tensor:
     return row + (partner[row_v] - row_v) * two_f
 
 
-def interleave_cfg(x: torch.Tensor) -> torch.Tensor:
-    """[V, ...] -> [2V, ...], each row twice in place (uncond, cond)."""
-    return x.repeat_interleave(2, dim=0)
-
-
-class AdvancedPipeline:
-    """N-view generation with a fresh pairing of views at every UNet call."""
+class AdvancedPipeline(Sampler):
+    """N-view generation with a fresh pairing of views at every UNet call. On
+    a ``mesh`` the rows must divide 2V (2V * A batched) and the frames F."""
 
     def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
                  rand_slope_ff: bool = True, fix_firstframe: bool = False,
                  accumulate_batched: bool = False, mesh=None, capture: bool = True):
-        """``mesh``: a ("rows", "frames") ``parallel.Mesh`` to shard each UNet
-        call over; the rows must divide 2V (2V * A batched) and the frames F.
-        Only rank 0 decodes: the other ranks return None. ``capture``: on a
-        CUDA device, replay the timesteps as CUDA graphs (the default;
-        without PAB and without a mesh); False runs them eagerly."""
-        self.m = modules
-        self.mesh = mesh
-        self.F_mat_size = F_mat_size
-        self.rand_slope_ff = rand_slope_ff
+        super().__init__(modules, F_mat_size, rand_slope_ff, mesh, capture)
         self.fix_firstframe = fix_firstframe
         self.accumulate_batched = accumulate_batched
-        self.program = SamplingProgram(modules.unet.conv_in.weight.device, capture,
-                                       watch=(modules.unet,))
-        # wall time of each UNet call of the last run, in ms (CUDA events on
-        # the card, the host clock on the CPU; a replay's time over its calls)
-        self.unet_step_ms: List[float] = []
 
-    # the two draws between UNet calls, apart so that a test can replay another
-    # program's pairings and noise
+    # the draw between UNet calls besides ``draw_noise``, apart so that a
+    # test can replay another program's pairings
 
     def draw_pairing(self, generator: Optional[torch.Generator], num_views: int) -> torch.Tensor:
         return random_pairing(generator, num_views)
-
-    def draw_noise(self, generator: Optional[torch.Generator], shape) -> torch.Tensor:
-        return torch.randn(shape, generator=generator,
-                           device=generator.device if generator is not None else "cpu")
 
     @torch.no_grad()
     def __call__(
@@ -140,8 +118,12 @@ class AdvancedPipeline:
         ragged last chunk are graphs of their own); the latents are those
         of any other chunk length."""
         m = self.m
-        V, Fr, H, W, _ = plucker.shape
+        V, Fr = plucker.shape[:2]
         A = accumulate_step
+        if m.unet.config.addition_embed_type:
+            raise ValueError(f"a UNet with addition_embed_type "
+                             f"{m.unet.config.addition_embed_type!r} (SDXL): the N-view sampler "
+                             "does not pass added conditioning yet (ROADMAP queue 5, item 1)")
         n_view_path = H_mats is None and not (V == 2 and F_mats is not None)
         if n_view_path and (c2w is None or K_mats is None):
             raise ValueError("the N-view path needs c2w and K_mats (or pass F_mats for "
@@ -156,50 +138,25 @@ class AdvancedPipeline:
             if pab_config is not None:
                 raise ValueError("--pab + --sharded is not validated; pick one")
             check_divides(mesh, 2 * V * groups, Fr, "AdvancedPipeline")
-        state = m.scheduler.set_timesteps(num_inference_steps)
-        last = len(state.timesteps) - 1
+        last = num_inference_steps - 1
         # the last timestep is taken once (:602)
         plan = chunks([1 if i == last else multistep for i in range(last + 1)], step_chunk)
-        eager = self.program.eager_for(pab_config, mesh)
-
-        with tracing.device_span("sample.prepare", self.program.device):
-            inputs = self._prepare(prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats,
-                                   H_mats, state, generator, latents, groups, n_view_path)
         settings = _Settings(m.scheduler, num_inference_steps, float(guidance_scale), V, A,
                              groups, "h" if H_mats is not None else "n" if n_view_path else "f")
-        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
-
-        def body(bufs, ts, start, repeats, gen, timer):
-            return self._timestep_body(bufs, ts, start, repeats, gen, timer, settings, pab)
-
-        timer = SpanTimer(self.program.device)
-        with tracing.span("sample.denoise"):
-            timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
-            latents = self.program.run(("AdvancedPipeline", settings), inputs, timesteps, plan,
-                                       body, generator, timer, eager=eager)
-        self.unet_step_ms = timer.elapsed_ms()
-        out = decode_latents(m, latents, mesh) if decode else latents
-        tracing.next_unit()
-        return out
+        return self._request(
+            "AdvancedPipeline", settings, plan,
+            lambda state: self._prepare(prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats,
+                                        H_mats, state, generator, latents, groups, n_view_path),
+            generator, pab_config, decode)
 
     def _prepare(self, prompt_ids, negative_ids, plucker, c2w, K_mats, F_mats, H_mats, state,
                  generator, latents, groups, n_view_path) -> dict:
-        """Text encode, pose encode, the per-row mats and the latent init
-        (cvd_tpu's ``_prepare``, advanced.py:150), as the tensors the
-        timestep body reads."""
-        m, mesh = self.m, self.mesh
-        device = m.unet.conv_in.weight.device
-        dtype = m.unet.conv_in.weight.dtype
-        V, Fr, H, W, _ = plucker.shape
-        with tracing.span("sample.text_encoder"):
-            uncond, cond, _, _ = encode_prompt(m, prompt_ids.to(device), negative_ids.to(device))
-        inputs = {"text": constrain(torch.cat([uncond, cond], dim=0).repeat(V * groups, 1, 1)
-                                    .to(dtype), mesh, "rows")}
-        with tracing.span("sample.pose_encoder"):
-            feats = m.pose_encoder(plucker.to(device=device, dtype=dtype))
-        for i, p in enumerate(feats):
-            inputs[f"pose{i}"] = constrain(interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1),
-                                           mesh, "rows", "frames")
+        """``_prepare_rows`` and the per-row mats (cvd_tpu's ``_prepare``,
+        advanced.py:150), as the tensors the timestep body reads."""
+        device = self.program.device
+        V, Fr = plucker.shape[:2]
+        inputs = self._prepare_rows(prompt_ids, negative_ids, plucker, state, generator, latents,
+                                    groups)
         # the (view, frame) of every interleaved CFG row in the [V * F] camera arrays
         row = torch.arange(2 * V * Fr, device=device)
         src = (row // (2 * Fr)) * Fr + row % Fr
@@ -212,11 +169,6 @@ class AdvancedPipeline:
         else:
             inputs["c2w"] = c2w.to(device=device, dtype=torch.float32)
             inputs["K_mats"] = K_mats.to(device=device, dtype=torch.float32)
-        inputs["acp"] = state.alphas_cumprod.to(device)
-        if latents is None:
-            latents = self.draw_noise(generator, (V, Fr, H // 8, W // 8, 4))
-        inputs["latents"] = (latents.to(device=device, dtype=torch.float32)
-                             * m.scheduler.init_noise_sigma)
         return inputs
 
     def _timestep_body(self, bufs, ts, start, repeats, generator, timer, s: "_Settings",
@@ -234,8 +186,9 @@ class AdvancedPipeline:
                                     alphas_cumprod=bufs["acp"])
         V, groups = s.views, s.groups
         Fr = bufs["latents"].shape[1]
-        text = bufs["text"]
-        pose_feats = [bufs[k] for k in sorted(bufs) if k.startswith("pose")]
+        text = constrain(bufs["text"], mesh, "rows")
+        pose_feats = [constrain(bufs[k], mesh, "rows", "frames")
+                      for k in sorted(bufs) if k.startswith("pose")]
         n_rows = 2 * V * Fr
         row = torch.arange(n_rows, device=device)
         row_v, row_f = row // (2 * Fr), row % Fr

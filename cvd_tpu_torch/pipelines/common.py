@@ -1,5 +1,6 @@
 """Shared pipeline machinery: the module bundle, text encoding, VAE encode
-and decode (port of ``cvd_tpu/pipelines/common.py``). A bundle with a
+and decode (port of ``cvd_tpu/pipelines/common.py``), and the request path
+of both samplers (``Sampler``). A bundle with a
 second text encoder (``clip_2``: SDXL's OpenCLIP bigG) conditions as SDXL's
 pipeline does: both encoders' penultimate states joined along the width,
 and the second's pooled embedding. The latents' scale is the VAE's
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -18,8 +19,11 @@ from cvd_tpu_torch.models.layers import FusedGroupNorm
 from cvd_tpu_torch.models.pose_encoder import CameraPoseEncoder
 from cvd_tpu_torch.models.unet import UNet3DConditionModel, UNetConfig
 from cvd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from cvd_tpu_torch.pipelines.pab import PABCache
+from cvd_tpu_torch.pipelines.program import Chunk, SamplingProgram
 from cvd_tpu_torch.schedulers import DDIMScheduler
 from cvd_tpu_torch.utils import tracing
+from cvd_tpu_torch.utils.tracing import IntervalTimer, SpanTimer
 
 
 @torch.no_grad()
@@ -120,7 +124,8 @@ class PipelineModules:
         are built on the meta device and materialized in place, so a
         full-size bundle never exists on the host. ``vae_encoder`` adds the
         VAE's encoder (training); ``pose_encoder_kwargs`` and ``scheduler``
-        are a model config's (``io/model_config.py``); ``unet_dtype`` is the
+        are a model config's (``io/model_config.py``; the pose encoder's
+        ``channels`` are the UNet's widths unless they give them); ``unet_dtype`` is the
         UNet's where it differs from ``dtype`` (training holds it in f32
         until ``create_train_state`` casts its frozen part); ``clip_2_config``
         adds the second text encoder (SDXL)."""
@@ -132,8 +137,8 @@ class PipelineModules:
                 UNet3DConditionModel(unet_config),
                 AutoencoderKL(vae_config or VAEConfig(), with_encoder=vae_encoder),
                 CLIPTextEncoder(clip_config or CLIPTextConfig()),
-                CameraPoseEncoder(channels=unet_config.block_out_channels,
-                                  **(pose_encoder_kwargs or {})),
+                CameraPoseEncoder(**{"channels": unet_config.block_out_channels,
+                                     **(pose_encoder_kwargs or {})}),
             ]
             if clip_2_config is not None:
                 mods.append(CLIPTextEncoder(clip_2_config))
@@ -199,3 +204,105 @@ def encode_images(modules: PipelineModules, images: torch.Tensor,
     z = [modules.vae.sample_posterior(images[i:i + frame_chunk].to(dtype), generator).float()
          for i in range(0, images.shape[0], frame_chunk)]
     return torch.cat(z) * modules.vae.config.scaling_factor
+
+
+def interleave_cfg(x: torch.Tensor) -> torch.Tensor:
+    """[V, ...] -> [2V, ...], each row twice in place (uncond, cond)."""
+    return x.repeat_interleave(2, dim=0)
+
+
+class Sampler:
+    """What the 2-view and N-view samplers share: the sampling program, one
+    request's path (``_request``) and the preparation of the rows they both
+    have (``_prepare_rows``). A sampler brings its argument checks, its
+    rows' geometry, its plan of chunks, its settings and its
+    ``_timestep_body(bufs, ts, start, repeats, generator, timer, settings,
+    pab)``."""
+
+    def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
+                 rand_slope_ff: bool = True, mesh=None, capture: bool = True):
+        """``mesh``: a ("rows", "frames") ``parallel.Mesh`` to shard each UNet
+        call over; only rank 0 decodes, the other ranks return None.
+        ``capture``: on a CUDA device, replay the timesteps as CUDA graphs
+        (without PAB and without a mesh); False runs them eagerly."""
+        self.m = modules
+        self.F_mat_size = F_mat_size
+        self.rand_slope_ff = rand_slope_ff
+        self.mesh = mesh
+        self.program = SamplingProgram(modules.unet.conv_in.weight.device, capture,
+                                       watch=(modules.unet,))
+        # wall time of each UNet call of the last run, in ms (CUDA events on
+        # the card, the host clock on the CPU; a replay's time over its calls)
+        self.unet_step_ms: List[float] = []
+        # the last UNet call's sublayers by kind, where the timestep body
+        # passes this timer to the UNet (the 2-view sampler's does)
+        self.sublayers = IntervalTimer(self.program.device)
+
+    def draw_noise(self, generator: Optional[torch.Generator], shape) -> torch.Tensor:
+        """Unit normals of ``shape`` from ``generator``, on its device: the
+        initial latents, and the N-view sampler's re-noise. Apart so that a
+        test can replay another program's noise."""
+        return torch.randn(shape, generator=generator,
+                           device=generator.device if generator is not None
+                           else self.program.device)
+
+    def _request(self, name: str, settings, plan: Sequence[Chunk], prepare: Callable,
+                 generator: Optional[torch.Generator], pab_config, decode: bool):
+        """One request: ``prepare(scheduler state)`` -> the tensors the
+        timestep body reads, then ``plan``'s chunks through the body, as
+        the replayed graphs of key (``name``, ``settings``) or eagerly; then
+        the decode (rank 0 alone on a mesh) or the final latents. One unit."""
+        m, program = self.m, self.program
+        eager = program.eager_for(pab_config, self.mesh)
+        state = m.scheduler.set_timesteps(settings.steps)
+        with tracing.device_span("sample.prepare", program.device):
+            inputs = prepare(state)
+        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
+
+        def body(bufs, ts, start, repeats, gen, timer):
+            return self._timestep_body(bufs, ts, start, repeats, gen, timer, settings, pab)
+
+        timer = SpanTimer(program.device)
+        with tracing.span("sample.denoise"):
+            timesteps = torch.from_numpy(state.timesteps).to(program.device)
+            latents = program.run((name, settings), inputs, timesteps, plan, body, generator,
+                                  timer, eager=eager)
+        self.unet_step_ms = timer.elapsed_ms()
+        out = decode_latents(m, latents, self.mesh) if decode else latents
+        self.sublayers.record()
+        tracing.next_unit()
+        return out
+
+    def _prepare_rows(self, prompt_ids, negative_ids, plucker, state, generator, latents,
+                      groups: int = 1) -> dict:
+        """What both samplers prepare, over the CFG rows [v0-uncond, v0-cond,
+        v1-uncond, ...] of the V views, ``groups`` times: the text, SDXL's
+        added conditioning where the UNet takes it, the pose features (the
+        pose encoder in its own dtype: a training bundle's, in validation,
+        differs from the UNet's bf16 frozen weights), the scheduler's table
+        and the initial latents [V, F, H/8, W/8, 4] (``latents``, else
+        ``draw_noise``'s) times ``init_noise_sigma``."""
+        m = self.m
+        device, dtype = self.program.device, m.unet.conv_in.weight.dtype
+        V, Fr, H, W, _ = plucker.shape
+        pairs = V * groups             # (uncond, cond) pairs of rows
+        with tracing.span("sample.text_encoder"):
+            uncond, cond, uncond_pool, cond_pool = encode_prompt(
+                m, prompt_ids.to(device), negative_ids.to(device))
+        inputs = {"text": torch.cat([uncond, cond]).repeat(pairs, 1, 1).to(dtype)}
+        if m.unet.config.addition_embed_type:
+            inputs["add_text"] = torch.cat([uncond_pool, cond_pool]).repeat(pairs, 1).to(dtype)
+            # (original H, W, crop top, left, target H, W), as SDXL's pipeline
+            inputs["add_time"] = torch.tensor([[H, W, 0, 0, H, W]] * (2 * pairs),
+                                              dtype=torch.float32, device=device)
+        pose_dtype = m.pose_encoder.encoder_conv_in.weight.dtype
+        with tracing.span("sample.pose_encoder"):
+            feats = m.pose_encoder(plucker.to(device=device, dtype=pose_dtype))
+        for i, p in enumerate(feats):
+            inputs[f"pose{i}"] = interleave_cfg(p.to(dtype)).repeat(groups, 1, 1, 1, 1)
+        inputs["acp"] = state.alphas_cumprod.to(device)
+        if latents is None:
+            latents = self.draw_noise(generator, (V, Fr, H // 8, W // 8, 4))
+        inputs["latents"] = (latents.to(device=device, dtype=torch.float32)
+                             * m.scheduler.init_noise_sigma)
+        return inputs

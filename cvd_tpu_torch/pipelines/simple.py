@@ -14,11 +14,11 @@
   noise predictions averaged where they overlap (simple.py:151-217);
 * Pyramid Attention Broadcast (``pipelines/pab.py``), not with multidiff;
 * SDXL's added conditioning where the UNet takes it (``text_time``): the
-  pooled text of the 4 CFG rows and their time ids (the image's size, no
-  crop, the same size as the target), inputs of every UNet call;
-* the UNet call's sublayers timed by kind (``utils/tracing.SublayerTimer``,
-  kept by the captured graph) and recorded as device spans where tracing
-  is on;
+  pooled text of the 4 CFG rows and their time ids, inputs of every UNet
+  call;
+* the UNet call's sublayers timed by kind (``utils/tracing.IntervalTimer``,
+  passed to the UNet call; kept by the captured graph) and recorded as
+  device spans where tracing is on;
 * a whole-video VAE decode;
 * sharded sampling over a ("rows", "frames") mesh (``parallel/mesh.py``,
   SPMD over ``torchrun``'s processes): every rank encodes the text and the
@@ -26,24 +26,22 @@
   runs on this rank's block of the 4 CFG rows and the window's frames, and
   its noise prediction is all-gathered before the guidance.
 
-More than two views: ``pipelines/advanced.py``.
+The request's path and the preparation the two samplers share are
+``pipelines/common.Sampler``'s. More than two views: ``pipelines/advanced.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
 from cvd_tpu_torch.models.epi import EpiConditioning
-from cvd_tpu_torch.pipelines.common import PipelineModules, decode_latents, encode_prompt
 from cvd_tpu_torch.parallel.mesh import constrain, gather
 from cvd_tpu_torch.parallel.shard_ops import check_divides, local_rows
-from cvd_tpu_torch.pipelines.pab import PABCache
-from cvd_tpu_torch.pipelines.program import SamplingProgram, chunks
+from cvd_tpu_torch.pipelines.common import Sampler
+from cvd_tpu_torch.pipelines.program import chunks
 from cvd_tpu_torch.schedulers.ddim import DDIMScheduler
-from cvd_tpu_torch.utils import tracing
-from cvd_tpu_torch.utils.tracing import SpanTimer, SublayerTimer
 
 
 def _cfg4(x: torch.Tensor) -> torch.Tensor:
@@ -51,27 +49,9 @@ def _cfg4(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:1], x[:1], x[1:], x[1:]], dim=0)
 
 
-class SimplePipeline:
-    """2-view, fixed-pair generation with epipolar sync."""
-
-    def __init__(self, modules: PipelineModules, F_mat_size: int = 256,
-                 rand_slope_ff: bool = True, mesh=None, capture: bool = True):
-        """``mesh``: a ("rows", "frames") ``parallel.Mesh`` to shard each UNet
-        call over; the rows must divide 4 and the frames the window. Only
-        rank 0 decodes: the other ranks return None. ``capture``: on a CUDA
-        device, replay the timesteps as CUDA graphs (the default; without
-        PAB and without a mesh); False runs them eagerly."""
-        self.m = modules
-        self.F_mat_size = F_mat_size
-        self.rand_slope_ff = rand_slope_ff
-        self.mesh = mesh
-        self.program = SamplingProgram(modules.unet.conv_in.weight.device, capture,
-                                       watch=(modules.unet,))
-        # wall time of each UNet call of the last run, in ms (CUDA events on
-        # the card, the host clock on the CPU; a replay's time over its calls)
-        self.unet_step_ms: List[float] = []
-        # the last UNet call's sublayers by kind
-        self.sublayers = SublayerTimer(self.program.device)
+class SimplePipeline(Sampler):
+    """2-view, fixed-pair generation with epipolar sync. On a ``mesh`` the
+    rows must divide 4 and the frames the window."""
 
     @torch.no_grad()
     def __call__(
@@ -120,68 +100,29 @@ class SimplePipeline:
             if pab_config is not None:
                 raise ValueError("--pab + --sharded is not validated; pick one")
             check_divides(mesh, 4, Fw, "SimplePipeline")
-        eager = self.program.eager_for(pab_config, mesh)
-        state = m.scheduler.set_timesteps(num_inference_steps)
-        with tracing.device_span("sample.prepare", self.program.device):
-            inputs = self._prepare(prompt_ids, negative_ids, plucker, F_mats, state, generator,
-                                   latents, Fw, stride, windows)
         settings = _Settings(m.scheduler, num_inference_steps, float(guidance_scale),
                              windows, Fw, stride)
-        pab = None if pab_config is None else PABCache(pab_config, len(state.timesteps))
-
-        def body(bufs, ts, start, repeats, gen, timer):
-            return self._timestep_body(bufs, ts, start, repeats, gen, timer, settings, pab)
-
-        timer = SpanTimer(self.program.device)
-        with tracing.span("sample.denoise"):
-            timesteps = torch.from_numpy(state.timesteps).to(self.program.device)
-            latents = self.program.run(("SimplePipeline", settings), inputs, timesteps,
-                                       chunks([1] * len(state.timesteps)), body, generator,
-                                       timer, eager=eager)
-        self.unet_step_ms = timer.elapsed_ms()
-        out = decode_latents(m, latents, mesh) if decode else latents
-        self.sublayers.record()
-        tracing.next_unit()
-        return out
+        return self._request(
+            "SimplePipeline", settings, chunks([1] * num_inference_steps),
+            lambda state: self._prepare(prompt_ids, negative_ids, plucker, F_mats, state,
+                                        generator, latents, Fw, stride, windows),
+            generator, pab_config, decode)
 
     def _prepare(self, prompt_ids, negative_ids, plucker, F_mats, state, generator, latents,
                  Fw, stride, windows) -> dict:
         """Everything before the denoising loop (the JAX package's ``_run``
-        up to its scan): the text and pose features of the 4 CFG rows, the
-        folded F mats, the overlap weights, the scheduler's table and the
-        initial latents, as the tensors the timestep body reads."""
-        m = self.m
-        device = m.unet.conv_in.weight.device
-        dtype = m.unet.conv_in.weight.dtype
-        _, Fr, H, W, _ = plucker.shape
-        with tracing.span("sample.text_encoder"):
-            uncond, cond, uncond_pool, cond_pool = encode_prompt(
-                m, prompt_ids.to(device), negative_ids.to(device))
-        inputs = {"text": torch.cat([uncond, cond, uncond, cond], dim=0).to(dtype)}
-        if m.unet.config.addition_embed_type:
-            inputs["add_text"] = torch.cat([uncond_pool, cond_pool] * 2, dim=0).to(dtype)
-            # (original H, W, crop top, left, target H, W), as SDXL's pipeline
-            inputs["add_time"] = torch.tensor([[H, W, 0, 0, H, W]] * 4, dtype=torch.float32,
-                                              device=device)
-        # the pose encoder in its own dtype: a training bundle's (validation)
-        # differs from the UNet's bf16 frozen weights
-        pose_dtype = m.pose_encoder.encoder_conv_in.weight.dtype
-        with tracing.span("sample.pose_encoder"):
-            feats = m.pose_encoder(plucker.to(device=device, dtype=pose_dtype))
-        for i, p in enumerate(feats):
-            inputs[f"pose{i}"] = _cfg4(p.to(dtype))
+        up to its scan): ``_prepare_rows``, the folded F mats of the 4 CFG
+        rows in chunk order [src, src, tgt, tgt] and the overlap weights, as
+        the tensors the timestep body reads."""
+        device = self.program.device
+        Fr = plucker.shape[1]
+        inputs = self._prepare_rows(prompt_ids, negative_ids, plucker, state, generator, latents)
         inputs["F4"] = _cfg4(F_mats.to(device=device, dtype=torch.float32))   # [4, F, 3, 3]
         # the overlap-average weights: 1 / the number of windows over each frame
         counts = torch.zeros(Fr, device=device)
         for w in range(windows):
             counts[w * stride:w * stride + Fw] += 1.0
         inputs["inv_counts"] = (1.0 / counts)[None, :, None, None, None]
-        inputs["acp"] = state.alphas_cumprod.to(device)
-        if latents is None:
-            latents = torch.randn((2, Fr, H // 8, W // 8, 4), generator=generator,
-                                  device=generator.device if generator is not None else device)
-        inputs["latents"] = (latents.to(device=device, dtype=torch.float32)
-                             * m.scheduler.init_noise_sigma)
         return inputs
 
     def _timestep_body(self, bufs, ts, start, repeats, generator, timer, s: "_Settings",
@@ -219,10 +160,10 @@ class SimplePipeline:
                 pab.at_step(start + j)
             eps_full = torch.zeros_like(latents)
             for w, (pf, epi_cond) in zip(starts, conds):
-                with timer, self.sublayers:
+                with timer:
                     lat_in = constrain(_cfg4(latents[:, w:w + s.window]), mesh, "rows", "frames")
                     eps = m.unet(lat_in, t, constrain(text, mesh, "rows"), pf, epi_cond,
-                                 pab=pab, mesh=mesh, added_cond=added)
+                                 pab=pab, mesh=mesh, added_cond=added, timer=self.sublayers)
                     eps = gather(eps, mesh, "rows", "frames").float()
                 calls += 1
                 # chunk(4): uncond rows (0, 2), cond rows (1, 3)

@@ -33,7 +33,7 @@ from cvd_tpu_torch.pipelines.common import PipelineModules, encode_images
 from cvd_tpu_torch.schedulers.ddim import DDIMState
 from cvd_tpu_torch.train.losses import epi_distance_loss, masked_mse_loss
 from cvd_tpu_torch.train.state import TrainState
-from cvd_tpu_torch.utils.tracing import PhaseTimer
+from cvd_tpu_torch.utils.tracing import IntervalTimer
 
 # the step's phases, as ``StepBody.phases`` names them: encode (the
 # gradients' zeroing, the VAE encode or the posterior draw, the noise and
@@ -119,22 +119,23 @@ class StepBody:
         self.noise_state: DDIMState = modules.scheduler.set_timesteps(50).to(self.device)
         self.out = {k: torch.zeros((), device=self.device)
                     for k in ("loss", "epi_loss", "grad_norm")}
-        self.phases = PhaseTimer(self.device, PHASES)
+        self.phases = IntervalTimer(self.device)
 
     def __call__(self, bufs: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator]) -> None:
         state = self.state
-        self.phases.mark(0)
+        self.phases.start()
+        self.phases.mark(PHASES[0])
         state.zero_grad()
         loss, epi_loss = self.loss_and_grads(bufs, generator)
         if torch.distributed.is_available() and torch.distributed.is_initialized():
             all_reduce_gradients(state)
-        self.phases.mark(3)
+        self.phases.mark(PHASES[3])
         norm = state.update()
         self.out["loss"].copy_(loss)
         self.out["epi_loss"].copy_(epi_loss)
         self.out["grad_norm"].copy_(norm)
-        self.phases.mark(4)
+        self.phases.mark()
 
     def results(self) -> Dict[str, float]:
         """The last step's {"loss", "epi_loss", "grad_norm"}, read to the host
@@ -200,7 +201,7 @@ class StepBody:
             mask = batch["warped_masks"].to(device=device, dtype=torch.float32)
         lora_scale = 1.0 if posed else 0.0
         epi_loss = torch.zeros((), device=device)
-        self.phases.mark(1)
+        self.phases.mark(PHASES[1])
         if unet.config.additional_channel > 0:
             pred, extras = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=self.remat,
                                 lora_scale=lora_scale, return_extras=True)
@@ -212,7 +213,7 @@ class StepBody:
             pred = unet(noisy, timesteps, text, pose_feats, epi_cond, remat=self.remat,
                         lora_scale=lora_scale)
             loss = masked_mse_loss(pred.float(), noise, mask)
-        self.phases.mark(2)
+        self.phases.mark(PHASES[2])
         loss.backward()
         # a trainable tensor this step did not use (the auxiliary head on an
         # unposed batch) gets a zero gradient, as in JAX: AdamW still decays

@@ -1,5 +1,5 @@
 """Program tracing: named spans at the port's layer boundaries, on the
-profiler's clock, the timing marks of a captured body's phases, and the
+profiler's clock, the named intervals of a captured body, and the
 samplers' per-UNet-call span timer.
 
 **Off by default.** Tracing is on while ``enable(True)`` holds and while a
@@ -22,17 +22,18 @@ process forked from this one (the loader's process workers) never traces.
 
 A device span (``device_span``) also records a pair of CUDA timing events on
 the current stream, read only at ``drain``; on the CPU its device time is its
-host time. ``record`` adds a device time measured elsewhere: the train
-step's phases, timed by ``PhaseTimer``'s marks inside its CUDA graph.
+host time. ``record`` adds a device time measured elsewhere: the named
+intervals of an ``IntervalTimer``, timed inside a CUDA graph.
 
 ``drain()`` returns {"spans", "device", "counters"} and clears them. The
 spans and what reads each are listed in PERF.md, section 3.
 
 ``SpanTimer`` is always on: CUDA events around each UNet call or replay,
-read by the samplers' ``unet_step_ms``. ``SublayerTimer`` brackets the
-sublayers of a UNet call by kind (``unet.spatial``, ``unet.motion``,
-``unet.epi``) with marks made as ``PhaseTimer``'s, which the 2-view
-sampler's timestep body records, so a captured graph keeps them.
+read by the samplers' ``unet_step_ms``. ``IntervalTimer`` times named
+intervals with marks that a captured graph keeps: the train step's phases,
+and the sublayers of a UNet call by kind (``unet.spatial``,
+``unet.motion``, ``unet.epi``), where the caller passes the UNet a timer
+(the 2-view sampler's timestep body).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import torch
 
@@ -56,7 +57,6 @@ class _State:
         self.spans: List[dict] = []
         self.device: List[dict] = []
         self.local = threading.local()
-        self.sublayers: Optional["SublayerTimer"] = None   # the UNet call's, where one is timed
 
     def stack(self) -> list:
         stack = getattr(self.local, "stack", None)
@@ -86,14 +86,16 @@ def active() -> bool:
     return not s.child and (s.on or torch._C._autograd._profiler_enabled())
 
 
-def _mark(device: torch.device):
-    """A timing mark on ``device``: a CUDA event recorded on the current
-    stream (no sync), the host clock elsewhere."""
+def _mark(device: torch.device, now: Optional[float] = None, event=None):
+    """A timing mark on ``device``: on the card a CUDA event (``event``, else
+    a new one) recorded on the current stream, no sync; elsewhere the host
+    clock (``now``, else read here)."""
     if device.type != "cuda":
-        return time.perf_counter()
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
+        return time.perf_counter() if now is None else now
+    if event is None:
+        event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
 
 
 def _ms(a, b) -> float:
@@ -118,20 +120,16 @@ class _Span:
         self.range = torch.profiler.record_function("cvd/" + self.name)
         self.range.__enter__()
         self.start = time.perf_counter()
-        self.begin = None if self.device is None else self._device_mark(self.start)
+        # on the CPU a device span is its host span
+        self.begin = None if self.device is None else _mark(self.device, self.start)
         return self
-
-    def _device_mark(self, now: float):
-        """The device's mark beside the host clock's ``now``: a CUDA event,
-        or ``now`` itself (a device span on the CPU is its host span)."""
-        return _mark(self.device) if self.device.type == "cuda" else now
 
     def __exit__(self, *exc):
         end = time.perf_counter()
         s = _STATE
         if self.device is not None:
             s.device.append({"name": self.name, "parent": self.parent, "unit": self.unit,
-                             "marks": (self.begin, self._device_mark(end))})
+                             "marks": (self.begin, _mark(self.device, end))})
         self.range.__exit__(*exc)
         s.stack().pop()
         s.spans.append({"name": self.name, "parent": self.parent, "unit": self.unit,
@@ -185,40 +183,6 @@ def drain() -> dict:
     return {"spans": spans, "device": out, "counters": {"units": units}}
 
 
-class PhaseTimer:
-    """Timing marks at the boundaries of a body's phases (n phases, n + 1
-    marks), made so that a CUDA graph captured from the body keeps them:
-    CUDA events created ``external``, which a capture records as event nodes
-    of the graph, so every replay records them and an eager run of the body
-    records the same events. On the CPU the marks are the host clock."""
-
-    def __init__(self, device, phases: Sequence[str]):
-        self.phases = tuple(phases)
-        self.cuda = torch.device(device).type == "cuda"
-        n = len(self.phases) + 1
-        self.marks = ([torch.cuda.Event(enable_timing=True, external=True) for _ in range(n)]
-                      if self.cuda else [0.0] * n)
-
-    def mark(self, i: int) -> None:
-        if self.cuda:
-            self.marks[i].record()
-        else:
-            self.marks[i] = time.perf_counter()
-
-    def elapsed_ms(self) -> Dict[str, float]:
-        """Each phase's time in the last run of the body, in ms (waits for
-        the last mark)."""
-        if self.cuda:
-            self.marks[-1].synchronize()
-        return {p: _ms(a, b) for p, a, b in zip(self.phases, self.marks, self.marks[1:])}
-
-    def record(self) -> None:
-        """The last run's phases as device spans, where tracing is on."""
-        if active():
-            for name, ms in self.elapsed_ms().items():
-                record(name, ms)
-
-
 class SpanTimer:
     """Times each ``with timer:`` span on ``device``: CUDA events on the card
     (no sync until ``elapsed_ms``), the host clock on the CPU. A span of
@@ -252,65 +216,56 @@ class SpanTimer:
         return [ms / n for ms, n in zip(spans, self.calls) for _ in range(n)]
 
 
-class SublayerTimer:
-    """Marks around each sublayer of one UNet call, summed by kind: inside
-    ``with timer:`` (the call) every ``sublayer(kind)`` takes the next pair
-    of marks in the call's order, made on first use as ``PhaseTimer``'s
-    (CUDA events created ``external``: a capture keeps them as nodes of its
-    graph, so every replay records them). ``elapsed_ms`` reads the last
-    call's marks: {kind: ms}. On the CPU the marks are the host clock."""
+class IntervalTimer:
+    """Named intervals of a body's runs on ``device``, between marks made so
+    that a CUDA graph captured from the body keeps them: CUDA events created
+    ``external`` on first use, which a capture records as event nodes of the
+    graph, so every replay records them and an eager run of the body records
+    the same events. On the CPU the marks are the host clock.
+
+    ``start()`` begins a run; each ``mark(name)`` takes the run's next mark,
+    which ends the interval before it and begins ``name`` (None: begins
+    none); ``span(name)`` brackets a piece between two marks."""
 
     def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-        self.pairs: List[list] = []     # [kind, start, end] in the call's order
+        self.device = torch.device(device)
+        self.marks: list = []                     # in the order a run takes them
+        self.names: List[Optional[str]] = []      # the interval each mark begins
         self.used = 0
 
-    def __enter__(self):
+    def start(self) -> None:
         self.used = 0
-        _STATE.sublayers = self
-        return self
 
-    def __exit__(self, *exc):
-        _STATE.sublayers = None
-
-    def _mark(self, pair: list, i: int) -> None:
-        if self.cuda:
-            pair[i].record()
-        else:
-            pair[i] = time.perf_counter()
+    def mark(self, name: Optional[str] = None) -> None:
+        i = self.used
+        if i == len(self.marks):
+            self.marks.append(torch.cuda.Event(enable_timing=True, external=True)
+                              if self.device.type == "cuda" else None)
+            self.names.append(None)
+        self.names[i] = name
+        self.marks[i] = _mark(self.device, event=self.marks[i])
+        self.used += 1
 
     @contextlib.contextmanager
-    def span(self, kind: str):
-        if self.used == len(self.pairs):
-            marks = ([torch.cuda.Event(enable_timing=True, external=True) for _ in range(2)]
-                     if self.cuda else [0.0, 0.0])
-            self.pairs.append([kind, *marks])
-        pair = self.pairs[self.used]
-        pair[0] = kind
-        self.used += 1
-        self._mark(pair, 1)
+    def span(self, name: str):
+        self.mark(name)
         yield
-        self._mark(pair, 2)
+        self.mark()
 
     def elapsed_ms(self) -> Dict[str, float]:
-        """Each kind's time in the last call, in ms (waits for its marks)."""
-        pairs = self.pairs[:self.used]
-        if self.cuda and pairs:
-            pairs[-1][2].synchronize()
+        """Each name's time in the last run, summed, in ms (waits for the
+        run's last mark)."""
+        n = self.used
+        if self.device.type == "cuda" and n:
+            self.marks[n - 1].synchronize()
         out: Dict[str, float] = {}
-        for kind, a, b in pairs:
-            out[kind] = out.get(kind, 0.0) + _ms(a, b)
+        for name, a, b in zip(self.names[:n], self.marks[:n], self.marks[1:n]):
+            if name is not None:
+                out[name] = out.get(name, 0.0) + _ms(a, b)
         return out
 
     def record(self) -> None:
-        """The last call's kinds as device spans, where tracing is on."""
+        """The last run's intervals as device spans, where tracing is on."""
         if active():
             for name, ms in self.elapsed_ms().items():
                 record(name, ms)
-
-
-def sublayer(kind: str):
-    """A sublayer of the UNet call being timed (``SublayerTimer``), or the
-    null context where none is."""
-    timer = _STATE.sublayers
-    return _NULL if timer is None else timer.span(kind)

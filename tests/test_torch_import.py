@@ -42,3 +42,27 @@ def test_port_imports_no_jax_flax_or_cvd_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[-1]) >= 42, out.stdout
+
+
+def test_models_import_no_tracing():
+    """A UNet call is handed its sublayer timer by its caller: no module of
+    ``cvd_tpu_torch.models`` imports ``cvd_tpu_torch.utils.tracing``."""
+    import ast
+
+    models = os.path.join(os.path.dirname(os.path.abspath(cvd_tpu_torch.__file__)), "models")
+    banned = "cvd_tpu_torch.utils.tracing"
+    files = sorted(f for f in os.listdir(models) if f.endswith(".py"))
+    assert "unet.py" in files
+    for name in files:
+        with open(os.path.join(models, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                got = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = (node.module or "") if not node.level else ".".join(
+                    ["cvd_tpu_torch", "models"][:3 - node.level] + [node.module or ""]).rstrip(".")
+                got = [base] + [f"{base}.{a.name}" for a in node.names]
+            else:
+                continue
+            assert not [g for g in got if g == banned or g.startswith(banned + ".")], (name, got)

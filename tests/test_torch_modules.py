@@ -256,6 +256,24 @@ def test_random_full_still_draws_every_tensor():
         PipelineModules.create(device="meta", random_full=True)
 
 
+def test_the_pose_encoder_takes_its_own_channels_where_given():
+    """``pose_encoder_kwargs`` may give the pose encoder narrower widths than
+    the UNet's; without them it takes the UNet's."""
+    from cvd_tpu_torch.cli.build import SMOKE_CLIP, SMOKE_UNET, SMOKE_VAE
+    from cvd_tpu_torch.pipelines.common import PipelineModules
+
+    plucker = torch.randn(1, 2, 64, 64, 6, generator=torch.Generator().manual_seed(1))
+    for kwargs, want in ((None, SMOKE_UNET.block_out_channels),
+                         ({"channels": (16, 32, 32, 32)}, (16, 32, 32, 32))):
+        m = PipelineModules.create(SMOKE_UNET, SMOKE_VAE, SMOKE_CLIP, device="cpu",
+                                   generator=torch.Generator().manual_seed(0),
+                                   pose_encoder_kwargs=kwargs)
+        assert m.unet.config.block_out_channels == (32, 64, 64, 64)
+        with torch.no_grad():
+            feats = m.pose_encoder(plucker)
+        assert tuple(f.shape[-1] for f in feats) == tuple(want)
+
+
 # ---------------------------------------------------- pose, CLIP, VAE, DDIM
 
 def test_pose_encoder_matches_jax():

@@ -6,7 +6,8 @@ level, 8-wide spatial heads beside the motion and epi modules' 4, Linear
 projections, the ``text_time`` embedding), both text encoders (penultimate
 states, the pooled projection at the first EOS, GELU beside quick-GELU),
 ``encode_prompt``'s joined context, and a 2-step 2-view request through
-``SimplePipeline`` run eagerly. Also: a default ``UNetConfig`` builds
+``SimplePipeline`` run eagerly; ``AdvancedPipeline`` refuses this UNet
+before any draw. Also: a default ``UNetConfig`` builds
 SD1.5's keys and shapes, and the inference CLI builds and samples from a
 model config with a ``backbone`` section."""
 import json
@@ -151,6 +152,22 @@ def test_request(both):
                                   torch.Generator().manual_seed(3), 2, 8.5)
     _close(got, want, 1e-3)
     assert set(pipe.sublayers.elapsed_ms()) == {"unet.spatial", "unet.motion", "unet.epi"}
+
+
+def test_the_n_view_sampler_refuses_added_conditioning_before_any_draw(both):
+    """The N-view sampler does not pass SDXL's added conditioning yet: it
+    refuses a ``text_time`` UNet up front, its generator untouched."""
+    from cvd_tpu_torch.pipelines.advanced import AdvancedPipeline
+
+    prog, _ = both
+    pipe = AdvancedPipeline(prog, F_mat_size=TINY["epi_F_mat_size"], capture=False)
+    g = torch.Generator().manual_seed(5)
+    before = g.get_state()
+    with pytest.raises(ValueError, match="ROADMAP queue 5, item 1"):
+        pipe(_ids(4), _ids(2), torch.zeros(2, FRAMES, SIZE, SIZE, 6),
+             F_mats=torch.zeros(2, FRAMES, 3, 3), num_inference_steps=2, generator=g)
+    assert torch.equal(g.get_state(), before)
+    assert pipe.program.stats == {} and pipe.unet_step_ms == []
 
 
 def test_inference_cli_from_a_backbone_config(tmp_path):

@@ -8,6 +8,8 @@ data loader's counters:
 * the 2-view request path's spans (pose conditioning, ray condition,
   prepare with the text and pose encoders, denoise, decode), one unit a
   request;
+* a UNet call given an ``IntervalTimer`` marks its spatial, motion and
+  epi sublayers by kind; given none, it marks nothing;
 * ``TrainProgram``'s four phases, once a step and in order, within the
   step; its fill, stamp and replay spans where it replays (a replay played
   on the CPU as ``tests/test_torch_train_program.py`` plays it);
@@ -167,6 +169,52 @@ def test_request_path_spans(tracing):
     for name in ("sample.prepare", "sample.decode"):
         assert [d["parent"] for d in _named(got, name, "device")] == [None, None]
         assert all(d["ms"] > 0 for d in _named(got, name, "device"))
+
+
+def test_a_unet_call_given_a_timer_marks_its_sublayers(tracing, monkeypatch):
+    """A UNet call given an ``IntervalTimer`` brackets each spatial
+    transformer, motion module and epi module with two marks, named by
+    kind, and gives the output it gives without one; a call given none
+    makes no mark."""
+    from cvd_tpu_torch.models.epi import EpiConditioning
+    from cvd_tpu_torch.utils.tracing import IntervalTimer
+
+    m = _tiny_modules()
+    unet = m.unet
+    B, Fr, S = 4, 2, 8
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        args = (torch.randn(B, Fr, S, S, 4, generator=g), torch.tensor(999),
+                torch.randn(B, 77, unet.config.cross_attention_dim, generator=g),
+                list(m.pose_encoder(torch.randn(B, Fr, 8 * S, 8 * S, 6, generator=g))),
+                EpiConditioning(F_mats=torch.randn(B * Fr, 3, 3, generator=g) * 1e-3,
+                                video_length=Fr, F_mat_size=8 * S, slope=torch.tensor([1.1])))
+        timer = IntervalTimer("cpu")
+        timed = unet(*args, timer=timer)
+        timer.mark("left over")             # a second call starts the timer again
+        assert torch.equal(unet(*args, timer=timer), timed)
+        blocks = [*unet.down_blocks, unet.mid_block, *unet.up_blocks]
+        want = {kind: sum(len(getattr(b, attr) or ()) for b in blocks)
+                for kind, attr in (("unet.spatial", "attentions"),
+                                   ("unet.motion", "motion_modules"),
+                                   ("unet.epi", "epi_modules"))}
+        assert min(want.values()) > 0
+        names = timer.names[:timer.used]
+        assert names[1::2] == [None] * (timer.used // 2)
+        assert {k: names[0::2].count(k) for k in want} == want
+        assert timer.used == 2 * sum(want.values())
+        ms = timer.elapsed_ms()
+        assert set(ms) == set(want) and all(v > 0 for v in ms.values())
+        tracing.enable(True)
+        timer.record()
+        assert [d["name"] for d in tracing.drain()["device"]] == list(ms)
+
+        def refuse(self, name=None):
+            raise AssertionError("a mark was made by a UNet call given no timer")
+
+        monkeypatch.setattr(IntervalTimer, "mark", refuse)
+        assert torch.equal(unet(*args), timed)
+    assert tracing.drain()["device"] == []
 
 
 class _Replay:
